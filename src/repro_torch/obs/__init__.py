@@ -1,0 +1,26 @@
+"""repro_torch.obs — observability: span tracing, metric registry and
+structured logging (a copy of the JAX package's framework-free
+``repro.obs``; its Perfetto report tool is not carried over yet).
+
+- :mod:`repro_torch.obs.trace`   — thread-aware span tracer, Chrome trace export,
+  fleet merge (``REPRO_TRACE=1`` to enable).
+- :mod:`repro_torch.obs.metrics` — typed counter/gauge/histogram registry;
+  round metrics are snapshots/deltas of it.
+- :mod:`repro_torch.obs.log`     — structured stderr logger (``REPRO_LOG`` level).
+"""
+from repro_torch.obs import trace
+from repro_torch.obs.log import get_logger
+from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricRegistry, RegistryTimers
+from repro_torch.obs.trace import span, stage
+
+__all__ = [
+    "trace",
+    "span",
+    "stage",
+    "get_logger",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricRegistry",
+    "RegistryTimers",
+]

@@ -35,6 +35,8 @@ except ModuleNotFoundError:
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc (skips without)")
 
 
 import pytest  # noqa: E402  (after the env setup above, by design)

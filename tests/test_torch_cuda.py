@@ -1,0 +1,176 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here needs an NVIDIA card and ``nvcc`` and skips
+without them; run them on the card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Ids and masks must match exactly, floats within 1e-5 (one float32 op),
+served scores within 1e-4 of the same engine on the CPU.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.dgraph import DynamicGraph
+from repro_torch.core.rand import gumbel_noise
+from repro_torch.core.snapshot import build_snapshot
+from repro_torch.kernels import runtime
+from repro_torch.kernels.cache_gather.ops import cache_gather
+from repro_torch.kernels.cache_gather.ref import cache_gather_ref
+from repro_torch.kernels.temporal_attn.ops import temporal_attn
+from repro_torch.kernels.temporal_attn.ref import temporal_attn_ref
+from repro_torch.kernels.temporal_sample.ops import temporal_sample
+from repro_torch.kernels.temporal_sample.ref import (
+    temporal_sample_ref, temporal_sample_uniform_ref)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _snapshot(tau, n_nodes=60, n_events=3000, seed=0):
+    rng = np.random.default_rng(seed)
+    g = DynamicGraph(threshold=tau, min_block=2, undirected=True)
+    g.add_edges(rng.zipf(1.5, n_events) % n_nodes,
+                rng.integers(0, n_nodes, n_events),
+                np.sort(rng.uniform(0, 1000.0, n_events)))
+    return build_snapshot(g), n_nodes
+
+
+@pytest.mark.parametrize("tau,k,policy", [
+    (8, 5, "recent"), (64, 10, "recent"), (128, 32, "recent"),
+    (8, 5, "uniform"), (64, 10, "uniform"), (128, 32, "uniform")])
+def test_temporal_sample_kernel_matches_plain(card, tau, k, policy):
+    snap, n = _snapshot(tau, seed=tau + k)
+    rng = np.random.default_rng(k)
+    N = 300
+    targets = rng.integers(-3, n + 3, N).astype(np.int32)
+    t_end = rng.uniform(50, 1100, N).astype(np.float32)
+    t_start = np.where(rng.random(N) < 0.5, -np.inf,
+                       t_end - 200).astype(np.float32)
+    tmask = rng.random(N) < 0.9
+    pages = [torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in
+             (snap.page_table, snap.page_tmin, snap.page_tmax, snap.nbr,
+              snap.eid, snap.ts, snap.valid)]
+    q = [torch.from_numpy(a).to(card) for a in (targets, t_end, t_start,
+                                                 tmask)]
+    scan = min(16, snap.page_table.shape[1])
+    plain_pt = pages[0][:, :scan].contiguous()
+    noise = None
+    if policy == "uniform":
+        noise = gumbel_noise(torch.Generator(device=card).manual_seed(k),
+                             (N, scan, snap.ts.shape[1]), card)
+    runtime.reset_launch_counts()
+    got = temporal_sample(*pages, *q, k=k, policy=policy, noise=noise,
+                          scan=scan)
+    assert runtime.launch_counts() == {f"temporal_sample_{policy}": 1}
+    if policy == "uniform":
+        want = temporal_sample_uniform_ref(plain_pt, *pages[1:], *q, noise,
+                                           k=k)
+    else:
+        want = temporal_sample_ref(plain_pt, *pages[1:], *q, k=k)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[3].sum()) > 0
+
+
+@pytest.mark.parametrize("dim", [172, 128, 7])
+def test_cache_gather_kernel_matches_plain(card, dim):
+    rng = np.random.default_rng(dim)
+    M, C, N = 5000, 300, 4096
+    slot_of = np.full(M, -1, np.int32)
+    ids = rng.choice(M, C, replace=False).astype(np.int32)
+    ids[::7] = -1                                   # empty slots
+    live = ids >= 0
+    slot_of[ids[live]] = np.nonzero(live)[0]
+    slot_of[rng.integers(0, M, 50)] = rng.integers(0, C, 50)  # stale
+    req = rng.integers(-2, M, N).astype(np.int32)
+    req[: N // 2] = rng.choice(ids[live], N // 2)
+    feats = rng.normal(size=(C, dim)).astype(np.float32)
+    args = [torch.from_numpy(a).to(card) for a in (slot_of, ids, feats,
+                                                    req)]
+    out, hit = cache_gather(*args)
+    w_out, w_hit = cache_gather_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(hit, w_hit) and int(hit.sum()) >= N // 2
+    assert torch.equal(out, w_out)
+
+
+@pytest.mark.parametrize("n,k,h,dh", [(1280, 10, 2, 50), (37, 32, 4, 128),
+                                      (5, 1, 1, 7)])
+def test_temporal_attn_kernel_matches_plain(card, n, k, h, dh):
+    g = torch.Generator(device=card).manual_seed(n)
+    q = torch.randn((n, h, dh), generator=g, device=card)
+    kk = torch.randn((n, k, h, dh), generator=g, device=card)
+    v = torch.randn((n, k, h, dh), generator=g, device=card)
+    mask = torch.rand((n, k), generator=g, device=card) < 0.6
+    mask[0] = False
+    got = temporal_attn(q, kk, v, mask)
+    want = temporal_attn_ref(q, kk, v, mask)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5
+    assert (got[0] == 0).all()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        temporal_attn(q.requires_grad_(), kk, v, mask)
+    with pytest.raises(TypeError):
+        temporal_attn(q.detach().double(), kk, v, mask)
+
+
+def test_engine_on_the_card_matches_the_cpu_engine(card):
+    from repro_torch.configs.tgn_gdelt import tgat
+    from repro_torch.core.feature_store import ReplicatedStateService
+    from repro_torch.data.events import synth_ctdg
+    from repro_torch.models.gnn import init_params
+    from repro_torch.serve import HandlePublisher, QueryEngine
+
+    cfg = tgat(d_node=16, d_edge=12, d_time=8, d_hidden=20,
+               sampling="recent")
+    stream = synth_ctdg(n_nodes=200, n_events=4000, d_node=16, d_edge=12,
+                        seed=1)
+    state = ReplicatedStateService(1, d_node=16, d_edge=12)
+    g = DynamicGraph(threshold=16, undirected=True)
+    eids = g.add_edges(stream.src, stream.dst, stream.ts)
+    nodes = np.unique(np.concatenate([stream.src, stream.dst]))
+    state.put_node_feats(nodes, stream.node_features(nodes))
+    state.register_edges(np.unique(eids), np.zeros_like(np.unique(eids)))
+    state.put_edge_feats(np.unique(eids), stream.edge_features(
+        np.unique(eids)))
+    snap = build_snapshot(g)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    engines = []
+    for dev, p in ((card, {k: _to(v, card) for k, v in params.items()}),
+                   ("cpu", params)):
+        pub = HandlePublisher(device=dev)
+        pub.publish(snap, params=p)
+        engines.append(QueryEngine(pub, cfg=cfg, state=state, device=dev,
+                                   record_neighbors=True, cache_nodes=32,
+                                   cache_edges=256))
+    t_q = float(stream.ts.max()) + 1
+    rng = np.random.default_rng(0)
+    qs = [(rng.integers(0, 200, 5), rng.integers(0, 200, 5),
+           np.full(5, t_q, np.float32)) for _ in range(6)]
+    runtime.reset_launch_counts()
+    with engines[0], engines[1]:
+        res = [[e.query_link(*q) for q in qs] for e in engines]
+    counts = runtime.launch_counts()
+    for name in ("temporal_sample_recent", "cache_gather", "temporal_attn"):
+        assert counts.get(name, 0) > 0, name
+    for a, b in zip(*res):
+        for key in a.nbrs:
+            np.testing.assert_array_equal(a.nbrs[key], b.nbrs[key])
+        np.testing.assert_allclose(a.scores, b.scores, atol=1e-4, rtol=0)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
