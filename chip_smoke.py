@@ -1,22 +1,22 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--events N]
+    python3 chip_smoke.py [--seed N] [--events N] [--nodes N]
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. print the card's name and power limit (``nvidia-smi``) and build the
-   three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` each,
+   CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
    in parallel);
 2. ingest a synthetic stream at the size of the public Reddit
    temporal-interaction dataset (JODIE: 10,984 nodes, 672,447 events,
    172-dim edge features) through the serving wing's publish path, and
    warm the engine with a few queries;
-3. kernel phase: each of the four kernel bodies (temporal_sample recent
-   and uniform, cache_gather, temporal_attn) runs at the serving path's
-   shapes on the live mirror and caches, against its plain PyTorch
-   version on the same inputs (ids and masks exact, floats within
-   1e-5), and is timed beside the plain version and, for
+3. kernel phase: each of the four forward kernel bodies (temporal_sample
+   recent and uniform, cache_gather, temporal_attn) runs at the serving
+   path's shapes on the live mirror and caches, against its plain
+   PyTorch version on the same inputs (ids and masks exact, floats
+   within 1e-5), and is timed beside the plain version and, for
    temporal_attn, a masked ``scaled_dot_product_attention``: device
    time per call from ``torch.profiler`` (L2 flushed before each call)
    and time per call between CUDA events, which also holds the host's
@@ -30,7 +30,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    positive, and the same engine rebuilt on the CPU must agree (hop-0
    neighbourhoods exact, scores and embeddings within 1e-4);
 5. ``uniform`` sampling: every sampled hop-0 neighbour must be an
-   in-window candidate and each target must get min(K, n) of them.
+   in-window candidate and each target must get min(K, n) of them;
+6. training phase: the temporal_attn backward kernel against the plain
+   autograd (1e-5) at the TGAT hop shapes of a sampled batch, timed
+   beside the plain backward and the autograd backward of a masked
+   ``scaled_dot_product_attention``; then ``ContinuousTrainer`` for TGN
+   (recent, batch 4000) and TGAT (uniform, batch 600) at full width
+   ingests the first 600,000 events and runs 3 rounds of 12,000 events
+   with 2 epochs each: losses finite, every kernel of the path launched
+   (the backward once per train step and layer), the per-stage split,
+   the share of each train prefetch that overlaps the step before it
+   (CUDA events), and the device's busy share over one round
+   (``torch.profiler``).  A card trainer and a CPU trainer agree over
+   a one-batch round (2 train steps) after a 50,000-event prefix (TGN
+   and TGAT with recent sampling: per-step loss, eval loss and AP
+   within 1e-4, cache hit rates equal), and 64 link queries through
+   ``QueryEngine.attach`` on the card's TGAT trainer match
+   ``offline_forward`` (1e-4).
 
 The second-to-last line is the JSON ``kernels`` record, the last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -116,6 +132,16 @@ def device_ms(torch, fn, flush, *, reps: int = 30) -> float:
     both = busy(lambda: (flush.zero_(), fn()))
     alone = busy(flush.zero_)
     return (both - alone) / reps / 1e3
+
+
+def top_ops(torch, prof, n: int = 6) -> list:
+    """The ``n`` device events of a profile with the most device time:
+    [(name, ms)]."""
+    cuda = torch.autograd.DeviceType.CUDA
+    top = sorted((e for e in prof.key_averages() if e.device_type == cuda),
+                 key=lambda e: -e.self_device_time_total)[:n]
+    return [(e.key[:48], round(e.self_device_time_total / 1e3, 3))
+            for e in top]
 
 
 def timings(torch, fn, flush) -> tuple:
@@ -432,11 +458,8 @@ def device_busy(torch, eng, feed, queries):
             spans.setdefault(e["kind"], []).append(e["dur_us"] / 1e3)
     split = {k: round(float(np.sum(v)) / len(spans["serve.batch"]), 3)
              for k, v in sorted(spans.items())}
-    cuda = torch.autograd.DeviceType.CUDA
-    top = sorted((e for e in prof.key_averages() if e.device_type == cuda),
-                 key=lambda e: -e.self_device_time_total)[:6]
-    return device_us(torch, prof) / (wall * 1e6), wall, split, [
-        (e.key[:48], round(e.self_device_time_total / 1e3, 3)) for e in top]
+    return (device_us(torch, prof) / (wall * 1e6), wall, split,
+            top_ops(torch, prof))
 
 
 def probe_ms(cache, ids, reps: int = 5) -> float:
@@ -503,7 +526,11 @@ def main() -> int:
     log(f"[build] {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    rows = run(torch, dev, args)
+    from repro_torch.data.events import synth_ctdg
+    stream = synth_ctdg(n_nodes=args.nodes, n_events=args.events,
+                        d_node=128, d_edge=172, seed=args.seed)
+    rows = run(torch, dev, args, stream)
+    rows += train_phase(torch, dev, args, stream)
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -516,12 +543,11 @@ def main() -> int:
     return 0
 
 
-def run(torch, dev, args):
+def run(torch, dev, args, stream):
     """Phases 2-5 on ``dev``; returns the kernel rows with their
     launch counts from the serving runs."""
     from repro_torch.configs.tgn_gdelt import tgat
     from repro_torch.core.feature_store import ReplicatedStateService
-    from repro_torch.data.events import synth_ctdg
     from repro_torch.kernels import runtime
     from repro_torch.models.gnn import init_params
     from repro_torch.serve import HandlePublisher, QueryEngine
@@ -530,9 +556,6 @@ def run(torch, dev, args):
     rng = np.random.default_rng(args.seed)
     cfg = tgat(sampling="recent")
     t0 = time.perf_counter()
-    stream = synth_ctdg(n_nodes=args.nodes, n_events=args.events,
-                        d_node=cfg.d_node, d_edge=cfg.d_edge,
-                        seed=args.seed)
     state = ReplicatedStateService(1, d_node=cfg.d_node, d_edge=cfg.d_edge)
     params = init_params(cfg, torch.Generator().manual_seed(args.seed),
                          device=dev)
@@ -707,6 +730,284 @@ def run(torch, dev, args):
             raise AssertionError(f"{r['name']}: no launch on its path")
     log(f"[serve] launches per served batch (recent run): {per_batch}")
     return rows
+
+# ---------------------------------------------------------------------------
+# training phase
+# ---------------------------------------------------------------------------
+
+WARM_EVENTS = 600_000     # ingested before the first round
+ROUND_EVENTS = 12_000     # events per continuous round
+ROUNDS, EPOCHS = 3, 2
+PARITY_EVENTS = 50_000    # prefix of the card-vs-CPU check
+# one batch each, 2 train steps: float noise grows with steps (see
+# card_vs_cpu)
+PARITY_ROUND = {"tgn": 4_000, "tgat": 600}
+
+
+def backward_row(torch, tr, dev):
+    """The temporal_attn backward kernel against the plain autograd at
+    the two hop shapes of one sampled TGAT batch (hop 0: N = 3 x batch,
+    hop 1: N x K), with the masks the sampler gave; random q, k, v and
+    dout.  Timed beside the plain backward and the autograd backward of
+    one masked ``scaled_dot_product_attention`` (a yardstick, never
+    called by the port).  Returns the row at the hop-1 shape."""
+    from repro_torch.kernels.temporal_attn.ops import temporal_attn
+    from repro_torch.kernels.temporal_attn.ref import temporal_attn_ref
+
+    cfg, stream = tr.cfg, tr.stream
+    H, dh, K = cfg.n_heads, cfg.d_hidden // cfg.n_heads, cfg.fanouts[0]
+    n = cfg.batch_size
+    lo = WARM_EVENTS - n
+    neg = np.random.default_rng(5).integers(0, stream.n_nodes, n)
+    seeds = np.concatenate([stream.src[lo:lo + n], stream.dst[lo:lo + n],
+                            neg])
+    seed_ts = np.tile(stream.ts[lo:lo + n], 3).astype(np.float32)
+    masks = [layer.mask.contiguous() for layer in
+             tr.sampler.sample(seeds, seed_ts)]
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    F = torch.nn.functional
+    row = None
+    for hop, mask in enumerate(masks):
+        N = mask.shape[0]
+        g = torch.Generator(device=dev).manual_seed(N)
+        ins = [torch.randn(shape, generator=g, device=dev).requires_grad_()
+               for shape in ((N, H, dh), (N, K, H, dh), (N, K, H, dh))]
+        dout = torch.randn((N, H, dh), generator=g, device=dev)
+        out_k = temporal_attn(*ins, mask)
+        out_p = temporal_attn_ref(*ins, mask)
+        got = torch.autograd.grad(out_k, ins, dout, retain_graph=True)
+        want = torch.autograd.grad(out_p, ins, dout, retain_graph=True)
+        torch.cuda.synchronize()
+        err = max(max_err(torch, a, b, f"temporal_attn_bwd hop {hop} {nm}")
+                  for nm, a, b in zip(("dq", "dk", "dv"), got, want))
+        q, kk, v = (t.detach() for t in ins)
+        lib_in = [q.reshape(N * H, 1, dh)] + [
+            t.permute(0, 2, 1, 3).reshape(N * H, K, dh) for t in (kk, v)]
+        lib_in = [t.contiguous().requires_grad_() for t in lib_in]
+        m_l = mask[:, None, :].expand(N, H, K).reshape(N * H, 1, K)
+        out_l = F.scaled_dot_product_attention(*lib_in, attn_mask=m_l)
+        d_l = dout.reshape(N * H, 1, dh)
+        kernel = lambda: torch.autograd.grad(out_k, ins, dout,
+                                             retain_graph=True)
+        plain = lambda: torch.autograd.grad(out_p, ins, dout,
+                                            retain_graph=True)
+        library = lambda: torch.autograd.grad(out_l, lib_in, d_l,
+                                              retain_graph=True)
+        ms, call = timings(torch, kernel, flush)
+        plain_ms, plain_call = timings(torch, plain, flush)
+        lib_ms = device_ms(torch, library, flush)
+        nbytes = 4 * N * H * dh * ((2 * K + 2) + (2 * K + 1)) + N * K
+        b, by = bound_ms(nbytes, 8.0 * N * H * K * dh + 6.0 * N * H * K)
+        shape = f"N={N} H={H} Dh={dh} K={K}"
+        log(f"[kernel] temporal_attn_bwd        {shape:<32} ok "
+            f"max|err|={err:.3g} (tol {ATOL_KERNEL}) device ms: kernel "
+            f"{ms:.4f}  plain {plain_ms:.4f}  bound {b:.4f} ({by}, "
+            f"{nbytes / 1e6:.1f} MB)  library {lib_ms:.4f} ms; ms per "
+            f"call: kernel {call:.4f}  plain {plain_call:.4f}")
+        row = dict(name="temporal_attn_bwd", route="cuda",
+                   source="src/repro_torch/csrc/temporal_attn.cu",
+                   replaces="src/repro/kernels/temporal_attn/"
+                            "temporal_attn.py:21",
+                   max_abs_err=err, shape=shape, ms=ms, call_ms=call,
+                   plain_ms=plain_ms, plain_call_ms=plain_call,
+                   bound_ms=b, bound_by=by, library_ms=lib_ms)
+    return row
+
+
+class OverlapProbe:
+    """How much of each train prefetch runs while the step before it is
+    still on the device.  At each prefetch start a CUDA event is
+    recorded; it completes when the work queued before it (the previous
+    step) retires.  Its device time, against an event recorded on an
+    idle device at a known host time, gives the step's end on the host
+    clock, and the overlap of that prefetch is the part of its host span
+    before that end."""
+
+    def __init__(self, torch, tr):
+        self.torch, self.tr = torch, tr
+        self.spans = []
+        torch.cuda.synchronize()
+        self.zero = torch.cuda.Event(enable_timing=True)
+        self.h0 = time.perf_counter()
+        self.zero.record()
+        stage = tr._stage_train
+
+        def probed(item):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            p0 = time.perf_counter()
+            out = stage(item)
+            self.spans.append((p0, time.perf_counter(), ev))
+            return out
+
+        tr._stage_train = probed
+
+    def close(self) -> tuple:
+        """(overlapped s, prefetch s) summed over the round's prefetches."""
+        del self.tr._stage_train
+        self.torch.cuda.synchronize()
+        over = total = 0.0
+        for p0, p1, ev in self.spans:
+            end = self.h0 + self.zero.elapsed_time(ev) / 1e3
+            over += min(max(end - p0, 0.0), p1 - p0)
+            total += p1 - p0
+        return over, total
+
+
+def train_runs(torch, dev, args, stream):
+    """TGN and TGAT at full width on the card: ingest, then ROUNDS
+    continuous rounds.  Returns the backward kernel's row (launches
+    summed over both trainers' rounds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.tgn_gdelt import tgat, tgn
+    from repro_torch.core.continuous import ContinuousTrainer
+    from repro_torch.kernels import runtime
+
+    row = None
+    bwd_launches = 0
+    for cfg in (tgn(), tgat()):
+        name, L = cfg.name, cfg.n_layers
+        t0 = time.perf_counter()
+        tr = ContinuousTrainer(cfg, stream, seed=args.seed, device=dev)
+        tr.ingest(stream.slice(0, WARM_EVENTS))
+        torch.cuda.synchronize()
+        log(f"[train] {name} ({cfg.sampling}, batch {cfg.batch_size}, "
+            f"fanouts {cfg.fanouts}): ingested {WARM_EVENTS} events in "
+            f"{time.perf_counter() - t0:.1f} s; node cache "
+            f"{tr.node_cache.capacity}, edge cache {tr.edge_cache.capacity}")
+        if name == "tgat":
+            row = backward_row(torch, tr, dev)
+        runtime.reset_launch_counts()
+        steps = evals = 0
+        for r in range(ROUNDS):
+            lo = WARM_EVENTS + r * ROUND_EVENTS
+            probe = OverlapProbe(torch, tr)
+            t0 = time.perf_counter()
+            if r == ROUNDS - 1:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    m = tr.train_round(stream.slice(lo, lo + ROUND_EVENTS),
+                                       epochs=EPOCHS)
+                    torch.cuda.synchronize()
+            else:
+                m = tr.train_round(stream.slice(lo, lo + ROUND_EVENTS),
+                                   epochs=EPOCHS)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            over, pre = probe.close()
+            losses = m.step_losses + [m.eval_loss]
+            if not (np.isfinite(losses).all() and 0.0 <= m.ap <= 1.0):
+                raise AssertionError(f"{name} round {r}: non-finite loss "
+                                     f"or bad AP ({m})")
+            steps += len(m.step_losses)
+            evals += math.ceil(ROUND_EVENTS / cfg.batch_size)
+            busy = ""
+            if r == ROUNDS - 1:
+                share = device_us(torch, prof) / (wall * 1e6)
+                busy = (f"; device busy {share:.4f} of the round's wall "
+                        f"time; top device ops (ms): {top_ops(torch, prof)}")
+            log(f"[train] {name} round {r}: loss {m.loss:.6f} eval loss "
+                f"{m.eval_loss:.6f} AP {m.ap:.6f}; round {wall:.3f} s: "
+                f"sample_s {m.sample_s:.3f} fetch_s {m.fetch_s:.3f} step_s "
+                f"{m.step_s:.3f} train_s {m.train_s:.3f} ingest_s "
+                f"{m.ingest_s:.3f}; hit rate node {m.node_hit_rate:.4f} "
+                f"edge {m.edge_hit_rate:.4f}; {len(m.step_losses)} train "
+                f"steps; prefetch {pre:.3f} s, of which {over:.3f} s "
+                f"({over / max(pre, 1e-12):.4f}) overlaps the step before"
+                + busy)
+        torch.cuda.synchronize()
+        counts = runtime.launch_counts()
+        sample = f"temporal_sample_{cfg.sampling}"
+        want = {"temporal_attn": (steps + evals) * L,
+                "temporal_attn_bwd": steps * L}
+        for k, v in want.items():
+            if counts.get(k, 0) != v:
+                raise AssertionError(f"{name}: {k} launched "
+                                     f"{counts.get(k, 0)} times, expected {v}")
+        for k in (sample, "cache_gather"):
+            if counts.get(k, 0) <= 0:
+                raise AssertionError(f"{name}: {k} never launched")
+        bwd_launches += counts["temporal_attn_bwd"]
+        per = {k: round(v / (steps + evals), 3) for k, v in counts.items()}
+        log(f"[train] {name}: launches over {ROUNDS} rounds ({steps} train "
+            f"+ {evals} eval steps) {counts}; per step {per}")
+        del tr
+    row["launches"] = bwd_launches
+    return row
+
+
+def card_vs_cpu(torch, dev, args, stream):
+    """One round on a PARITY_EVENTS prefix, on the card and on the CPU,
+    from the same seed (TGN, TGAT with recent sampling): per-step loss,
+    eval loss and AP within 1e-4, cache hit rates equal.  The rounds are
+    one batch long: the two devices sum in different orders, and on
+    this stream's time span the time encoding and Adam's normalised
+    steps grow that float noise step by step (TGAT, recent: 6e-8 after
+    2 steps, 4e-5 after 4, 1.6e-3 after 8 on an H100; ROADMAP queue 3).
+    Returns the card's TGAT trainer."""
+    from repro_torch.configs.tgn_gdelt import tgat, tgn
+    from repro_torch.core.continuous import ContinuousTrainer
+
+    card_tgat = None
+    for cfg in (tgn(), tgat(sampling="recent")):
+        n = PARITY_ROUND[cfg.name]
+        out = []
+        for d in (dev, "cpu"):
+            t0 = time.perf_counter()
+            tr = ContinuousTrainer(cfg, stream, seed=args.seed, device=d)
+            tr.ingest(stream.slice(0, PARITY_EVENTS))
+            m = tr.train_round(stream.slice(PARITY_EVENTS,
+                                            PARITY_EVENTS + n),
+                               epochs=EPOCHS)
+            out.append((tr, m, time.perf_counter() - t0))
+        (tr, a, t_card), (_, b, t_cpu) = out
+        steps = [abs(x - y) for x, y in zip(a.step_losses, b.step_losses)]
+        worst = max(steps + [abs(a.eval_loss - b.eval_loss),
+                             abs(a.ap - b.ap)])
+        if len(a.step_losses) != len(b.step_losses) or not \
+                worst <= ATOL_SERVED:
+            raise AssertionError(f"{cfg.name} card vs CPU: {a} vs {b}")
+        if (a.node_hit_rate, a.edge_hit_rate) != (b.node_hit_rate,
+                                                  b.edge_hit_rate):
+            raise AssertionError(f"{cfg.name}: card and CPU caches differ")
+        log(f"[train] card == CPU, {cfg.name} ({cfg.sampling}), one round "
+            f"of {n} events after {PARITY_EVENTS}: {len(a.step_losses)} "
+            f"step losses, eval loss and AP within {worst:.3g} (tol "
+            f"{ATOL_SERVED}); per-step |diff| "
+            f"{[float(f'{d:.3g}') for d in steps]}; eval loss |diff| "
+            f"{abs(a.eval_loss - b.eval_loss):.3g}, AP |diff| "
+            f"{abs(a.ap - b.ap):.3g}; card {t_card:.1f} s, CPU "
+            f"{t_cpu:.1f} s")
+        if cfg.name == "tgat":
+            card_tgat = tr
+    return card_tgat
+
+
+def attached_serving(tr, hi):
+    """64 link queries (among the first ``hi`` events, which ``tr`` has
+    ingested) through ``QueryEngine.attach(tr)`` against
+    ``offline_forward`` on their pinned version."""
+    from repro_torch.serve import QueryEngine
+
+    rng = np.random.default_rng(17)
+    t_q = float(tr.stream.ts[hi - 1]) + 1.0
+    queries = make_queries(rng, tr.stream, hi, 64, 0, t_q)
+    with QueryEngine.attach(tr, max_batch=64, start=False) as eng:
+        results, _ = serve(eng, None, queries, 128)
+        worst, groups = check_offline(eng, results)
+    log(f"[train] QueryEngine.attach(tgat trainer): 64 link queries match "
+        f"offline_forward on version {results[0][1].version} ({groups} "
+        f"group): max |diff| {worst:.3g} (tol {ATOL_SERVED})")
+
+
+def train_phase(torch, dev, args, stream):
+    t0 = time.perf_counter()
+    row = train_runs(torch, dev, args, stream)
+    attached_serving(card_vs_cpu(torch, dev, args, stream),
+                     PARITY_EVENTS + PARITY_ROUND["tgat"])
+    log(f"[train] training phase done in {time.perf_counter() - t0:.1f} s")
+    return [row]
+
 
 
 class _Owner:

@@ -1,4 +1,6 @@
-"""Plain PyTorch version of the temporal_attn kernel."""
+"""Plain PyTorch version of the temporal_attn kernels: the forward, and,
+through PyTorch's autograd of the same expression, the backward (the
+`where` blocks every gradient of a masked neighbour)."""
 from __future__ import annotations
 
 import torch

@@ -1,10 +1,12 @@
-"""Temporal & static GNN models over sampled neighbourhoods, forward
-path (counterpart of ``repro.models.gnn``; GNNFlow §2.1).
+"""Temporal & static GNN models over sampled neighbourhoods (counterpart
+of ``repro.models.gnn``; GNNFlow §2.1), with the TGN memory updater,
+the link head, the loss and the AP metric.
 
 All models consume mask-padded fixed-fanout neighbourhoods assembled by
 ``repro_torch.core.mfg.assemble``.  The attention core of TGN/TGAT is
-the hand-written ``temporal_attn`` kernel on the card; the projections
-are plain ``torch.matmul``.  Parameters are nested dicts/lists of
+the hand-written ``temporal_attn`` kernel pair on the card (forward,
+and backward under autograd); the projections are plain
+``torch.matmul``.  Parameters are nested dicts/lists of
 tensors with the JAX package's tree layout, so
 ``repro_torch.models.convert.params_from_jax`` loads a JAX tree as is.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -217,8 +220,58 @@ def gnn_embed(params: Params, cfg: GNNConfig, hops: List[dict]
     return h
 
 
+def dysat_embed(params: Params, cfg: GNNConfig,
+                snapshots: List[List[dict]]) -> torch.Tensor:
+    """DySAT: structural embedding per time-window snapshot + temporal
+    self-attention across the snapshot axis (newest last)."""
+    embs = [gnn_embed(params, cfg, hops) for hops in snapshots]
+    H = torch.stack(embs, dim=1)                 # (N, T, d)
+    ta = params["temp_attn"]
+    q = H @ ta["wq"]
+    k = H @ ta["wk"]
+    v = H @ ta["wv"]
+    s = torch.einsum("ntd,nsd->nts", q, k) / (H.shape[-1] ** 0.5)
+    # causal across snapshots: window t attends to windows <= t
+    T = H.shape[1]
+    causal = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                   device=H.device))
+    s = torch.where(causal[None], s, -1e30)
+    a = torch.softmax(s, dim=-1)
+    out = torch.einsum("nts,nsd->ntd", a, v)
+    return out[:, -1]                            # newest snapshot's view
+
+
 # ---------------------------------------------------------------------------
-# Link prediction head
+# TGN node memory (message -> last-aggregation -> GRU)
+# ---------------------------------------------------------------------------
+
+
+def _gru(p, msg, mem):
+    x = torch.cat([msg, mem], dim=-1)
+    z = torch.sigmoid(x @ p["w_z"] + p["b_z"])
+    r = torch.sigmoid(x @ p["w_r"] + p["b_r"])
+    xn = torch.cat([msg, r * mem], dim=-1)
+    n = torch.tanh(xn @ p["w_n"] + p["b_n"])
+    return (1 - z) * mem + z * n
+
+
+def memory_batch_update(mp: Params, nodes, mem: torch.Tensor,
+                        last_upd: torch.Tensor, other_mem: torch.Tensor,
+                        e_feat: torch.Tensor, t: torch.Tensor
+                        ) -> torch.Tensor:
+    """Updated memories given one event each (``nodes`` is unused, as in
+    the JAX package).  mem/other_mem: (E, dm) current memories of the
+    endpoints; e_feat: (E, de); t: (E,).  Returns (E, dm) new memories;
+    when a node has several events the caller's later write wins
+    (the paper's 'last' message aggregator)."""
+    dt = torch.clamp(t - last_upd, min=0.0)
+    phi = time_encode(dt, mp["te"]["w"], mp["te"]["b"])
+    msg = torch.cat([mem, other_mem, phi, e_feat], dim=-1)
+    return _gru(mp, msg, mem)
+
+
+# ---------------------------------------------------------------------------
+# Link prediction head + loss/metric
 # ---------------------------------------------------------------------------
 
 
@@ -227,3 +280,30 @@ def link_score(p: Params, h_u: torch.Tensor, h_v: torch.Tensor
     x = torch.cat([h_u, h_v], dim=-1)
     h = torch.relu(x @ p["w1"] + p["b1"])
     return (h @ p["w2"] + p["b2"])[..., 0]
+
+
+def bce_logits(scores: torch.Tensor, labels: torch.Tensor,
+               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean BCE over logits; with ``weights``, the weighted mean over
+    positive-weight lanes (padded ragged-tail lanes carry weight 0, so
+    a padded batch scores exactly its real events)."""
+    per = (torch.clamp(scores, min=0) - scores * labels
+           + torch.log1p(torch.exp(-torch.abs(scores))))
+    if weights is None:
+        return torch.mean(per)
+    w = weights.to(per.dtype)
+    return torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def average_precision(scores, labels) -> float:
+    """Sklearn-style AP over numpy arrays (a copy of the JAX package's)."""
+    scores = np.asarray(scores, np.float64)
+    labels = np.asarray(labels, np.float64)
+    order = np.argsort(-scores, kind="stable")
+    labels = labels[order]
+    tp = np.cumsum(labels)
+    precision = tp / (np.arange(len(labels)) + 1)
+    n_pos = labels.sum()
+    if n_pos == 0:
+        return 0.0
+    return float((precision * labels).sum() / n_pos)

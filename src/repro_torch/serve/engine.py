@@ -11,7 +11,10 @@ launch per cache fetch, one ``temporal_attn`` launch per GNN layer.
 Tiering: when the GNN queue is saturated (depth ≥ ``saturate_depth``)
 or full, link queries fall back to the :class:`EdgeBank` table.
 
-Wiring without a trainer (the ingest sequence of the JAX package's
+Wiring to a trainer: ``QueryEngine.attach(trainer)`` (a
+``repro_torch.core.continuous.ContinuousTrainer``) builds the publisher
+and registers the engine for the trainer's publish and params hooks.
+Wiring without a trainer (the ingest sequence of
 ``ContinuousTrainer._ingest_body``)::
 
     pub = HandlePublisher(scan_pages=16)
@@ -154,6 +157,32 @@ class QueryEngine:
         self._seed = int(seed)
         self._seq = 0
         self._thread: Optional[threading.Thread] = None
+
+    # -- wiring ----------------------------------------------------------
+    @classmethod
+    def attach(cls, trainer, *, edgebank: Optional[EdgeBank] = None,
+               history: int = 8, start: bool = True, device=None,
+               **kw) -> "QueryEngine":
+        """Build a publisher + engine for ``trainer`` (a
+        ``repro_torch.core.continuous.ContinuousTrainer``), register the
+        serving hooks, and start the worker.  The engine serves the
+        trainer's parameter trees as they are, so it runs on the
+        trainer's device (``device`` may only name that one)."""
+        device = trainer.device if device is None else resolve(device)
+        if device != trainer.device:
+            raise ValueError(f"trainer on {trainer.device}, engine asked "
+                             f"for {device}: the engine must share the "
+                             f"trainer's device")
+        pub = HandlePublisher(scan_pages=trainer.sampler.scan_pages,
+                              history=history, device=device)
+        kw.setdefault("id_space_nodes", trainer.stream.n_nodes + 1)
+        kw.setdefault("id_space_edges", len(trainer.stream) + 1)
+        eng = cls(pub, cfg=trainer.cfg, state=trainer.state,
+                  edgebank=edgebank, device=device, **kw)
+        trainer.register_serving(eng)
+        if start:
+            eng.start()
+        return eng
 
     # -- ingest-side protocol --------------------------------------------
     def on_publish(self, owner, snap, batch, nodes, eids) -> None:
