@@ -46,7 +46,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and TGAT with recent sampling: per-step loss, eval loss and AP
    within 1e-4, cache hit rates equal), and 64 link queries through
    ``QueryEngine.attach`` on the card's TGAT trainer match
-   ``offline_forward`` (1e-4).
+   ``offline_forward`` (1e-4);
+7. LM serving phase, for Yi-6B (dense GQA) and Falcon-Mamba-7B (Mamba-1),
+   one at a time: initialise at full width and depth on the card from a
+   seeded CUDA generator, cast once to the bf16 compute tree, prefill
+   2 prompts of 4,096 tokens through ``make_prefill_step`` (exactly one
+   ``flash_attention`` or ``selective_scan`` launch per layer, finite
+   logits), and decode 32 steps through ``make_serve_step`` (Yi: 8
+   sequences against a 4,096-deep cache from ``init_decode_state``;
+   Falcon: the 2 prompts, continuing from the prefill state); then the
+   kernel against its plain version at the model's shape (attention
+   (2, 4096, 32/4 heads, 128) in bf16 within 4e-2, beside one
+   ``scaled_dot_product_attention``; scan (2, 4096, 8192, 16) in
+   float32 within 1e-5); then, at full width cut to 2 layers (B 2,
+   S 256), the card against the CPU (``forward_hidden`` in float32
+   within 1e-4, bf16 prefill and decode logits within 0.1) and the
+   prefill against token-by-token decode on the card (0.15, the
+   reference's bar; for Falcon also prefill(S) + one decode step against
+   prefill(S + 1)).
 
 The second-to-last line is the JSON ``kernels`` record, the last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -67,8 +84,17 @@ import numpy as np
 
 ATOL_KERNEL = 1e-5      # one op, float32 (the reference's per-op bar)
 ATOL_SERVED = 1e-4      # served score vs offline / CPU (engine.py bar)
+# bf16 attention: max |err| of an output row over that row's max |out|,
+# 2 bf16 ulps of the row's scale (one ulp is at most 2^-7 of a value),
+# beside the reference's absolute bar (tests/test_flash_attention.py)
+ROW_REL_BF16 = 1.6e-2
+ATOL_BF16 = 4e-2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at 700 W
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+# special-function units: 16 exp2 results per clock per SM (throughput
+# table for compute capability 9.0), 132 SMs at the 1.98 GHz boost clock
+SFU_PER_S = 16 * 132 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -144,15 +170,34 @@ def top_ops(torch, prof, n: int = 6) -> list:
             for e in top]
 
 
+def profiled_busy(torch, work) -> tuple:
+    """(device busy share, wall s, top device ops, work's result) of
+    ``work`` under ``torch.profiler``: the summed duration of the device's
+    events over the wall time (one stream, so they do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = work()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return (device_us(torch, prof) / (wall * 1e6), wall, top_ops(torch, prof),
+            out)
+
+
 def timings(torch, fn, flush) -> tuple:
     """(device ms, ms per call) of ``fn``; see :func:`device_ms` and
     :func:`call_ms`."""
     return device_ms(torch, fn, flush), call_ms(torch, fn, flush=flush)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = FP32_OPS_PER_S, exps: float = 0.0) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over their peak rate, where ``exps``
+    exponentials on the special-function units are operations too."""
     t_b = nbytes / HBM_BYTES_PER_S
-    t_o = ops / FP32_OPS_PER_S
+    t_o = max(ops / ops_per_s, exps / SFU_PER_S)
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -163,11 +208,25 @@ def assert_equal(torch, got, want, what):
                              f"plain version")
 
 
-def max_err(torch, got, want, what) -> float:
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    if not err <= ATOL_KERNEL:
-        raise AssertionError(f"{what}: max |err| {err} > {ATOL_KERNEL}")
+def max_err(torch, got, want, what, tol: float = ATOL_KERNEL) -> float:
+    err = (float((got.float() - want.float()).abs().max()) if got.numel()
+           else 0.0)
+    if not err <= tol:
+        raise AssertionError(f"{what}: max |err| {err} > {tol}")
     return err
+
+
+def row_rel_err(torch, got, want, what, tol: float = ROW_REL_BF16
+                ) -> float:
+    """Largest over the rows (last axis) of max |got - want| over the
+    row's max |want|, checked against ``tol``."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1).clamp_min(1e-30)
+    rel = float((err / scale).max())
+    if not rel <= tol:
+        raise AssertionError(f"{what}: max |err| / max |ref| of a row "
+                             f"{rel} > {tol}")
+    return rel
 
 
 # ---------------------------------------------------------------------------
@@ -440,16 +499,12 @@ def device_busy(torch, eng, feed, queries):
     they do not overlap); the spans give the host's split of a batch (host
     clock; ``serve.fetch`` waits for the sampling kernels through its
     first device-to-host read, ``serve.forward`` for the forward)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.obs import trace
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     trace.reset()
     trace.enable()
     try:
-        with profile(activities=acts) as prof:
-            _, wall = serve(eng, feed, queries, 128)
-            torch.cuda.synchronize()
+        share, wall, top, _ = profiled_busy(
+            torch, lambda: serve(eng, feed, queries, 128))
     finally:
         trace.disable()
     spans = {}
@@ -458,8 +513,7 @@ def device_busy(torch, eng, feed, queries):
             spans.setdefault(e["kind"], []).append(e["dur_us"] / 1e3)
     split = {k: round(float(np.sum(v)) / len(spans["serve.batch"]), 3)
              for k, v in sorted(spans.items())}
-    return (device_us(torch, prof) / (wall * 1e6), wall, split,
-            top_ops(torch, prof))
+    return share, wall, split, top
 
 
 def probe_ms(cache, ids, reps: int = 5) -> float:
@@ -531,6 +585,8 @@ def main() -> int:
                         d_node=128, d_edge=172, seed=args.seed)
     rows = run(torch, dev, args, stream)
     rows += train_phase(torch, dev, args, stream)
+    del stream
+    rows += lm_phase(torch, dev, args)
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -858,8 +914,6 @@ def train_runs(torch, dev, args, stream):
     """TGN and TGAT at full width on the card: ingest, then ROUNDS
     continuous rounds.  Returns the backward kernel's row (launches
     summed over both trainers' rounds)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs.tgn_gdelt import tgat, tgn
     from repro_torch.core.continuous import ContinuousTrainer
     from repro_torch.kernels import runtime
@@ -885,10 +939,9 @@ def train_runs(torch, dev, args, stream):
             probe = OverlapProbe(torch, tr)
             t0 = time.perf_counter()
             if r == ROUNDS - 1:
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    m = tr.train_round(stream.slice(lo, lo + ROUND_EVENTS),
-                                       epochs=EPOCHS)
-                    torch.cuda.synchronize()
+                share, _, top, m = profiled_busy(
+                    torch, lambda: tr.train_round(
+                        stream.slice(lo, lo + ROUND_EVENTS), epochs=EPOCHS))
             else:
                 m = tr.train_round(stream.slice(lo, lo + ROUND_EVENTS),
                                    epochs=EPOCHS)
@@ -903,9 +956,8 @@ def train_runs(torch, dev, args, stream):
             evals += math.ceil(ROUND_EVENTS / cfg.batch_size)
             busy = ""
             if r == ROUNDS - 1:
-                share = device_us(torch, prof) / (wall * 1e6)
                 busy = (f"; device busy {share:.4f} of the round's wall "
-                        f"time; top device ops (ms): {top_ops(torch, prof)}")
+                        f"time; top device ops (ms): {top}")
             log(f"[train] {name} round {r}: loss {m.loss:.6f} eval loss "
                 f"{m.eval_loss:.6f} AP {m.ap:.6f}; round {wall:.3f} s: "
                 f"sample_s {m.sample_s:.3f} fetch_s {m.fetch_s:.3f} step_s "
@@ -1008,6 +1060,323 @@ def train_phase(torch, dev, args, stream):
     log(f"[train] training phase done in {time.perf_counter() - t0:.1f} s")
     return [row]
 
+
+# ---------------------------------------------------------------------------
+# LM serving phase
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("yi-6b", "falcon-mamba-7b")
+LM_PREFILL = (2, 4096)        # prompts x tokens (prefill_32k: 32 x 32,768)
+LM_DECODE = {"yi-6b": 8, "falcon-mamba-7b": 2}   # sequences (decode_32k:
+LM_DECODE_STEPS = 32                             # 128 x 32,768)
+LM_CUT = (2, 2, 256)          # layers, B, S of the card-vs-CPU checks
+# bf16 logits, card vs CPU: 1.6 bf16 ulps at the logits' magnitude of 4-5
+# (one ulp is 0.031 in [4, 8))
+ATOL_LOGITS = 5e-2
+ATOL_DECODE = 0.15            # prefill vs decode (tests/test_lm_smoke.py)
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def lm_serve(torch, dev, args, cfg):
+    """Init, prefill and decode at full size; returns the kernel's launch
+    count over the prefill and the decode."""
+    from repro_torch.kernels import runtime
+    from repro_torch.models import lm_zoo as Z
+    from repro_torch.models import transformer_lm as T
+
+    kernel = "selective_scan" if cfg.family == "ssm" else "flash_attention"
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = Z.init_params(cfg, gen, device=dev)
+    cp = Z._cast_compute(params)          # cast once; drop the masters
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab}: init + bf16 cast {time.perf_counter() - t0:.1f} s, "
+        f"compute tree {tree_bytes(cp) / 1e9:.2f} GB")
+
+    B, S = LM_PREFILL
+    rng = np.random.default_rng(args.seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32)).to(dev)
+    prefill, serve = Z.make_prefill_step(cfg), Z.make_serve_step(cfg)
+    prefill(cp, {"tokens": toks})                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, st = prefill(cp, {"tokens": toks})
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    counts = runtime.launch_counts()
+    if counts != {kernel: cfg.n_layers}:
+        raise AssertionError(f"{cfg.name} prefill launched {counts}, "
+                             f"expected {{{kernel!r}: {cfg.n_layers}}}")
+    if tuple(logits.shape) != (B, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: bad prefill logits")
+    pre_peak = torch.cuda.max_memory_allocated()
+
+    Bd = LM_DECODE[cfg.name]
+    if cfg.family == "ssm":          # the prefill state continues
+        dstate, tok = st, logits.argmax(-1, keepdim=True).to(torch.int32)
+    else:                            # a dense prefill's K/V are S long
+        del st
+        dstate = T.init_decode_state(cfg, Bd, S, device=dev)
+        tok = toks[:1, :Bd].reshape(Bd, 1).contiguous()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, outs = [], []
+    for _ in range(LM_DECODE_STEPS):
+        t0 = time.perf_counter()
+        out, dstate = serve(cp, dstate, tok)
+        tok = out.argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    dec_peak = torch.cuda.max_memory_allocated()
+    counts = runtime.launch_counts()
+    if counts != {kernel: cfg.n_layers}:
+        raise AssertionError(f"{cfg.name}: launches over prefill + decode "
+                             f"{counts}")
+    if not bool(torch.isfinite(torch.stack(outs)).all()):
+        raise AssertionError(f"{cfg.name}: non-finite decode logits")
+    if int(dstate["pos"][0]) != (S if cfg.family == "ssm" else 0) \
+            + LM_DECODE_STEPS:
+        raise AssertionError(f"{cfg.name}: decode position wrong")
+    med = float(np.median(step_ms))
+    busy = profiled_busy(torch, lambda: prefill(cp, {"tokens": toks}))
+    state = [dstate, tok]
+
+    def steps():
+        for _ in range(8):
+            o, state[0] = serve(cp, state[0], state[1])
+            state[1] = o.argmax(-1, keepdim=True).to(torch.int32)
+    d_busy = profiled_busy(torch, steps)
+    log(f"[lm] {cfg.name} prefill {B} x {S}: {pre_s * 1e3:.1f} ms "
+        f"({B * S / pre_s:.0f} tokens/s), peak {pre_peak / 1e9:.2f} GB; "
+        f"{kernel} launches {counts[kernel]} (one per layer); profiled "
+        f"prefill: device busy {busy[0]:.4f} of {busy[1] * 1e3:.1f} ms, top "
+        f"device ops (ms) {busy[2]}")
+    log(f"[lm] {cfg.name} decode {Bd} x {LM_DECODE_STEPS} steps "
+        f"({'from the prefill state' if cfg.family == 'ssm' else f'cache {S} deep'}): "
+        f"{med:.2f} ms per step median (first {step_ms[0]:.2f}, max "
+        f"{max(step_ms):.2f}), {Bd / med * 1e3:.0f} tokens/s, peak "
+        f"{dec_peak / 1e9:.2f} GB; 8 profiled steps: device busy "
+        f"{d_busy[0]:.4f} of {d_busy[1] * 1e3:.1f} ms, top device ops (ms) "
+        f"{d_busy[2]}")
+    return counts[kernel]
+
+
+def flash_row(torch, dev, cfg, flush):
+    """flash_attention against its plain version at Yi's prefill shape in
+    bf16, timed beside one scaled_dot_product_attention (a yardstick,
+    never called by the port); then at Nemotron-4-340B's heads of 192,
+    the kernel's wide instance, in bf16 and float32."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    B, S = LM_PREFILL
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def inputs(b, s, hq, hkv, d, dtype):
+        return [torch.randn(sh, generator=g, device=dev).to(dtype)
+                for sh in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
+
+    q, k, v = inputs(B, S, Hq, Hkv, D, torch.bfloat16)
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    rel = row_rel_err(torch, got, want, "flash_attention")
+    err = max_err(torch, got, want, "flash_attention", ATOL_BF16)
+    del want
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_rel = row_rel_err(torch, library().transpose(1, 2), got,
+                          "scaled_dot_product_attention vs flash_attention")
+    kern = lambda: flash_attention(q, k, v, causal=True)
+    ms, call = timings(torch, kern, flush)
+    plain_ms = device_ms(torch, lambda: flash_attention_ref(
+        q, k, v, causal=True), flush, reps=3)
+    lib_ms = device_ms(torch, library, flush)
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    pairs = B * Hq * (S * S + S) / 2          # (q, key) pairs in the window
+    ops = 4.0 * D * pairs
+    b, by = bound_ms(nbytes, ops, BF16_OPS_PER_S, exps=pairs)
+    del q, k, v, got
+
+    wide = get_arch("nemotron-4-340b")
+    shape_w = (1, 520, wide.n_heads, wide.n_kv_heads, wide.head_dim_)
+    wide_errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        qw, kw, vw = inputs(*shape_w, dtype)
+        got_w = flash_attention(qw, kw, vw, causal=True)
+        want_w = flash_attention_ref(qw, kw, vw, causal=True)
+        what = f"flash_attention D={wide.head_dim_} {dtype}"
+        if dtype == torch.bfloat16:
+            max_err(torch, got_w, want_w, what, ATOL_BF16)
+            wide_errs.append(row_rel_err(torch, got_w, want_w, what))
+        else:
+            wide_errs.append(max_err(torch, got_w, want_w, what))
+    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
+    log(f"[kernel] flash_attention          {shape:<32} ok max|err|/max|ref| "
+        f"of a row {rel:.3g} (tol {ROW_REL_BF16}; SDPA vs kernel "
+        f"{lib_rel:.3g}), max|err| {err:.3g} (tol {ATOL_BF16}); at Nemotron-4's heads "
+        f"{shape_w} bf16 {wide_errs[0]:.3g} (same bar), f32 max|err| "
+        f"{wide_errs[1]:.3g} (tol {ATOL_KERNEL}) device ms: kernel {ms:.4f}"
+        f"  plain {plain_ms:.4f}  bound {b:.4f} ({by}: {ops:.3g} FLOP at "
+        f"bf16 peak {ops / BF16_OPS_PER_S * 1e3:.4f}, {pairs:.3g} exp on "
+        f"the special-function units {pairs / SFU_PER_S * 1e3:.4f}, "
+        f"{nbytes / 1e6:.1f} MB {nbytes / HBM_BYTES_PER_S * 1e3:.4f})  "
+        f"library {lib_ms:.4f} ms; ms per call: kernel {call:.4f}")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/"
+                         "flash_attention.py:82",
+                max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by, library_ms=lib_ms)
+
+
+def scan_row(torch, dev, cfg, flush):
+    """selective_scan against its plain version at Falcon-Mamba-7B's
+    prefill shape in float32; no PyTorch call computes the scan."""
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    B, L = LM_PREFILL
+    Din, N = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
+    g = torch.Generator(device=dev).manual_seed(17)
+    r = lambda *s: torch.rand(s, generator=g, device=dev)
+    n = lambda *s: torch.randn(s, generator=g, device=dev)
+    args = (0.001 + 0.099 * r(B, L, Din), n(B, L, Din),
+            -(0.5 + 3.5 * r(Din, N)), n(B, L, N), n(B, L, N), n(B, Din, N))
+    y, h = selective_scan(*args)
+    y_w, h_w = selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    err = max(max_err(torch, y, y_w, "selective_scan y"),
+              max_err(torch, h, h_w, "selective_scan h_last"))
+    del y_w, h_w
+    ms, call = timings(torch, lambda: selective_scan(*args), flush)
+    plain_ms = device_ms(torch, lambda: selective_scan_ref(*args), flush,
+                         reps=2)
+    elems = B * L * Din * N
+    nbytes = 4 * (3 * B * L * Din + 2 * B * L * N + Din * N
+                  + 2 * B * Din * N)
+    ops = 6.0 * elems               # 6 flops and one exp per state element
+    b, by = bound_ms(nbytes, ops, exps=elems)
+    shape = f"B={B} L={L} Din={Din} N={N} f32"
+    log(f"[kernel] selective_scan           {shape:<32} ok max|err|="
+        f"{err:.3g} (tol {ATOL_KERNEL}) device ms: kernel {ms:.4f}  plain "
+        f"{plain_ms:.4f}  bound {b:.4f} ({by}: {elems:.3g} exp on the "
+        f"special-function units {elems / SFU_PER_S * 1e3:.4f}, {ops:.3g} "
+        f"FLOP at f32 peak {ops / FP32_OPS_PER_S * 1e3:.4f}, "
+        f"{nbytes / 1e6:.1f} MB {nbytes / HBM_BYTES_PER_S * 1e3:.4f})  "
+        f"library none; ms per call: kernel {call:.4f}")
+    return dict(name="selective_scan", route="cuda",
+                source="src/repro_torch/csrc/selective_scan.cu",
+                replaces="src/repro/kernels/selective_scan/"
+                         "selective_scan.py:57",
+                max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by, library_ms=None)
+
+
+def lm_cut_checks(torch, dev, args, cfg):
+    """Full width, depth cut: the card against the CPU, and the prefill
+    against token-by-token decode on the card."""
+    import dataclasses
+
+    from repro_torch.models import lm_zoo as Z
+    from repro_torch.models import transformer_lm as T
+
+    depth, B, S = LM_CUT
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    params = Z.init_params(cut, gen, device=dev)
+    cpu = _to_cpu(params)
+    rng = np.random.default_rng(args.seed + 1)
+    x = torch.from_numpy(rng.normal(size=(B, S, cut.d_model)).astype(
+        np.float32))
+    pos = torch.arange(S)[None].expand(B, S)
+    t0 = time.perf_counter()
+    h_g = T.forward_hidden(cut, params, x.to(dev), pos.to(dev))[0]
+    h_c = T.forward_hidden(cut, cpu, x, pos)[0]
+    err_f = max_err(torch, h_g.cpu(), h_c, f"{cfg.name} forward_hidden f32",
+                    ATOL_SERVED)
+    cp_g, cp_c = Z._cast_compute(params), Z._cast_compute(cpu)
+    del params, cpu, h_g
+    toks = torch.from_numpy(rng.integers(0, cut.vocab, (B, S + 1)).astype(
+        np.int32))
+    prefill, serve = Z.make_prefill_step(cut), Z.make_serve_step(cut)
+    l_g, st_g = prefill(cp_g, {"tokens": toks[:, :S].to(dev)})
+    l_c, st_c = prefill(cp_c, {"tokens": toks[:, :S]})
+    err_p = max_err(torch, l_g.cpu(), l_c, f"{cfg.name} bf16 prefill "
+                    f"logits", ATOL_LOGITS)
+    if cfg.family == "ssm":          # continue both prefill states
+        d_g, d_c = st_g, st_c
+    else:
+        d_g = T.init_decode_state(cut, B, S, device=dev)
+        d_c = T.init_decode_state(cut, B, S, device="cpu")
+    err_d, tok = 0.0, toks[:, S:]
+    for _ in range(4):
+        o_g, d_g = serve(cp_g, d_g, tok.to(dev))
+        o_c, d_c = serve(cp_c, d_c, tok)
+        err_d = max(err_d, max_err(torch, o_g.cpu(), o_c, f"{cfg.name} "
+                                   f"bf16 decode logits", ATOL_LOGITS))
+        tok = o_c.argmax(-1, keepdim=True).to(torch.int32)
+    cpu_s = time.perf_counter() - t0
+    del cp_c, d_c, st_c
+
+    # prefill against token-by-token decode, on the card
+    d = T.init_decode_state(cut, B, S, device=dev)
+    for i in range(S):
+        o, d = serve(cp_g, d, toks[:, i:i + 1].to(dev))
+    err_t = max_err(torch, o.cpu(), l_g.cpu(), f"{cfg.name} prefill vs "
+                    f"token-by-token decode", ATOL_DECODE)
+    extra = ""
+    if cfg.family == "ssm":
+        o, _ = serve(cp_g, st_g, toks[:, S:].to(dev))
+        l_n, _ = prefill(cp_g, {"tokens": toks.to(dev)})
+        err_n = max_err(torch, o.cpu(), l_n.cpu(), f"{cfg.name} prefill(S) "
+                        f"+ decode vs prefill(S+1)", ATOL_DECODE)
+        extra = f"; prefill(S) + 1 decode step vs prefill(S+1) {err_n:.3g}"
+    log(f"[lm] {cfg.name} cut to {depth} layers, B {B} S {S}: card vs CPU "
+        f"forward_hidden f32 {err_f:.3g} (tol {ATOL_SERVED}), bf16 prefill "
+        f"logits {err_p:.3g}, 4 decode steps {err_d:.3g} (tol "
+        f"{ATOL_LOGITS}) in {cpu_s:.1f} s; prefill vs {S} decode steps "
+        f"{err_t:.3g}{extra} (tol {ATOL_DECODE})")
+
+
+def lm_phase(torch, dev, args):
+    """Yi-6B, then Falcon-Mamba-7B: serve at full size, hold the kernel
+    against its plain version, check the depth cut.  Returns the rows of
+    flash_attention and selective_scan."""
+    from repro_torch.configs import get_arch
+
+    t0 = time.perf_counter()
+    rows = []
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    for arch in LM_ARCHS:
+        cfg = get_arch(arch)
+        launches = lm_serve(torch, dev, args, cfg)
+        torch.cuda.empty_cache()
+        row = (scan_row if cfg.family == "ssm" else flash_row)(
+            torch, dev, cfg, flush)
+        row["launches"] = launches
+        rows.append(row)
+        torch.cuda.empty_cache()
+        lm_cut_checks(torch, dev, args, cfg)
+        torch.cuda.empty_cache()
+    log(f"[lm] LM serving phase done in {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 class _Owner:

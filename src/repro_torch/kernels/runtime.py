@@ -30,7 +30,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-KERNELS = ("temporal_sample", "cache_gather", "temporal_attn")
+KERNELS = ("temporal_sample", "cache_gather", "temporal_attn",
+           "flash_attention", "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

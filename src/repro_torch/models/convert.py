@@ -4,7 +4,8 @@ The JAX package initialises weights with ``jax.random``, whose streams
 torch cannot replay, so parity runs hand the JAX tree across as numpy
 arrays (``jax.tree.map(np.asarray, tree)`` on the JAX side) and this
 module turns it into the port's tree of tensors — same nesting of dicts
-and lists, same names and shapes.
+and lists, same names, shapes and dtypes.  It takes the GNN wing's
+trees and the LM wing's parameter trees and decode states alike.
 """
 from __future__ import annotations
 
@@ -26,6 +27,12 @@ def params_from_jax(tree: Any, *, device=None) -> Any:
             return {k: conv(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return type(x)(conv(v) for v in x)
-        return torch.from_numpy(np.array(x, copy=True)).to(device)
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":
+            # ml_dtypes' bfloat16, which torch.from_numpy refuses; the
+            # float32 round trip is exact
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
 
     return conv(tree)

@@ -1,10 +1,151 @@
-"""Layer helpers of the temporal GNNs (counterpart of the GNN part of
-``repro.models.layers``: time encoding and dense initialisation)."""
+"""Shared model primitives (counterpart of ``repro.models.layers``).
+
+Two wings share this module:
+
+* the temporal GNNs: ``time_encode`` and its parameters;
+* the LM backbones: ``rms_norm``, rotary embeddings (rotate-half, in
+  float32), ``blocked_attention`` (the full-sequence GQA attention; on
+  the card it is the hand-written ``flash_attention`` kernel),
+  ``decode_attention`` (one token against a padded KV cache, plain
+  PyTorch as in the JAX package) and the MLP activations.
+
+Initialisers take an explicit ``torch.Generator`` and draw on the
+generator's own device: a CPU generator gives the same weights on every
+device (the GNN wing), a CUDA generator draws billions of normals on the
+card in a fraction of a second (the full-size LM init).
+
+Matrix products of two bfloat16 operands give bfloat16, as ``x @ w`` does
+in JAX; where the JAX package asks for float32 accumulation
+(``preferred_element_type``), the port converts both operands to float32,
+which is exact for bfloat16 values.
+"""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None
+                     ) -> torch.Tensor:
+    half = head_dim // 2
+    e = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(theta, e)      # a Python base: no host-to-device copy
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) or (S,). Rotate-half convention."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)              # (D/2,)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].float() * freqs             # (B, S, D/2)
+    cos = torch.cos(angles)[:, :, None, :]                    # (B, S, 1, D/2)
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA)
+# ---------------------------------------------------------------------------
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool) -> torch.Tensor:
+    """Full-sequence GQA attention with an online softmax.
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) with Hq % Hkv == 0; query
+    row i sits at position i + Skv - Sq.  Returns (B, Sq, Hq, D) in
+    q.dtype.  On the card this is one launch of the ``flash_attention``
+    kernel, which tiles the sequence itself (the JAX package's
+    ``q_chunk``/``kv_chunk`` have no counterpart); on the CPU it is the
+    kernel's plain version.
+    """
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, valid_len: torch.Tensor
+                     ) -> torch.Tensor:
+    """Single-token attention against a padded KV cache.
+
+    q: (B, 1, Hq, D); caches: (B, S, Hkv, D); valid_len: (B,) — number of
+    populated cache slots (including the just-written token).
+    """
+    B, _, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    scale = D ** -0.5
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, None, None, :] >= valid_len[:, None, None, None]
+    s = s.masked_fill(mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP activations
+# ---------------------------------------------------------------------------
+
+
+def mlp_apply(x: torch.Tensor, params: dict, act: str) -> torch.Tensor:
+    """params: swiglu -> {w_gate, w_up, w_down}; else {w_up, w_down}.
+    ``gelu`` is the tanh approximation, ``jax.nn.gelu``'s default."""
+    if act == "swiglu":
+        g = x @ params["w_gate"]
+        u = x @ params["w_up"]
+        h = F.silu(g.float()).to(x.dtype) * u
+    elif act == "sq_relu":
+        u = x @ params["w_up"]
+        h = torch.relu(u).square()
+    elif act == "gelu":
+        u = x @ params["w_up"]
+        h = F.gelu(u.float(), approximate="tanh").to(x.dtype)
+    else:
+        raise ValueError(f"unknown act {act!r}")
+    return h @ params["w_down"]
+
+
+def mlp_param_shapes(d_model: int, d_ff: int, act: str) -> dict:
+    shapes = {"w_up": (d_model, d_ff), "w_down": (d_ff, d_model)}
+    if act == "swiglu":
+        shapes["w_gate"] = (d_model, d_ff)
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# Temporal (Bochner) time encoding — used by the temporal GNNs
+# ---------------------------------------------------------------------------
 
 
 def time_encode(dt: torch.Tensor, w: torch.Tensor, b: torch.Tensor
@@ -21,12 +162,25 @@ def time_encode_params(d_time: int, *, device) -> dict:
             "b": torch.zeros((d_time,), dtype=torch.float32, device=device)}
 
 
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
 def dense_init(generator: torch.Generator, shape: Tuple[int, ...], *,
-               device, scale: Optional[float] = None) -> torch.Tensor:
-    """Normal(0, fan_in^-1/2) weights, drawn from a CPU ``generator`` and
-    then moved, so one seed gives the same weights on every device."""
+               device=None, dtype=torch.float32,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Normal(0, fan_in^-1/2) weights (``fan_in`` = ``shape[0]``, or
+    ``scale`` as given), drawn on the generator's device and then moved
+    to ``device`` (default: the generator's)."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     s = scale if scale is not None else fan_in ** -0.5
     w = torch.randn(tuple(shape), generator=generator,
-                    dtype=torch.float32) * s
-    return w.to(device)
+                    dtype=torch.float32, device=generator.device).mul_(s)
+    return w.to(device=device or generator.device, dtype=dtype)
+
+
+def embed_init(generator: torch.Generator, shape: Tuple[int, ...], *,
+               device=None, dtype=torch.float32) -> torch.Tensor:
+    return dense_init(generator, shape, device=device, dtype=dtype,
+                      scale=0.02)

@@ -1,0 +1,308 @@
+"""LM backbones of the ``dense``, ``vlm``, ``audio`` and ``ssm`` families
+(counterpart of ``repro.models.transformer_lm``).
+
+One parameter tree + entry points per config:
+  * ``forward_hidden``  — full-sequence forward (prefill), optionally
+    collecting the decode-state ingredients (K/V stacks, mamba states);
+  * ``decode_forward``  — single-token step against a decode state;
+  * ``init_lm`` / ``init_decode_state``.
+
+Families:
+  dense/vlm/audio — (attn + mlp) blocks; attention is the hand-written
+    ``flash_attention`` kernel on the card (``layers.blocked_attention``).
+  ssm (falcon-mamba) — pure mamba1 blocks; the scan is the hand-written
+    ``selective_scan`` kernel on the card.
+The ``moe`` and ``hybrid`` families raise ``NotImplementedError``.
+
+Per-layer leaves are stacked on a leading ``L`` axis, the layout
+``jax.vmap`` of the JAX init gives, so a JAX tree maps across one to one
+(``repro_torch.models.convert.params_from_jax``); ``lax.scan`` over the
+layers is a Python loop over ``leaf[i]`` slices.  The JAX package's
+sharding constraints and its context-parallel branch are identity or not
+taken outside a device mesh and have no counterpart here.
+
+Two departures from JAX's functional style, both to save device memory:
+``decode_forward`` writes the new token's K/V into the caches of the
+state it is given, in place (the returned state holds the same cache
+tensors), and the embedding lookup indexes ``params["embed"]`` directly,
+which raises on an out-of-range id where ``jnp.take`` clips it.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve
+from repro_torch.models import mamba as M
+from repro_torch.models.layers import (apply_rope, blocked_attention,
+                                       decode_attention, dense_init,
+                                       embed_init, mlp_apply,
+                                       mlp_param_shapes, rms_norm)
+
+PyTree = Any
+FAMILIES = ("dense", "vlm", "audio", "ssm")
+
+
+def check_family(cfg: ArchConfig) -> None:
+    """Raise for a family the port does not run yet."""
+    if cfg.family not in FAMILIES or cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
+            f"moe and hybrid families come in a later slice of the port, "
+            f"after LM training (ROADMAP.md)")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _dense(gen, L: int, shape, dtype, scale: Optional[float] = None):
+    """L stacked (fan_in = shape[0]) dense weights."""
+    s = scale if scale is not None else shape[0] ** -0.5
+    return dense_init(gen, (L,) + tuple(shape), dtype=dtype, scale=s)
+
+
+def _ones(gen, shape, dtype):
+    return torch.ones(shape, dtype=dtype, device=gen.device)
+
+
+def _init_attn(gen, cfg: ArchConfig, dtype, L: int) -> dict:
+    d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    p = {
+        "wq": _dense(gen, L, (d, Hq * Dh), dtype),
+        "wk": _dense(gen, L, (d, Hkv * Dh), dtype),
+        "wv": _dense(gen, L, (d, Hkv * Dh), dtype),
+        "wo": _dense(gen, L, (Hq * Dh, d), dtype,
+                     scale=(Hq * Dh) ** -0.5 / math.sqrt(2 * cfg.n_layers)),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = _ones(gen, (L, Dh), dtype)
+        p["k_norm"] = _ones(gen, (L, Dh), dtype)
+    return p
+
+
+def _init_block(gen, cfg: ArchConfig, dtype, L: int) -> dict:
+    shapes = mlp_param_shapes(cfg.d_model, cfg.d_ff, cfg.act)
+    return {
+        "ln1": _ones(gen, (L, cfg.d_model), dtype),
+        "ln2": _ones(gen, (L, cfg.d_model), dtype),
+        "attn": _init_attn(gen, cfg, dtype, L),
+        "mlp": {n: _dense(gen, L, s, dtype)
+                for n, s in sorted(shapes.items())},
+    }
+
+
+def init_lm(cfg: ArchConfig, generator: torch.Generator,
+            dtype=torch.float32) -> dict:
+    """The parameter tree, drawn on the generator's device."""
+    check_family(cfg)
+    gen, L, d = generator, cfg.n_layers, cfg.d_model
+    params: Dict[str, Any] = {}
+    if cfg.input_kind == "tokens":
+        params["embed"] = embed_init(gen, (cfg.vocab, d), dtype=dtype)
+    else:  # frames: frontend stub; learned input proj + mask embedding
+        params["in_proj"] = dense_init(gen, (d, d), dtype=dtype)
+        params["mask_emb"] = embed_init(gen, (d,), dtype=dtype)
+    if cfg.family == "ssm":
+        params["layers"] = {
+            "ln": _ones(gen, (L, d), dtype),
+            "mamba1": M.mamba1_init(gen, cfg.ssm, d, dtype, layers=L)}
+    else:
+        params["layers"] = _init_block(gen, cfg, dtype, L)
+    params["final_norm"] = _ones(gen, (d,), dtype)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (d, cfg.vocab), dtype=dtype,
+                                       scale=d ** -0.5)
+    return params
+
+
+def layer(tree: dict, i: int) -> dict:
+    """Layer ``i``'s slice of a tree of stacked leaves (views)."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Attention (full-sequence and decode-step)
+# ---------------------------------------------------------------------------
+
+
+def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
+         positions: torch.Tensor):
+    B, S, _ = x.shape
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = (x @ p["wq"]).reshape(B, S, Hq, Dh)
+    k = (x @ p["wk"]).reshape(B, S, Hkv, Dh)
+    v = (x @ p["wv"]).reshape(B, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_full(p: dict, x: torch.Tensor, cfg: ArchConfig,
+              positions: torch.Tensor):
+    """x: (B, S, d) (already normed). Returns (out, (k, v))."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    o = blocked_attention(q, k, v, causal=cfg.causal)
+    out = o.reshape(B, S, -1) @ p["wo"]
+    return out, (k, v)
+
+
+def attn_decode(p: dict, x_t: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, pos: torch.Tensor, cfg: ArchConfig):
+    """x_t: (B, 1, d) normed; caches (B, S, Hkv, Dh); pos: (B,).
+
+    The new K/V go to the shared write index pos[0], clamped to S - 1 as
+    ``lax.dynamic_update_slice_in_dim`` clamps it, written into the caches
+    in place; per-row positions still mask attention.
+    """
+    B = x_t.shape[0]
+    q, k_new, v_new = _qkv(p, x_t, cfg, pos[:, None])
+    idx = pos[:1].clamp(0, k_cache.shape[1] - 1).long()
+    k_cache.index_copy_(1, idx, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, idx, v_new.to(v_cache.dtype))
+    o = decode_attention(q, k_cache, v_cache, valid_len=pos + 1)
+    out = o.reshape(B, 1, -1) @ p["wo"]
+    return out, k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _block_apply(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor):
+    h, kv = attn_full(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+                      positions)
+    x = x + h
+    hn = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + mlp_apply(hn, p["mlp"], cfg.act)
+    return x, {}, kv
+
+
+def forward_hidden(cfg: ArchConfig, params: dict, x: torch.Tensor,
+                   positions: torch.Tensor, collect_state: bool = False
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], PyTree]:
+    """x: (B, S, d) embedded input. Returns (hidden, aux, state|None).
+
+    state (when collect_state): family-dependent prefill decode-state
+    ingredients — attention KV stacks (L, B, S, Hkv, Dh) or mamba states.
+    """
+    check_family(cfg)
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        states = []
+        for i in range(L):
+            lp = layer(params["layers"], i)
+            out = M.mamba1_forward(lp["mamba1"],
+                                   rms_norm(x, lp["ln"], cfg.norm_eps),
+                                   cfg.ssm, return_state=collect_state)
+            y, st = out if collect_state else (out, None)
+            x = x + y
+            states.append(st)
+        if not collect_state:
+            return x, {}, None
+        return x, {}, {"mamba": {
+            key: torch.stack([st[key] for st in states])
+            for key in ("conv", "h")}}
+
+    ks, vs = [], []
+    for i in range(L):
+        x, _, (k, v) = _block_apply(cfg, layer(params["layers"], i), x,
+                                    positions)
+        if collect_state:
+            ks.append(k)
+            vs.append(v)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"moe_lb_loss": zero, "moe_drop_frac": zero}
+    state = ({"k": torch.stack(ks), "v": torch.stack(vs)}
+             if collect_state else None)
+    return x, aux, state
+
+
+def embed_input(cfg: ArchConfig, params: dict,
+                batch: Dict[str, torch.Tensor],
+                dtype=torch.bfloat16) -> torch.Tensor:
+    if cfg.input_kind == "tokens":
+        x = params["embed"][batch["tokens"].long()]
+    else:
+        frames = batch["frames"].to(dtype)
+        w = params["in_proj"]
+        ct = torch.promote_types(frames.dtype, w.dtype)
+        x = frames.to(ct) @ w.to(ct)
+        if "mask" in batch:  # masked-prediction training (HuBERT)
+            x = torch.where(batch["mask"][..., None], params["mask_emb"], x)
+    return x.to(dtype)
+
+
+def unembed_weight(cfg: ArchConfig, params: dict) -> torch.Tensor:
+    if cfg.tie_embeddings or "lm_head" not in params:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Decode state + single-token forward
+# ---------------------------------------------------------------------------
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
+                      dtype=torch.bfloat16, *, device=None) -> dict:
+    """Zero decode state on ``device`` (default: the card)."""
+    check_family(cfg)
+    device = resolve(device)
+    L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim_
+    state: Dict[str, Any] = {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if cfg.family == "ssm":
+        one = M.mamba1_init_state(cfg.ssm, cfg.d_model, batch, dtype,
+                                  device=device)
+        state["mamba"] = {k: v[None].repeat((L,) + (1,) * v.dim())
+                          for k, v in one.items()}
+    else:
+        shape = (L, batch, max_seq, Hkv, Dh)
+        state["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        state["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return state
+
+
+def decode_forward(cfg: ArchConfig, params: dict, x: torch.Tensor,
+                   state: dict) -> Tuple[torch.Tensor, dict]:
+    """x: (B, 1, d) embedded token. Returns (hidden (B, 1, d), new state);
+    the K/V caches are updated in place (see the module docstring)."""
+    check_family(cfg)
+    pos = state["pos"]
+    new_state = dict(state)
+    if cfg.family == "ssm":
+        convs, hs = [], []
+        for i in range(cfg.n_layers):
+            lp = layer(params["layers"], i)
+            st = {k: v[i] for k, v in state["mamba"].items()}
+            y, st = M.mamba1_decode_step(
+                lp["mamba1"], rms_norm(x[:, 0], lp["ln"], cfg.norm_eps), st,
+                cfg.ssm)
+            x = x + y[:, None]
+            convs.append(st["conv"])
+            hs.append(st["h"])
+        new_state["mamba"] = {"conv": torch.stack(convs),
+                              "h": torch.stack(hs)}
+    else:
+        for i in range(cfg.n_layers):
+            lp = layer(params["layers"], i)
+            h, _, _ = attn_decode(
+                lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
+                state["k"][i], state["v"][i], pos, cfg)
+            x = x + h
+            x = x + mlp_apply(rms_norm(x, lp["ln2"], cfg.norm_eps),
+                              lp["mlp"], cfg.act)
+    new_state["pos"] = pos + 1
+    return x, new_state

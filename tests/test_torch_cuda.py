@@ -4,7 +4,8 @@ without them; run them on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Ids and masks must match exactly, floats within 1e-5 (one float32 op),
+Ids and masks must match exactly, floats within 1e-5 (one float32 op;
+1.6e-2 of each row's scale for bfloat16 attention),
 served scores within 1e-4 of the same engine on the CPU.
 """
 import numpy as np
@@ -221,3 +222,116 @@ def test_trainer_on_the_card_matches_the_cpu_trainer(card, name):
     assert abs(a.ap - b.ap) <= 1e-4 and abs(a.eval_loss - b.eval_loss) <= 1e-4
     assert (a.node_hit_rate, a.edge_hit_rate) == (b.node_hit_rate,
                                                   b.edge_hit_rate)
+
+
+# ---------------------------------------------------------------------------
+# LM wing: flash_attention and selective_scan
+# ---------------------------------------------------------------------------
+
+
+def _attn_inputs(card, B, Sq, Skv, Hq, Hkv, D, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=card).to(dtype)
+            for shape in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D))]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", [
+    (1, 64, 64, 4, 2, 16), (2, 96, 96, 6, 2, 32), (2, 57, 57, 4, 2, 16),
+    (2, 32, 64, 8, 4, 16), (1, 5, 70, 2, 1, 80), (2, 130, 130, 8, 1, 128),
+    (1, 33, 40, 2, 2, 20),     # D % 8 != 0: element-wise staging
+    (1, 70, 70, 12, 1, 192),   # Nemotron-4's head dim: the wide instance
+    (1, 40, 72, 4, 2, 136), (2, 65, 65, 2, 2, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(card, B, Sq, Skv, Hq, Hkv, D,
+                                              causal, dtype):
+    """Ragged Sq/Skv, Sq < Skv (row i at i + Skv - Sq), GQA, D up to 256:
+    within 1e-5 in float32; in bfloat16 each output row within 1.6e-2 of
+    the row's max |out| (2 bf16 ulps of its scale) and every output
+    within the reference's 4e-2."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    q, k, v = _attn_inputs(card, B, Sq, Skv, Hq, Hkv, D, dtype, Sq + D)
+    runtime.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    assert runtime.launch_counts() == {"flash_attention": 1}
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    else:
+        err = (got.float() - want.float()).abs().amax(-1)
+        scale = want.float().abs().amax(-1)
+        assert float((err / scale).max()) <= 1.6e-2
+        assert float(err.max()) <= 4e-2
+
+
+@pytest.mark.parametrize("B,L,Din,N", [
+    (1, 16, 8, 4), (2, 21, 16, 4), (2, 48, 64, 16), (3, 200, 100, 8),
+    (2, 130, 96, 6)])
+def test_selective_scan_kernel_matches_plain(card, B, L, Din, N):
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    g = torch.Generator(device=card).manual_seed(L)
+    r = lambda *s: torch.rand(s, generator=g, device=card)
+    n = lambda *s: torch.randn(s, generator=g, device=card)
+    args = (0.001 + 0.099 * r(B, L, Din), n(B, L, Din),
+            -(0.5 + 3.5 * r(Din, N)), n(B, L, N), n(B, L, N), n(B, Din, N))
+    runtime.reset_launch_counts()
+    y, h = selective_scan(*args)
+    assert runtime.launch_counts() == {"selective_scan": 1}
+    y_w, h_w = selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_w, atol=1e-5, rtol=0)
+    torch.testing.assert_close(h, h_w, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "hubert-xlarge",
+                                  "falcon-mamba-7b"])
+def test_lm_serving_on_the_card_matches_the_cpu(card, arch):
+    """The reduced model's float32 forward within 1e-4 and its bf16
+    prefill and decode logits within 5e-2 (chip_smoke.py's bar) of the
+    same weights on the CPU; one kernel launch per layer of a prefill."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm_zoo as Z
+    from repro_torch.models import transformer_lm as T
+
+    cfg = get_arch(arch).reduced()
+    params = Z.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                           device=card)
+    cpu = _to(params, "cpu")
+    B, S = 2, 40
+    g = np.random.default_rng(0)
+    x = torch.from_numpy(g.normal(size=(B, S, cfg.d_model)).astype(
+        np.float32))
+    pos = torch.arange(S)[None].expand(B, S)
+    h_c, _, _ = T.forward_hidden(cfg, cpu, x, pos)
+    h_g, _, _ = T.forward_hidden(cfg, params, x.to(card), pos.to(card))
+    torch.testing.assert_close(h_g.cpu(), h_c, atol=1e-4, rtol=0)
+    if cfg.input_kind == "tokens":
+        batch = {"tokens": torch.from_numpy(
+            g.integers(0, cfg.vocab, (B, S)).astype(np.int32))}
+    else:
+        batch = {"frames": x}
+    kernel = "selective_scan" if cfg.family == "ssm" else "flash_attention"
+    runtime.reset_launch_counts()
+    l_g, st_g = Z.make_prefill_step(cfg)(
+        params, {k: v.to(card) for k, v in batch.items()})
+    assert runtime.launch_counts() == {kernel: cfg.n_layers}
+    l_c, st_c = Z.make_prefill_step(cfg)(cpu, batch)
+    torch.testing.assert_close(l_g.cpu(), l_c, atol=5e-2, rtol=0)
+    if cfg.is_encoder:
+        return
+    serve = Z.make_serve_step(cfg)
+    if cfg.family != "ssm":      # a dense prefill's K/V stacks are full
+        st_g = T.init_decode_state(cfg, B, S, device=card)
+        st_c = T.init_decode_state(cfg, B, S, device="cpu")
+    tok = batch["tokens"][:, :1]
+    for _ in range(3):
+        l_g, st_g = serve(params, st_g, tok.to(card))
+        l_c, st_c = serve(cpu, st_c, tok)
+        torch.testing.assert_close(l_g.cpu(), l_c, atol=5e-2, rtol=0)
+        tok = l_c.argmax(-1, keepdim=True).to(torch.int32)

@@ -1,0 +1,213 @@
+"""The LM kernels' plain versions in the PyTorch port against the JAX
+package: ``flash_attention`` and ``selective_scan`` as the CPU path of
+their wrappers (the path a CPU tensor takes) against the Pallas kernels
+in interpret mode, their jnp oracles and the model paths they stand in
+for (``blocked_attention``, ``_mamba1_scan_y``).
+
+Tolerances are the reference's own (tests/test_flash_attention.py,
+tests/test_selective_scan.py): 2e-5 in float32, 4e-2 in bfloat16.
+The kernels themselves are held against these plain versions on the
+card in tests/test_torch_cuda.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention_pallas
+from repro.kernels.flash_attention.ref import (
+    flash_attention_ref as j_flash_ref)
+from repro.kernels.selective_scan.ops import selective_scan_pallas
+from repro.kernels.selective_scan.ref import (
+    selective_scan_ref as j_scan_ref)
+from repro.models.layers import blocked_attention as j_blocked
+from repro.models.mamba import _mamba1_scan_y as j_scan_y
+from repro_torch.kernels import runtime
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.selective_scan import ops as scan_ops
+from repro_torch.kernels.selective_scan.ops import selective_scan
+from repro_torch.models.layers import blocked_attention
+
+F32_TOL = 2e-5
+BF16_TOL = 4e-2
+
+
+def _qkv(B, Sq, Hq, Hkv, D, seed=0, Skv=None, bf16=False):
+    rng = np.random.default_rng(seed)
+    Skv = Sq if Skv is None else Skv
+    arrs = [rng.normal(size=(B, Sq, Hq, D)).astype(np.float32),
+            rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32),
+            rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32)]
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if bf16
+                else (jnp.float32, torch.float32))
+    return ([jnp.asarray(a, jdt) for a in arrs],
+            [torch.from_numpy(a).to(tdt) for a in arrs])
+
+
+def _np(x):
+    return np.asarray(x, np.float32) if not isinstance(x, torch.Tensor) \
+        else x.float().numpy()
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [
+    (1, 64, 4, 2, 16),     # GQA 2:1
+    (2, 128, 8, 8, 8),     # MHA
+    (2, 96, 6, 2, 32),     # GQA 3:1, non-pow2 S
+])
+def test_flash_plain_matches_pallas_and_ref(causal, shape):
+    (qj, kj, vj), (q, k, v) = _qkv(*shape, seed=sum(shape))
+    runtime.reset_launch_counts()
+    got = _np(flash_attention(q, k, v, causal=causal))
+    assert runtime.launch_counts() == {}      # the CPU takes no kernel
+    pallas = flash_attention_pallas(qj, kj, vj, causal=causal, qb=32, kb=32)
+    for want in (pallas, j_flash_ref(qj, kj, vj, causal=causal)):
+        np.testing.assert_allclose(got, _np(want), rtol=F32_TOL,
+                                   atol=F32_TOL)
+
+
+def test_flash_plain_causal_ragged_length():
+    """S = 57 is no tile multiple: the Pallas wrapper pads, the port's
+    plain version (and kernel) take it as it is."""
+    (qj, kj, vj), (q, k, v) = _qkv(2, 57, 4, 2, 16, seed=9)
+    got = _np(flash_attention(q, k, v, causal=True))
+    pallas = flash_attention_pallas(qj, kj, vj, causal=True, qb=16, kb=16)
+    for want in (pallas, j_flash_ref(qj, kj, vj, causal=True)):
+        np.testing.assert_allclose(got, _np(want), rtol=F32_TOL,
+                                   atol=F32_TOL)
+
+
+def test_flash_plain_bf16():
+    (qj, kj, vj), (q, k, v) = _qkv(1, 64, 4, 4, 16, seed=3, bf16=True)
+    got = flash_attention(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16
+    pallas = flash_attention_pallas(qj, kj, vj, causal=True, qb=32, kb=32)
+    for want in (pallas, j_flash_ref(qj, kj, vj, causal=True)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=BF16_TOL,
+                                   atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv", [(32, 64), (5, 70), (64, 64)])
+def test_flash_plain_matches_model_blocked_path(causal, sq, skv):
+    """Query row i sits at i + Skv - Sq, as in blocked_attention; a
+    non-causal Skv that is no chunk multiple is taken too."""
+    (qj, kj, vj), (q, k, v) = _qkv(2, sq, 8, 4, 16, seed=sq + skv, Skv=skv)
+    got = _np(blocked_attention(q, k, v, causal=causal))
+    want = j_blocked(qj, kj, vj, causal=causal, q_chunk=16, kv_chunk=16)
+    np.testing.assert_allclose(got, _np(want), rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_flash_plain_bf16_matches_model_blocked_path():
+    """In bfloat16 the weights p are rounded to v's dtype before P.V in
+    both; one chunk makes the rounding points the same."""
+    (qj, kj, vj), (q, k, v) = _qkv(2, 48, 8, 2, 32, seed=4, bf16=True)
+    got = _np(blocked_attention(q, k, v, causal=True))
+    want = j_blocked(qj, kj, vj, causal=True)
+    np.testing.assert_allclose(got, _np(want), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_pallas_flash_lacks_causal_offset():
+    """Records a fault of the reference: the Pallas body masks
+    k_pos > q_pos with no Skv - Sq offset, so with Sq < Skv it drops the
+    keys the model's attention sees (max |diff| 3.16 here).  The
+    port follows the model (blocked_attention), not the Pallas body."""
+    (qj, kj, vj), (q, k, v) = _qkv(2, 32, 8, 4, 16, seed=96, Skv=64)
+    port = _np(flash_attention(q, k, v, causal=True))
+    model = _np(j_blocked(qj, kj, vj, causal=True, q_chunk=16, kv_chunk=16))
+    pallas = _np(flash_attention_pallas(qj, kj, vj, causal=True, qb=16,
+                                        kb=16))
+    np.testing.assert_allclose(port, model, rtol=F32_TOL, atol=F32_TOL)
+    assert np.abs(pallas - model).max() > 0.5
+
+
+def test_flash_plain_row_without_keys_is_zero():
+    _, (q, k, v) = _qkv(1, 8, 2, 1, 4, seed=1, Skv=4)
+    out = flash_attention(q, k, v, causal=True)     # rows 0-3 see no key
+    assert torch.isfinite(out).all()
+    assert (out[:, :4] == 0).all()
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("dtype", "dtype"), ("heads", "multiple"), ("head_dim", "head dim"),
+    ("causal_long_q", "Sq <= Skv"), ("strided", "contiguous"),
+    ("shapes", "disagree")])
+def test_flash_wrapper_rejects(bad, match):
+    """The checks a CUDA call goes through before the launch."""
+    _, (q, k, v) = _qkv(1, 16, 4, 2, 8, seed=2)
+    causal = True
+    if bad == "dtype":
+        q, k, v = (t.half() for t in (q, k, v))
+    elif bad == "heads":
+        _, (q, k, v) = _qkv(1, 16, 5, 2, 8, seed=2)
+    elif bad == "head_dim":
+        _, (q, k, v) = _qkv(1, 4, 2, 1, 264, seed=2)
+    elif bad == "causal_long_q":
+        _, (q, k, v) = _qkv(1, 16, 4, 2, 8, seed=2, Skv=8)
+    elif bad == "strided":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "shapes":
+        v = v[:, :8].contiguous()
+    with pytest.raises((TypeError, ValueError), match=match):
+        flash_ops._check(q, k, v, causal)
+
+
+# ---------------------------------------------------------------------------
+# selective_scan
+# ---------------------------------------------------------------------------
+
+
+def _scan_inputs(B, L, Din, N, seed=0):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.uniform(0.001, 0.1, (B, L, Din)),
+            rng.normal(size=(B, L, Din)),
+            -rng.uniform(0.5, 4.0, (Din, N)),
+            rng.normal(size=(B, L, N)),
+            rng.normal(size=(B, L, N)),
+            rng.normal(size=(B, Din, N))]
+    arrs = [a.astype(np.float32) for a in arrs]
+    return ([jnp.asarray(a) for a in arrs],
+            [torch.from_numpy(a) for a in arrs])
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 16, 8, 4), (2, 32, 16, 8), (2, 48, 64, 16), (3, 24, 128, 4),
+    (2, 21, 16, 4),      # L = 21: no chunk multiple
+])
+def test_scan_plain_matches_pallas_ref_and_model(shape):
+    ja, ta = _scan_inputs(*shape, seed=sum(shape))
+    runtime.reset_launch_counts()
+    y, h = selective_scan(*ta)
+    assert runtime.launch_counts() == {}
+    assert y.dtype == h.dtype == torch.float32
+    chunk = 8
+    wants = (selective_scan_pallas(*ja, chunk=chunk, dtile=16),
+             j_scan_ref(*ja), j_scan_y(*ja, chunk=16))
+    for y_w, h_w in wants:
+        np.testing.assert_allclose(y.numpy(), _np(y_w), rtol=F32_TOL,
+                                   atol=F32_TOL)
+        np.testing.assert_allclose(h.numpy(), _np(h_w), rtol=F32_TOL,
+                                   atol=F32_TOL)
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("dtype", "dtype"), ("state", "d_state"), ("strided", "contiguous"),
+    ("shapes", "disagree")])
+def test_scan_wrapper_rejects(bad, match):
+    _, ta = _scan_inputs(2, 8, 16, 4, seed=5)
+    if bad == "dtype":
+        ta[1] = ta[1].double()
+    elif bad == "state":
+        _, ta = _scan_inputs(1, 4, 8, 20, seed=5)
+    elif bad == "strided":
+        ta[0] = ta[0].transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "shapes":
+        ta[3] = ta[3][:, :4].contiguous()
+    with pytest.raises((TypeError, ValueError), match=match):
+        scan_ops._check(*ta)
