@@ -56,9 +56,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    sequences against a 4,096-deep cache from ``init_decode_state``;
    Falcon: the 2 prompts, continuing from the prefill state); then the
    kernel against its plain version at the model's shape (attention
-   (2, 4096, 32/4 heads, 128) in bf16 within 4e-2, beside one
-   ``scaled_dot_product_attention``; scan (2, 4096, 8192, 16) in
-   float32 within 1e-5); then, at full width cut to 2 layers (B 2,
+   (2, 4096, 32/4 heads, 128) in bf16, the Hopper instance, within 4e-2
+   and 1.6e-2 of each row's scale, timed per call in turns with one
+   ``scaled_dot_product_attention``; the general instance at
+   Nemotron-4's heads of 192 in bf16 and float32; scan (2, 4096, 8192,
+   16) in float32 within 1e-5); then, at full width cut to 2 layers (B 2,
    S 256), the card against the CPU (``forward_hidden`` in float32
    within 1e-4, bf16 prefill and decode logits within 0.1) and the
    prefill against token-by-token decode on the card (0.15, the
@@ -141,23 +143,55 @@ def device_us(torch, prof) -> float:
 
 
 def device_ms(torch, fn, flush, *, reps: int = 30) -> float:
-    """Device time per call of ``fn`` with a cold L2: the profiler's
-    device time of ``reps`` (flush, fn) pairs less that of ``reps``
-    flushes alone."""
+    """Device time per call of ``fn`` with a cold L2, from the profiler
+    over ``reps`` (flush, fn) pairs: for each kernel of ``fn``, the mean
+    duration of its recorded launches times its launches per call (its
+    recorded count over ``reps``, rounded, at least one).  The profiler
+    does not record every launch of its window (in runs on an H100 it
+    kept as few as 1 of 30), but those it records are timed right, so a
+    mean over them is not biased by the loss, where a sum over ``reps``
+    would be.  The flush's own kernel (a fill of its uint8 bytes) is
+    left out, and a line is logged when fewer than ``reps`` of it were
+    recorded."""
     from torch.profiler import ProfilerActivity, profile
 
-    def busy(work):
+    cuda = torch.autograd.DeviceType.CUDA
+    flush_kernel = "FillFunctor<unsigned char>"     # flush.zero_()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    seen = {e.key: (e.count, e.self_device_time_total)
+            for e in prof.key_averages() if e.device_type == cuda}
+    flushes = sum(n for key, (n, _) in seen.items() if flush_kernel in key)
+    if flushes < reps:
+        log(f"[profiler] events lost: {flushes} of {reps} flushes recorded")
+    return sum(us / n * max(1, round(n / reps)) for key, (n, us)
+               in seen.items() if flush_kernel not in key) / 1e3
+
+
+def burst_ms(torch, fn, flush, *, reps: int = 20) -> float:
+    """Device time per call of ``fn`` with a cold L2 by CUDA events, the
+    profiler's counterpart: events around ``reps`` back-to-back (flush,
+    fn) pairs, less the same around ``reps`` flushes.  The host enqueues
+    ahead of the device when a call's device work outlasts its host
+    work, so no host gap is counted then."""
+    def span(work):
         work()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                work()
-            torch.cuda.synchronize()
-        return device_us(torch, prof)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            work()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
 
-    both = busy(lambda: (flush.zero_(), fn()))
-    alone = busy(flush.zero_)
-    return (both - alone) / reps / 1e3
+    return (span(lambda: (flush.zero_(), fn())) - span(flush.zero_)) / reps
 
 
 def top_ops(torch, prof, n: int = 6) -> list:
@@ -338,13 +372,14 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev):
         ms, call = timings(torch, kernel, flush)
         plain_ms, plain_call = timings(torch, plain, flush)
         b, by = bound_ms(nbytes, ops)
+        lib_ms, lib_call = (None, None) if library is None else timings(
+            torch, library, flush)
         rows.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
             replaces=f"src/repro/kernels/{replaces}", max_abs_err=err,
             shape=shape, ms=ms, call_ms=call, plain_ms=plain_ms,
             plain_call_ms=plain_call, bound_ms=b, bound_by=by,
-            library_ms=None if library is None else device_ms(
-                torch, library, flush)))
+            library_ms=lib_ms, library_call_ms=lib_call))
 
     # -- temporal_sample, recent ------------------------------------------
     args = (tgt, tq, ts0, tm)
@@ -433,7 +468,8 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev):
                                                        attn_mask=m_l))
     for r in rows:
         lib = ("none" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms")
+               else f"{r['library_ms']:.4f} ms ({r['library_call_ms']:.4f} "
+                    f"per call)")
         log(f"[kernel] {r['name']:<24} {r['shape']:<32} ok "
             f"max|err|={r['max_abs_err']:.3g} (tol {ATOL_KERNEL}) "
             f"device ms: kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  "
@@ -590,9 +626,10 @@ def main() -> int:
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
-          flush=True)
+            "library_ms", "call_ms", "library_call_ms")
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys} | {k: r[k] for k in ("instance",) if k in r}
+        for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -851,7 +888,7 @@ def backward_row(torch, tr, dev):
                                               retain_graph=True)
         ms, call = timings(torch, kernel, flush)
         plain_ms, plain_call = timings(torch, plain, flush)
-        lib_ms = device_ms(torch, library, flush)
+        lib_ms, lib_call = timings(torch, library, flush)
         nbytes = 4 * N * H * dh * ((2 * K + 2) + (2 * K + 1)) + N * K
         b, by = bound_ms(nbytes, 8.0 * N * H * K * dh + 6.0 * N * H * K)
         shape = f"N={N} H={H} Dh={dh} K={K}"
@@ -859,14 +896,16 @@ def backward_row(torch, tr, dev):
             f"max|err|={err:.3g} (tol {ATOL_KERNEL}) device ms: kernel "
             f"{ms:.4f}  plain {plain_ms:.4f}  bound {b:.4f} ({by}, "
             f"{nbytes / 1e6:.1f} MB)  library {lib_ms:.4f} ms; ms per "
-            f"call: kernel {call:.4f}  plain {plain_call:.4f}")
+            f"call: kernel {call:.4f}  plain {plain_call:.4f}  library "
+            f"{lib_call:.4f}")
         row = dict(name="temporal_attn_bwd", route="cuda",
                    source="src/repro_torch/csrc/temporal_attn.cu",
                    replaces="src/repro/kernels/temporal_attn/"
                             "temporal_attn.py:21",
                    max_abs_err=err, shape=shape, ms=ms, call_ms=call,
                    plain_ms=plain_ms, plain_call_ms=plain_call,
-                   bound_ms=b, bound_by=by, library_ms=lib_ms)
+                   bound_ms=b, bound_by=by, library_ms=lib_ms,
+                   library_call_ms=lib_call)
     return row
 
 
@@ -1175,15 +1214,23 @@ def lm_serve(torch, dev, args, cfg):
 
 def flash_row(torch, dev, cfg, flush):
     """flash_attention against its plain version at Yi's prefill shape in
-    bf16, timed beside one scaled_dot_product_attention (a yardstick,
-    never called by the port); then at Nemotron-4-340B's heads of 192,
-    the kernel's wide instance, in bf16 and float32."""
+    bf16 (the Hopper instance), timed beside one
+    scaled_dot_product_attention (a yardstick, never called by the port):
+    device time from the profiler, and time per call between CUDA events
+    in turns (kernel, library, library, kernel); then at Nemotron-4-340B's
+    heads of 192, the general instance's wide template, in bf16 and
+    float32."""
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         instance)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     B, S = LM_PREFILL
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    inst = instance(torch.bfloat16, D)
+    if inst != "sm90":
+        raise AssertionError(f"{cfg.name}: flash_attention takes the "
+                             f"{inst} instance at head dim {D}")
     g = torch.Generator(device=dev).manual_seed(13)
 
     def inputs(b, s, hq, hkv, d, dtype):
@@ -1204,10 +1251,15 @@ def flash_row(torch, dev, cfg, flush):
     lib_rel = row_rel_err(torch, library().transpose(1, 2), got,
                           "scaled_dot_product_attention vs flash_attention")
     kern = lambda: flash_attention(q, k, v, causal=True)
-    ms, call = timings(torch, kern, flush)
+    ms, lib_ms = device_ms(torch, kern, flush), device_ms(torch, library,
+                                                          flush)
+    turns = [call_ms(torch, fn, flush=flush)
+             for fn in (kern, library, library, kern)]
+    call, lib_call = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    burst, lib_burst = burst_ms(torch, kern, flush), burst_ms(torch, library,
+                                                              flush)
     plain_ms = device_ms(torch, lambda: flash_attention_ref(
         q, k, v, causal=True), flush, reps=3)
-    lib_ms = device_ms(torch, library, flush)
     nbytes = 2 * (2 * q.numel() + 2 * k.numel())
     pairs = B * Hq * (S * S + S) / 2          # (q, key) pairs in the window
     ops = 4.0 * D * pairs
@@ -1228,7 +1280,7 @@ def flash_row(torch, dev, cfg, flush):
         else:
             wide_errs.append(max_err(torch, got_w, want_w, what))
     shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
-    log(f"[kernel] flash_attention          {shape:<32} ok max|err|/max|ref| "
+    log(f"[kernel] flash_attention ({inst})   {shape:<32} ok max|err|/max|ref| "
         f"of a row {rel:.3g} (tol {ROW_REL_BF16}; SDPA vs kernel "
         f"{lib_rel:.3g}), max|err| {err:.3g} (tol {ATOL_BF16}); at Nemotron-4's heads "
         f"{shape_w} bf16 {wide_errs[0]:.3g} (same bar), f32 max|err| "
@@ -1237,13 +1289,17 @@ def flash_row(torch, dev, cfg, flush):
         f"bf16 peak {ops / BF16_OPS_PER_S * 1e3:.4f}, {pairs:.3g} exp on "
         f"the special-function units {pairs / SFU_PER_S * 1e3:.4f}, "
         f"{nbytes / 1e6:.1f} MB {nbytes / HBM_BYTES_PER_S * 1e3:.4f})  "
-        f"library {lib_ms:.4f} ms; ms per call: kernel {call:.4f}")
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/csrc/flash_attention.cu",
+        f"library {lib_ms:.4f} ms; ms per call, in turns (kernel, library, "
+        f"library, kernel): {' '.join(f'{t:.4f}' for t in turns)}; device "
+        f"ms by CUDA events over a burst: kernel {burst:.4f}  library "
+        f"{lib_burst:.4f}")
+    return dict(name="flash_attention", route="cuda", instance=inst,
+                source="src/repro_torch/csrc/flash_attention_sm90.cu",
                 replaces="src/repro/kernels/flash_attention/"
                          "flash_attention.py:82",
                 max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=lib_ms)
+                bound_ms=b, bound_by=by, library_ms=lib_ms,
+                library_call_ms=lib_call)
 
 
 def scan_row(torch, dev, cfg, flush):
@@ -1265,7 +1321,9 @@ def scan_row(torch, dev, cfg, flush):
     err = max(max_err(torch, y, y_w, "selective_scan y"),
               max_err(torch, h, h_w, "selective_scan h_last"))
     del y_w, h_w
-    ms, call = timings(torch, lambda: selective_scan(*args), flush)
+    kern = lambda: selective_scan(*args)
+    ms, call = timings(torch, kern, flush)
+    burst = burst_ms(torch, kern, flush)
     plain_ms = device_ms(torch, lambda: selective_scan_ref(*args), flush,
                          reps=2)
     elems = B * L * Din * N
@@ -1280,13 +1338,15 @@ def scan_row(torch, dev, cfg, flush):
         f"special-function units {elems / SFU_PER_S * 1e3:.4f}, {ops:.3g} "
         f"FLOP at f32 peak {ops / FP32_OPS_PER_S * 1e3:.4f}, "
         f"{nbytes / 1e6:.1f} MB {nbytes / HBM_BYTES_PER_S * 1e3:.4f})  "
-        f"library none; ms per call: kernel {call:.4f}")
+        f"library none; ms per call: kernel {call:.4f}; device ms by CUDA "
+        f"events over a burst {burst:.4f}")
     return dict(name="selective_scan", route="cuda",
                 source="src/repro_torch/csrc/selective_scan.cu",
                 replaces="src/repro/kernels/selective_scan/"
                          "selective_scan.py:57",
                 max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=None)
+                bound_ms=b, bound_by=by, library_ms=None,
+                library_call_ms=None)
 
 
 def lm_cut_checks(torch, dev, args, cfg):

@@ -10,35 +10,122 @@
 //   h_t[n] = exp(dt_t A[d, n]) h_{t-1}[n] + (dt_t x_t) B_t[n]
 //   y_t    = sum_n h_t[n] C_t[n]
 // from h_0 = h0[b, d]; the kernel writes y (B, L, Din) and h_last.
-// exp is the accurate expf (not __expf), to hold 1e-5 against float32.
 //
-// What bounds it on the H100: bytes.  At Falcon-Mamba-7B's prefill shape
-// (B 2, L 4096, Din 8192, N 16) it must read dt and x and write y (about
-// 805 MB; B_t and C_t add 1 MB), while the 1.07e9 exps and about 6 flops
-// per state element come to roughly the same time on the special-function
-// units and less on the float32 pipes.
+// What bounds it on the H100: the exps.  At Falcon-Mamba-7B's prefill
+// shape (B 2, L 4096, Din 8192, N 16) there are 1.07e9 of them, 0.257 ms
+// on the special-function units (16 a clock per SM), against 809 MB of
+// dt, x and y (0.2415 ms) and about 4 float32 instructions per state
+// element, which take half the exps' time on the FMA pipes.
 //
-// Design: the state never leaves registers.  Four lanes share one (b, d)
-// channel, lane l holding states n = l, l + 4, l + 8, l + 12 (N <= 16),
-// so y_t is a two-step shuffle reduction and the card holds 4 x B x Din
-// threads (enough warps to hide the loads at B = 2).  A CTA of 128
-// threads owns 32 channels of one batch row and walks L in chunks of 64
-// steps: it stages the chunk's dt and x columns (128-byte rows) and the
-// B_t and C_t rows, which all its channels share, in shared memory with
-// every load in flight at once, runs the 64 steps from there, and writes
-// the chunk's y from shared memory in 128-byte rows.
+// Design.
+//   - exp on the special-function unit: A' = A log2 e is taken once per
+//     state, and exp(dt A) is ex2.approx(dt A'), one FMUL and one MUFU op
+//     where expf takes about ten instructions.  Held to 1e-5 against the
+//     float32 reference on the card with A down to -16 and dt up to 1.
+//   - Two threads per channel, each holding 8 of its 16 states in
+//     registers (N < 16 is padded with A' = 0, B = C = 0 and h = 0, which
+//     stay exactly 0); y_t is one shuffle, and the even lane writes it,
+//     so a warp writes 16 neighbouring y values at once.  A CTA of 128
+//     threads owns 64 channels of one batch row.  The B_t and C_t rows,
+//     which all its channels share, are read from shared memory as
+//     float4 broadcasts (all lanes of a warp read one of two addresses):
+//     8 states cost 4 LDS.128.  Time steps are unrolled by 8.  With one
+//     warp per scheduler (one thread per channel) the exps' time added
+//     to the other work instead of hiding under it; two threads per
+//     channel give each scheduler two warps, and ran faster on the card
+//     than one or four.
+//   - Overlap: the CTA walks L in chunks of 64 steps through two buffers;
+//     while it scans one chunk, cp.async brings the next chunk's dt and x
+//     columns and B_t and C_t rows.  Two barriers per chunk.
+// L is not split across CTAs: B x Din recurrences fill the card.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kLanes = 4;              // threads per channel
-constexpr int kChannels = 32;          // channels per CTA
-constexpr int kThreads = kLanes * kChannels;
+constexpr int kLanes = 2;              // threads per channel
+constexpr int kThreads = 128;
+constexpr int kChannels = kThreads / kLanes;   // channels per CTA
 constexpr int kMaxN = 16;
-constexpr int kPerLane = kMaxN / kLanes;
-constexpr int kChunk = 64;             // time steps staged at once
+constexpr int kPer = kMaxN / kLanes;   // states per thread
+constexpr int kChunk = 64;             // time steps per buffer
+constexpr int kBufs = 2;               // buffers in the ring
+constexpr float kLog2e = 1.4426950408889634f;
 
-__global__ void __launch_bounds__(kThreads)
+struct Buffer {
+  float dt[kChunk][kChannels];
+  float x[kChunk][kChannels];
+  float b[kChunk][kMaxN];
+  float c[kChunk][kMaxN];
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// cp.async of `bytes` (4 or 16) from src to shared dst; zero-fills dst
+// where !ok (src is then only a valid address, not read).
+template <int bytes>
+__device__ __forceinline__ void cp_async(void* dst, const float* src,
+                                         bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                 "l"(src), "r"(ok ? 16 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+                 "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+// Issue the copies of steps [t0, t0 + tn) into buf: dt and x columns
+// d0..d0 + kChannels (zero past Din), B_t and C_t rows (n < N; the
+// padding columns were zeroed once).  vec: 16-byte copies (Din % 4 == 0
+// and N % 4 == 0, every pointer 16-byte aligned).
+__device__ __forceinline__ void stage(Buffer& buf, const float* __restrict__ dt,
+                                      const float* __restrict__ x,
+                                      const float* __restrict__ Bt,
+                                      const float* __restrict__ Ct, int b,
+                                      int t0, int tn, int L, int Din, int d0,
+                                      int N, bool vec) {
+  const int tid = threadIdx.x;
+  const int64_t row0 = (int64_t)b * L + t0;
+  if (vec) {
+    constexpr int kq = kChannels / 4;          // 16-byte pieces a row
+    for (int i = tid; i < tn * kq; i += kThreads) {
+      const int t = i / kq, c = 4 * (i % kq);
+      const bool ok = d0 + c < Din;
+      const int64_t g = (row0 + t) * Din + d0 + c;
+      cp_async<16>(&buf.dt[t][c], ok ? dt + g : dt, ok);
+      cp_async<16>(&buf.x[t][c], ok ? x + g : x, ok);
+    }
+    const int nq = N / 4;
+    for (int i = tid; i < tn * nq; i += kThreads) {
+      const int t = i / nq, n = 4 * (i % nq);
+      const int64_t g = (row0 + t) * N + n;
+      cp_async<16>(&buf.b[t][n], Bt + g, true);
+      cp_async<16>(&buf.c[t][n], Ct + g, true);
+    }
+  } else {
+    for (int i = tid; i < tn * kChannels; i += kThreads) {
+      const int t = i / kChannels, c = i % kChannels;
+      const bool ok = d0 + c < Din;
+      const int64_t g = (row0 + t) * Din + d0 + c;
+      cp_async<4>(&buf.dt[t][c], ok ? dt + g : dt, ok);
+      cp_async<4>(&buf.x[t][c], ok ? x + g : x, ok);
+    }
+    for (int i = tid; i < tn * N; i += kThreads) {
+      const int t = i / N, n = i % N;
+      const int64_t g = (row0 + t) * N + n;
+      cp_async<4>(&buf.b[t][n], Bt + g, true);
+      cp_async<4>(&buf.c[t][n], Ct + g, true);
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// one CTA per SM is enough to fill the card, so all registers
+__global__ void __launch_bounds__(kThreads, 1)
     selective_scan_kernel(const float* __restrict__ dt,
                           const float* __restrict__ x,
                           const float* __restrict__ A,
@@ -46,75 +133,83 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ Ct,
                           const float* __restrict__ h0, int L, int Din,
                           int N, float* __restrict__ y,
-                          float* __restrict__ h_last) {
-  __shared__ float s_dt[kChunk][kChannels];
-  __shared__ float s_x[kChunk][kChannels];
-  __shared__ float s_y[kChunk][kChannels];
-  __shared__ float s_b[kChunk][kMaxN];
-  __shared__ float s_c[kChunk][kMaxN];
+                          float* __restrict__ h_last, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Buffer* bufs = reinterpret_cast<Buffer*>(smem_raw);   // kBufs buffers
 
   const int tid = threadIdx.x;
-  const int ch = tid / kLanes, lane = tid % kLanes;
+  const int ch = tid / kLanes;
+  const int n0 = tid % kLanes * kPer;    // the thread's first state
   const int b = blockIdx.y;
   const int d0 = blockIdx.x * kChannels;
   const int d = d0 + ch;
   const bool live = d < Din;
 
-  float a[kPerLane], h[kPerLane];
+  // the padding columns of B_t and C_t stay zero in every buffer
+  for (int i = tid; i < kBufs * kChunk * kMaxN; i += kThreads) {
+    const int k = i / (kChunk * kMaxN), r = i % (kChunk * kMaxN);
+    (&bufs[k].b[0][0])[r] = 0.f;
+    (&bufs[k].c[0][0])[r] = 0.f;
+  }
+  __syncthreads();
+
+  float a[kPer], h[kPer];
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    const int n = lane + kLanes * i;
+  for (int i = 0; i < kPer; ++i) {
+    const int n = n0 + i;
     const bool ok = live && n < N;
-    a[i] = ok ? A[(int64_t)d * N + n] : 0.f;
+    a[i] = ok ? A[(int64_t)d * N + n] * kLog2e : 0.f;
     h[i] = ok ? h0[((int64_t)b * Din + d) * N + n] : 0.f;
   }
 
-  for (int t0 = 0; t0 < L; t0 += kChunk) {
-    const int tn = min(kChunk, L - t0);
-    __syncthreads();   // the previous chunk's y is written out
-    for (int idx = tid; idx < kChunk * kChannels; idx += kThreads) {
-      const int t = idx / kChannels, c = idx % kChannels;
-      const bool ok = t < tn && d0 + c < Din;
-      const int64_t g = ((int64_t)b * L + t0 + t) * Din + d0 + c;
-      s_dt[t][c] = ok ? dt[g] : 0.f;
-      s_x[t][c] = ok ? x[g] : 0.f;
-    }
-    for (int idx = tid; idx < tn * N; idx += kThreads) {
-      const int t = idx / N, n = idx % N;
-      const int64_t g = ((int64_t)b * L + t0 + t) * N + n;
-      s_b[t][n] = Bt[g];
-      s_c[t][n] = Ct[g];
-    }
+  const int n_chunks = (L + kChunk - 1) / kChunk;
+  // chunk c into its buffer; a chunk past the end commits an empty group
+  auto fetch = [&](int c) {
+    if (c < n_chunks)
+      stage(bufs[c % kBufs], dt, x, Bt, Ct, b, c * kChunk,
+            min(kChunk, L - c * kChunk), L, Din, d0, N, vec);
+    else
+      asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  for (int c = 0; c < kBufs - 1; ++c) fetch(c);
+  for (int c = 0; c < n_chunks; ++c) {
+    const int t0 = c * kChunk, tn = min(kChunk, L - t0), k = c % kBufs;
+    fetch(c + kBufs - 1);
+    // every group but the newest kBufs - 1 is in: chunk c has landed
+    asm volatile("cp.async.wait_group %0;" ::"n"(kBufs - 1) : "memory");
     __syncthreads();
+    const Buffer& cur = bufs[k];
+    float* yrow = y + ((int64_t)b * L + t0) * Din + d;
+#pragma unroll 8
     for (int t = 0; t < tn; ++t) {
-      const float dtt = s_dt[t][ch];
-      const float u = dtt * s_x[t][ch];
-      float part = 0.f;
+      const float dtt = cur.dt[t][ch];
+      const float u = dtt * cur.x[t][ch];
+      float bb[kPer], cc[kPer];
 #pragma unroll
-      for (int i = 0; i < kPerLane; ++i) {
-        const int n = lane + kLanes * i;
-        if (n < N) {
-          h[i] = expf(dtt * a[i]) * h[i] + u * s_b[t][n];
-          part += h[i] * s_c[t][n];
-        }
+      for (int i = 0; i < kPer; i += 4) {
+        const float4 vb = *reinterpret_cast<const float4*>(&cur.b[t][n0 + i]);
+        const float4 vc = *reinterpret_cast<const float4*>(&cur.c[t][n0 + i]);
+        bb[i] = vb.x; bb[i + 1] = vb.y; bb[i + 2] = vb.z; bb[i + 3] = vb.w;
+        cc[i] = vc.x; cc[i + 1] = vc.y; cc[i + 2] = vc.z; cc[i + 3] = vc.w;
       }
-      part += __shfl_xor_sync(FULL_MASK, part, 1);
-      part += __shfl_xor_sync(FULL_MASK, part, 2);
-      if (lane == 0) s_y[t][ch] = part;
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        h[i] = fmaf(ex2(dtt * a[i]), h[i], u * bb[i]);
+        part[i % 4] = fmaf(h[i], cc[i], part[i % 4]);
+      }
+      float yt = (part[0] + part[1]) + (part[2] + part[3]);
+#pragma unroll
+      for (int w = 1; w < kLanes; w <<= 1)
+        yt += __shfl_xor_sync(FULL_MASK, yt, w);
+      if (live && n0 == 0) yrow[(int64_t)t * Din] = yt;
     }
-    __syncthreads();
-    for (int idx = tid; idx < tn * kChannels; idx += kThreads) {
-      const int t = idx / kChannels, c = idx % kChannels;
-      if (d0 + c < Din) y[((int64_t)b * L + t0 + t) * Din + d0 + c] =
-          s_y[t][c];
-    }
+    __syncthreads();   // everyone is done with bufs[k] before it refills
   }
 
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    const int n = lane + kLanes * i;
-    if (live && n < N) h_last[((int64_t)b * Din + d) * N + n] = h[i];
-  }
+  for (int i = 0; i < kPer; ++i)
+    if (live && n0 + i < N) h_last[((int64_t)b * Din + d) * N + n0 + i] = h[i];
 }
 
 }  // namespace
@@ -127,9 +222,19 @@ extern "C" int selective_scan_launch(const float* dt, const float* x,
                                      const float* Ct, const float* h0, int B,
                                      int L, int Din, int N, float* y,
                                      float* h_last, void* stream) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(dt) |
+                         reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(Bt) |
+                         reinterpret_cast<uintptr_t>(Ct);
+  const int vec = Din % 4 == 0 && N % 4 == 0 && (addr & 15) == 0;
+  const size_t smem = kBufs * sizeof(Buffer);
+  cudaError_t err = cudaFuncSetAttribute(
+      selective_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Din + kChannels - 1) / kChannels, B);
-  selective_scan_kernel<<<grid, kThreads, 0,
+  selective_scan_kernel<<<grid, kThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      dt, x, A, Bt, Ct, h0, L, Din, N, y, h_last);
+      dt, x, A, Bt, Ct, h0, L, Din, N, y, h_last, vec);
   return static_cast<int>(cudaGetLastError());
 }

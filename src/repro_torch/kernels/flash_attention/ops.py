@@ -1,13 +1,18 @@
-"""Wrapper of the flash_attention CUDA kernel
-(``csrc/flash_attention.cu``).
+"""Wrapper of the flash_attention CUDA kernels: the Hopper instance
+(``csrc/flash_attention_sm90.cu``: wgmma, TMA, a K/V ring) for bfloat16
+with head dim 64 or 128, and the general instance
+(``csrc/flash_attention.cu``) for every other dtype and head dim.
 
 A CPU tensor takes the plain version (``ref.py``).  A CUDA tensor
-launches the kernel, counted as ``flash_attention``, or raises on what
-the kernel does not take: q, k and v must be contiguous float32 or
-bfloat16 tensors of one dtype, (B, S, H, D) with Hq % Hkv == 0 and
-D <= 256, and a causal call needs Sq <= Skv (every query row then has
-at least one key).  Unlike the Pallas wrapper, any Sq and Skv are taken:
-the kernel masks the ragged edge of its tiles itself.
+launches one kernel, the instance :func:`instance` picks from the dtype
+and head dim before the launch, counted as ``flash_attention`` either
+way, or raises on what the kernel does not take: q, k and v must be
+contiguous float32 or bfloat16 tensors of one dtype, (B, S, H, D) with
+Hq % Hkv == 0 and D <= 256, and a causal call needs Sq <= Skv (every
+query row then has at least one key).  The Hopper instance reads q, k
+and v by TMA, which needs them 16-byte aligned.  Unlike the Pallas
+wrapper, any Sq and Skv are taken: both kernels mask the ragged edge of
+their tiles themselves.
 """
 from __future__ import annotations
 
@@ -19,8 +24,20 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 P, I, F = rt.PTR, rt.INT, rt.FLOAT
 _SIG = {"flash_attention_launch": (P, P, P, P, I, I, I, I, I, I, I, I, F,
                                    P)}
+_SIG_SM90 = {"flash_attention_sm90_launch": (P, P, P, P, I, I, I, I, I, I,
+                                             I, F, P)}
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SM90_HEAD_DIMS = (64, 128)
+
+
+def instance(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call launches: ``"sm90"`` (wgmma and TMA) for
+    bfloat16 with a head dim in :data:`SM90_HEAD_DIMS`, else
+    ``"general"``."""
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return "sm90"
+    return "general"
 
 
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
@@ -34,11 +51,17 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = rt.load("flash_attention", _SIG)
-    rc = lib.flash_attention_launch(
-        rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), B, Sq, Skv, Hq, Hkv,
-        D, DTYPES[q.dtype], int(causal), D ** -0.5,
-        rt.stream_handle(q.device))
+    stream = rt.stream_handle(q.device)
+    if instance(q.dtype, D) == "sm90":
+        lib = rt.load("flash_attention_sm90", _SIG_SM90)
+        rc = lib.flash_attention_sm90_launch(
+            rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), B, Sq, Skv, Hq,
+            Hkv, D, int(causal), D ** -0.5, stream)
+    else:
+        lib = rt.load("flash_attention", _SIG)
+        rc = lib.flash_attention_launch(
+            rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), B, Sq, Skv, Hq,
+            Hkv, D, DTYPES[q.dtype], int(causal), D ** -0.5, stream)
     rt.count_launch("flash_attention")
     rt.check(lib, rc, "flash_attention")
     return out
@@ -65,3 +88,7 @@ def _check(q, k, v, causal):
     if causal and Sq > Skv:
         raise ValueError(f"flash_attention: causal needs Sq <= Skv, got "
                          f"Sq={Sq} Skv={Skv}")
+    if instance(q.dtype, D) == "sm90" and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the Hopper instance reads q, k "
+                         "and v by TMA and needs them 16-byte aligned")

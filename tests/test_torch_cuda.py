@@ -235,6 +235,15 @@ def _attn_inputs(card, B, Sq, Skv, Hq, Hkv, D, dtype, seed):
             for shape in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D))]
 
 
+def _assert_bf16_rows_close(got, want):
+    """Each output row within 1.6e-2 of the row's max |out| (2 bf16 ulps
+    of its scale) and every output within the reference's 4e-2."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1)
+    assert float((err / scale).max()) <= 1.6e-2
+    assert float(err.max()) <= 4e-2
+
+
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", [
     (1, 64, 64, 4, 2, 16), (2, 96, 96, 6, 2, 32), (2, 57, 57, 4, 2, 16),
     (2, 32, 64, 8, 4, 16), (1, 5, 70, 2, 1, 80), (2, 130, 130, 8, 1, 128),
@@ -262,10 +271,52 @@ def test_flash_attention_kernel_matches_plain(card, B, Sq, Skv, Hq, Hkv, D,
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     else:
-        err = (got.float() - want.float()).abs().amax(-1)
-        scale = want.float().abs().amax(-1)
-        assert float((err / scale).max()) <= 1.6e-2
-        assert float(err.max()) <= 4e-2
+        _assert_bf16_rows_close(got, want)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", [
+    (2, 200, 200, 8, 1, 128),    # ragged S, GQA 8:1
+    (1, 77, 77, 4, 4, 64),       # ragged S, GQA 1:1, D 64
+    (2, 100, 333, 4, 2, 128),    # Sq < Skv: row i at i + 233
+    (1, 5, 70, 2, 1, 64),        # Sq < Skv inside one tile
+    (1, 2048, 2048, 4, 2, 128),  # 16 K/V tiles: many ring wraps
+    (4, 384, 384, 32, 4, 128)])  # 384 CTAs, more than the card's SMs
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_hopper_instance_matches_plain(card, B, Sq, Skv, Hq,
+                                                       Hkv, D, causal):
+    """The wgmma/TMA instance (bf16, D 64 or 128): ragged edges masked in
+    the kernel, the model's causal offset, GQA, non-causal, long rings
+    and more CTAs than SMs, at the bf16 bars."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         instance)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    assert instance(torch.bfloat16, D) == "sm90"
+    q, k, v = _attn_inputs(card, B, Sq, Skv, Hq, Hkv, D, torch.bfloat16,
+                           Sq + Skv + D)
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    _assert_bf16_rows_close(got, want)
+
+
+@pytest.mark.parametrize("dtype,D,inst", [
+    (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "sm90"),
+    (torch.bfloat16, 80, "general"), (torch.float32, 128, "general")])
+def test_flash_attention_one_launch_per_call(card, dtype, D, inst):
+    """Either instance is one counted ``flash_attention`` launch."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         instance)
+
+    assert instance(dtype, D) == inst
+    q, k, v = _attn_inputs(card, 2, 96, 96, 4, 2, D, dtype, D)
+    runtime.reset_launch_counts()
+    flash_attention(q, k, v, causal=True)
+    assert runtime.launch_counts() == {"flash_attention": 1}
+    flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert runtime.launch_counts() == {"flash_attention": 2}
 
 
 @pytest.mark.parametrize("B,L,Din,N", [
@@ -280,6 +331,31 @@ def test_selective_scan_kernel_matches_plain(card, B, L, Din, N):
     n = lambda *s: torch.randn(s, generator=g, device=card)
     args = (0.001 + 0.099 * r(B, L, Din), n(B, L, Din),
             -(0.5 + 3.5 * r(Din, N)), n(B, L, N), n(B, L, N), n(B, Din, N))
+    runtime.reset_launch_counts()
+    y, h = selective_scan(*args)
+    assert runtime.launch_counts() == {"selective_scan": 1}
+    y_w, h_w = selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_w, atol=1e-5, rtol=0)
+    torch.testing.assert_close(h, h_w, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("B,L,Din,N", [
+    (1, 333, 8192, 16),   # Falcon's width, L no multiple of the chunk
+    (2, 130, 8192, 13),   # N < 16: padded states
+    (2, 64, 256, 16)])
+def test_selective_scan_kernel_exp2_over_model_ranges(card, B, L, Din, N):
+    """exp(dt A) as ex2.approx(dt A log2 e) with A down to -16 (A =
+    -exp(A_log) in the model) and dt up to 1 (a softplus), from a
+    nonzero h0: within 1e-5 of the float32 reference."""
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    g = torch.Generator(device=card).manual_seed(Din + L)
+    r = lambda *s: torch.rand(s, generator=g, device=card)
+    n = lambda *s: torch.randn(s, generator=g, device=card)
+    args = (0.001 + 0.999 * r(B, L, Din), n(B, L, Din),
+            -(0.5 + 15.5 * r(Din, N)), n(B, L, N), n(B, L, N), n(B, Din, N))
     runtime.reset_launch_counts()
     y, h = selective_scan(*args)
     assert runtime.launch_counts() == {"selective_scan": 1}

@@ -134,14 +134,49 @@ def test_flash_plain_row_without_keys_is_zero():
     assert (out[:, :4] == 0).all()
 
 
+@pytest.mark.parametrize("dtype,head_dim,want", [
+    (torch.bfloat16, 128, "sm90"),      # Yi-6B and the other dense archs
+    (torch.bfloat16, 64, "sm90"),
+    (torch.bfloat16, 80, "general"),    # HuBERT
+    (torch.bfloat16, 192, "general"),   # Nemotron-4
+    (torch.bfloat16, 16, "general"),    # the reduced archs
+    (torch.bfloat16, 256, "general"),
+    (torch.float32, 128, "general"),
+    (torch.float32, 64, "general")])
+def test_flash_dispatch_rule(dtype, head_dim, want):
+    """Which kernel a CUDA call launches is decided by dtype and head dim
+    alone, before the launch."""
+    assert flash_ops.instance(dtype, head_dim) == want
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor whose data starts 2 bytes past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=dtype)[1:n + 1].view(shape)
+
+
+@pytest.mark.parametrize("dtype,head_dim", [
+    (torch.float32, 128), (torch.bfloat16, 80)])
+def test_flash_wrapper_takes_misaligned_general_inputs(dtype, head_dim):
+    """Only the TMA instance needs 16-byte aligned q, k, v."""
+    q = _misaligned((1, 16, 4, head_dim), dtype)
+    k = _misaligned((1, 16, 2, head_dim), dtype)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    flash_ops._check(q, k, k, True)
+
+
 @pytest.mark.parametrize("bad,match", [
     ("dtype", "dtype"), ("heads", "multiple"), ("head_dim", "head dim"),
     ("causal_long_q", "Sq <= Skv"), ("strided", "contiguous"),
-    ("shapes", "disagree")])
+    ("shapes", "disagree"), ("misaligned", "16-byte aligned")])
 def test_flash_wrapper_rejects(bad, match):
     """The checks a CUDA call goes through before the launch."""
     _, (q, k, v) = _qkv(1, 16, 4, 2, 8, seed=2)
     causal = True
+    if bad == "misaligned":     # bf16, D 128: the Hopper instance
+        q = _misaligned((1, 16, 4, 128), torch.bfloat16)
+        k = v = torch.zeros((1, 16, 2, 128), dtype=torch.bfloat16)
     if bad == "dtype":
         q, k, v = (t.half() for t in (q, k, v))
     elif bad == "heads":
