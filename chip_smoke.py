@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--events N] [--nodes N]
+    python3 chip_smoke.py [--seed N] [--events N] [--nodes N] [--ab DIR]...
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -15,12 +15,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. kernel phase: each of the four forward kernel bodies (temporal_sample
    recent and uniform, cache_gather, temporal_attn) runs at the serving
    path's shapes on the live mirror and caches, against its plain
-   PyTorch version on the same inputs (ids and masks exact, floats
-   within 1e-5), and is timed beside the plain version and, for
-   temporal_attn, a masked ``scaled_dot_product_attention``: device
-   time per call from ``torch.profiler`` (L2 flushed before each call)
-   and time per call between CUDA events, which also holds the host's
-   launch work while the stream waits;
+   PyTorch version on the same inputs (ids, masks and gathered rows
+   exact, floats within 1e-5), and is timed beside the plain version
+   and, for temporal_attn, a masked ``scaled_dot_product_attention``:
+   device time per call from ``torch.profiler`` (L2 flushed before each
+   call) and time per call between CUDA events, which also holds the
+   host's launch work while the stream waits.  Uniform sampling also
+   runs at the serving hop 0 (the link batch's 128 seeds), and uniform
+   sampling and cache_gather at the TGAT train step's shapes: the 1,800
+   hop-0 and 18,000 hop-1 targets of a 600-event batch, and that
+   batch's 18,000 hop-0 edge ids padded to 32,768 as
+   ``FeatureCache.fetch`` pads; those rows take their launch counts
+   from the TGAT rounds of phase 6, which launch each kernel at several
+   shapes (both hops, node and edge fetches), not only at the row's.
+   With ``--ab DIR`` (repeatable), each row whose
+   source file is also in ``DIR`` (another design with the same C
+   interface, such as ``git archive <commit> src/repro_torch/csrc``
+   unpacked into a git-ignored directory) is checked against that
+   design and timed in turns with it, other, tree, tree, other; the
+   rows carry the times as ``ab`` (by directory) in the ``kernels``
+   line;
 4. serving phase: TGAT at the paper's full width (d_node 128, d_edge
    172, d_time 100, d_hidden 100, 2 heads, fanouts 10/10) with
    ``recent`` sampling answers 512 link and 128 embed queries through
@@ -74,6 +88,7 @@ repository beside it, the script exits non-zero before printing either.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -235,6 +250,35 @@ def bound_ms(nbytes: float, ops: float,
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def in_turns(torch, lib, ab, kernel, flush, what) -> list:
+    """``kernel`` against another design of its library ``lib``, built
+    from the source in directory ``ab`` (same C interface): the two must
+    agree (ints and masks exactly, floats within the kernel bar), then
+    both are timed in turns, other, tree, tree, other."""
+    from repro_torch.kernels import runtime
+
+    with runtime.sources_from(lib, ab):
+        other = kernel()
+    tree = kernel()
+    torch.cuda.synchronize()
+    for i, (o, t) in enumerate(zip(*(x if isinstance(x, tuple) else (x,)
+                                     for x in (other, tree)))):
+        if t.is_floating_point():
+            max_err(torch, o, t, f"{what} [{i}]: {ab} vs the tree")
+        else:
+            assert_equal(torch, o, t, f"{what} [{i}]: {ab} vs the tree")
+    turns = []
+    for design in ("other", "tree", "tree", "other"):
+        with (runtime.sources_from(lib, ab) if design == "other"
+              else contextlib.nullcontext()):
+            ms, call = timings(torch, kernel, flush)
+        turns.append(dict(design=design, ms=ms, call_ms=call))
+    log(f"[ab] {what}: outputs agree; device ms / ms per call in turns: "
+        + "  ".join(f"{t['design']} {t['ms']:.4f}/{t['call_ms']:.4f}"
+                    for t in turns))
+    return turns
+
+
 def assert_equal(torch, got, want, what):
     if not torch.equal(got, want):
         bad = int((got != want).sum())
@@ -303,7 +347,9 @@ class Feed:
 # ---------------------------------------------------------------------------
 
 
-def kernel_phase(torch, eng, feed, t_q, rng, dev):
+def kernel_phase(torch, eng, feed, t_q, rng, dev, ab=()):
+    """Phase 3; each row is also timed in turns against the design of
+    its source in each directory of ``ab`` (see :func:`in_turns`)."""
     from repro_torch.core.rand import gumbel_noise
     from repro_torch.kernels.cache_gather.ops import cache_gather
     from repro_torch.kernels.cache_gather.ref import cache_gather_ref
@@ -340,8 +386,13 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev):
     N = tgt.shape[0]
     rows = []
 
-    def sample_bytes(policy, noise_lanes=0):
-        """Bytes the walk needs on this data (see PERF.md)."""
+    def sample_bytes(policy, tgt, tq, ts0, tm):
+        """Bytes the walk needs on this data (see PERF.md), and its
+        compares.  Uniform needs the noise of each in-window lane and
+        nbr/eid of its picks only; for uniform a third value is the
+        looser count that also reads nbr/eid of every in-window lane, as
+        a one-warp-per-target walk does."""
+        N = tgt.shape[0]
         pt = d["page_table"][tgt.clamp(0, d["page_table"].shape[0] - 1)
                              .long()][:, :scan]
         alive = tm & (tgt >= 0) & (tgt < d["page_table"].shape[0])
@@ -351,24 +402,28 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev):
             & (d["page_tmax"][pc] >= ts0[:, None])
         lane_ts = d["pages_ts"][pc]
         inwin = (d["pages_valid"][pc] & hit[:, :, None]
+                 & (lane_ts >= ts0[:, None, None])
                  & (lane_ts < tq[:, None, None])).sum(-1)     # (N, S)
         if policy == "recent":
             before = inwin.cumsum(1) - inwin
             reached = before < K
         else:
             reached = torch.ones_like(inwin, dtype=torch.bool)
-        reads = (reached & alive[:, None]).sum()
-        visited = (reached & valid_pid).sum()
-        scanned = (reached & hit).sum()
-        lanes_in = (inwin * reached).sum()
-        nbytes = (13 * N + 4 * reads + 8 * visited + 5 * C * scanned
-                  + (12 if policy == "uniform" else 8) * lanes_in
-                  + 13 * N * K)
-        ops = 3 * C * scanned
-        return float(nbytes), float(ops)
+        reads = float((reached & alive[:, None]).sum())
+        visited = float((reached & valid_pid).sum())
+        scanned = float((reached & hit).sum())
+        lanes_in = float((inwin * reached).sum())
+        common = 13 * N + 4 * reads + 8 * visited + 5 * C * scanned \
+            + 13 * N * K
+        ops = 3.0 * C * scanned
+        if policy == "recent":
+            return common + 8 * lanes_in, ops
+        picks = float(inwin.sum(1).clamp(max=K).sum())
+        return (common + 4 * lanes_in + 8 * picks, ops,
+                common + 12 * lanes_in)
 
     def row(name, source, replaces, err, shape, kernel, plain, nbytes,
-            ops, library=None):
+            ops, library=None, path="serve"):
         ms, call = timings(torch, kernel, flush)
         plain_ms, plain_call = timings(torch, plain, flush)
         b, by = bound_ms(nbytes, ops)
@@ -379,7 +434,12 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev):
             replaces=f"src/repro/kernels/{replaces}", max_abs_err=err,
             shape=shape, ms=ms, call_ms=call, plain_ms=plain_ms,
             plain_call_ms=plain_call, bound_ms=b, bound_by=by,
-            library_ms=lib_ms, library_call_ms=lib_call))
+            library_ms=lib_ms, library_call_ms=lib_call, path=path))
+        for other in ab:
+            if (other / source).is_file():
+                rows[-1].setdefault("ab", {})[str(other)] = in_turns(
+                    torch, Path(source).stem, other, kernel, flush,
+                    f"{name} ({shape})")
 
     # -- temporal_sample, recent ------------------------------------------
     args = (tgt, tq, ts0, tm)
@@ -397,48 +457,95 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev):
         lambda: temporal_sample(*pages, *args, k=K, policy="recent",
                                 scan=scan),
         lambda: temporal_sample_ref(*plain_pages, *args, k=K),
-        *sample_bytes("recent"))
+        *sample_bytes("recent", *args))
 
     # -- temporal_sample, uniform (shared noise) --------------------------
-    gen = torch.Generator(device=dev).manual_seed(7)
-    noise = gumbel_noise(gen, (N, scan, C), dev)
-    got = temporal_sample(*pages, *args, k=K, policy="uniform",
-                          noise=noise, scan=scan)
-    want = temporal_sample_uniform_ref(*plain_pages, *args, noise, k=K)
-    torch.cuda.synchronize()
-    for name, g_, w_ in zip(("nbr", "eid", "mask"),
-                            (got[0], got[1], got[3]),
-                            (want[0], want[1], want[3])):
-        assert_equal(torch, g_, w_, f"temporal_sample_uniform {name}")
-    err = max_err(torch, got[2], want[2], "temporal_sample_uniform ts")
-    row("temporal_sample_uniform", "temporal_sample.cu",
-        "temporal_sample/temporal_sample.py:103", err,
-        f"N={N} S={scan} C={C} K={K}",
-        lambda: temporal_sample(*pages, *args, k=K, policy="uniform",
-                                noise=noise, scan=scan),
-        lambda: temporal_sample_uniform_ref(*plain_pages, *args, noise,
-                                            k=K),
-        *sample_bytes("uniform"))
+    def uniform_row(tag, args, noise, path):
+        """Check, time and record one uniform launch; returns the plain
+        version's output."""
+        got = temporal_sample(*pages, *args, k=K, policy="uniform",
+                              noise=noise, scan=scan)
+        want = temporal_sample_uniform_ref(*plain_pages, *args, noise, k=K)
+        torch.cuda.synchronize()
+        for name, g_, w_ in zip(("nbr", "eid", "mask"),
+                                (got[0], got[1], got[3]),
+                                (want[0], want[1], want[3])):
+            assert_equal(torch, g_, w_, f"temporal_sample_uniform {name} "
+                                        f"({tag})")
+        err = max_err(torch, got[2], want[2],
+                      f"temporal_sample_uniform ts ({tag})")
+        nbytes, ops, loose = sample_bytes("uniform", *args)
+        log(f"[kernel] temporal_sample_uniform ({tag}): bound from "
+            f"{nbytes / 1e6:.3f} MB ({loose / 1e6:.3f} MB with nbr/eid of "
+            f"every in-window lane: {bound_ms(loose, ops)[0]:.5f} ms)")
+        row("temporal_sample_uniform", "temporal_sample.cu",
+            "temporal_sample/temporal_sample.py:103", err,
+            f"N={args[0].shape[0]} S={scan} C={C} K={K}",
+            lambda: temporal_sample(*pages, *args, k=K, policy="uniform",
+                                    noise=noise, scan=scan),
+            lambda: temporal_sample_uniform_ref(*plain_pages, *args, noise,
+                                                k=K),
+            nbytes, ops, path=path)
+        return want
 
-    # -- cache_gather: the hop-1 edge fetch on the warmed edge cache -------
+    uniform_row("serving hop 0", (tgt0, t0, ninf(t0), m0),
+                gumbel_noise(torch.Generator(device=dev).manual_seed(8),
+                             (tgt0.shape[0], scan, C), dev), "serve_uniform")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    uniform_row("serving hop 1", args, gumbel_noise(gen, (N, scan, C), dev),
+                "serve_uniform")
+    # the TGAT train step: a 600-event batch (src, dst and random
+    # negatives at the events' times, 1,800 targets) sampled uniformly at
+    # hop 0, whose 18,000 neighbours are the hop-1 targets at their edge
+    # times
+    B = cfg.batch_size                      # 600, as the trainer's TGAT
+    lo = feed.ingested - B
+    seeds_t = np.concatenate([feed.stream.src[lo:lo + B],
+                              feed.stream.dst[lo:lo + B],
+                              rng.integers(0, feed.stream.n_nodes, B)])
+    tgt_t = torch.from_numpy(seeds_t.astype(np.int32)).to(dev)
+    t_t = torch.from_numpy(np.tile(feed.stream.ts[lo:lo + B], 3)
+                           .astype(np.float32)).to(dev)
+    m_t = torch.ones_like(tgt_t, dtype=torch.bool)
+    hop0_t = uniform_row("TGAT train hop 0", (tgt_t, t_t, ninf(t_t), m_t),
+                         gumbel_noise(gen, (3 * B, scan, C), dev),
+                         "train_tgat")
+    args_t = (hop0_t[0].reshape(-1).contiguous(),
+              hop0_t[2].reshape(-1).contiguous(),
+              torch.full((3 * B * K,), float("-inf"), device=dev),
+              hop0_t[3].reshape(-1).contiguous())
+    uniform_row("TGAT train hop 1", args_t,
+                gumbel_noise(gen, (3 * B * K, scan, C), dev), "train_tgat")
+
+    # -- cache_gather: edge fetches on the warmed edge cache ---------------
     st = eng.edge_cache.state
-    hop1 = temporal_sample_ref(*plain_pages, tgt, tq, ts0, tm, k=K)
-    eids = hop1[1].reshape(-1)
-    bucket = 1 << math.ceil(math.log2(eids.numel()))
-    ids = torch.full((bucket,), -1, dtype=torch.int32, device=dev)
-    ids[:eids.numel()] = eids
-    got = cache_gather(st.slot_of, st.ids, st.feats, ids)
-    want = cache_gather_ref(st.slot_of, st.ids, st.feats, ids)
-    torch.cuda.synchronize()
-    assert_equal(torch, got[1], want[1], "cache_gather hit")
-    err = max_err(torch, got[0], want[0], "cache_gather rows")
-    hits = int(got[1].sum())
     D = st.feats.shape[1]
-    row("cache_gather", "cache_gather.cu", "cache_gather/cache_gather.py:22",
-        err, f"N={bucket} D={D} C={st.ids.shape[0]} hits={hits}",
-        lambda: cache_gather(st.slot_of, st.ids, st.feats, ids),
-        lambda: cache_gather_ref(st.slot_of, st.ids, st.feats, ids),
-        12 * bucket + 4 * D * hits + 4 * D * bucket + bucket, 0.0)
+
+    def gather_row(tag, eids, path):
+        """``eids`` padded with NULL ids to a power of two, as
+        ``FeatureCache.fetch`` pads a request."""
+        bucket = 1 << math.ceil(math.log2(eids.numel()))
+        ids = torch.full((bucket,), -1, dtype=torch.int32, device=dev)
+        ids[:eids.numel()] = eids
+        got = cache_gather(st.slot_of, st.ids, st.feats, ids)
+        want = cache_gather_ref(st.slot_of, st.ids, st.feats, ids)
+        torch.cuda.synchronize()
+        assert_equal(torch, got[1], want[1], f"cache_gather hit ({tag})")
+        assert_equal(torch, got[0], want[0], f"cache_gather rows ({tag})")
+        hits = int(got[1].sum())
+        row("cache_gather", "cache_gather.cu",
+            "cache_gather/cache_gather.py:22", 0.0,
+            f"N={bucket} D={D} C={st.ids.shape[0]} hits={hits}",
+            lambda: cache_gather(st.slot_of, st.ids, st.feats, ids),
+            lambda: cache_gather_ref(st.slot_of, st.ids, st.feats, ids),
+            12 * bucket + 4 * D * hits + 4 * D * bucket + bucket, 0.0,
+            path=path)
+
+    # serving: the hop-1 edge fetch of the 64-pair link batch
+    hop1 = temporal_sample_ref(*plain_pages, tgt, tq, ts0, tm, k=K)
+    gather_row("serving hop 1", hop1[1].reshape(-1), "serve")
+    # TGAT train step: the edges of the 1,800 hop-0 targets (18,000 ids)
+    gather_row("TGAT train hop 0", hop0_t[1].reshape(-1), "train_tgat")
 
     # -- temporal_attn: layer 1 (hop-1 targets) at full width -------------
     H, dh = cfg.n_heads, cfg.d_hidden // cfg.n_heads
@@ -470,7 +577,7 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev):
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms ({r['library_call_ms']:.4f} "
                     f"per call)")
-        log(f"[kernel] {r['name']:<24} {r['shape']:<32} ok "
+        log(f"[kernel] {r['name']:<24} {r['shape']:<33} ok "
             f"max|err|={r['max_abs_err']:.3g} (tol {ATOL_KERNEL}) "
             f"device ms: kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']})  library {lib}; "
@@ -581,6 +688,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--events", type=int, default=672_447)
     ap.add_argument("--nodes", type=int, default=10_984)
+    ap.add_argument("--ab", type=Path, action="append", default=[],
+                    metavar="DIR",
+                    help="also time each kernel-phase row in turns against "
+                         "the design of its source in DIR (repeatable)")
     args = ap.parse_args()
 
     import torch
@@ -611,7 +722,8 @@ def main() -> int:
     build_logs = runtime.build()
     for name, text in build_logs.items():
         regs = [ln.strip() for ln in text.splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln
+                or "properties for" in ln]
         log(f"[build] {name}: " + (" | ".join(regs) or text.strip()))
     log(f"[build] {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -620,15 +732,23 @@ def main() -> int:
     stream = synth_ctdg(n_nodes=args.nodes, n_events=args.events,
                         d_node=128, d_edge=172, seed=args.seed)
     rows = run(torch, dev, args, stream)
-    rows += train_phase(torch, dev, args, stream)
+    train_rows, tgat_counts = train_phase(torch, dev, args, stream)
+    for r in rows:
+        if r["path"] == "train_tgat":      # the TGAT train step's shapes
+            r["launches"] = int(tgat_counts.get(r["name"], 0))
+            if r["launches"] <= 0:
+                raise AssertionError(f"{r['name']}: no launch in the TGAT "
+                                     f"rounds")
+    rows += train_rows
     del stream
     rows += lm_phase(torch, dev, args)
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "call_ms", "library_call_ms")
+            "library_ms", "call_ms", "library_call_ms", "shape")
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys} | {k: r[k] for k in ("instance",) if k in r}
+        {k: r[k] for k in keys}
+        | {k: r[k] for k in ("instance", "ab") if k in r}
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -637,8 +757,8 @@ def main() -> int:
 
 
 def run(torch, dev, args, stream):
-    """Phases 2-5 on ``dev``; returns the kernel rows with their
-    launch counts from the serving runs."""
+    """Phases 2-5 on ``dev``; returns the kernel rows, with their launch
+    counts from the serving runs for the serving shapes."""
     from repro_torch.configs.tgn_gdelt import tgat
     from repro_torch.core.feature_store import ReplicatedStateService
     from repro_torch.kernels import runtime
@@ -678,7 +798,7 @@ def run(torch, dev, args, stream):
         torch.cuda.synchronize()
 
         # -- phase 3: kernels against their plain versions ----------------
-        rows = kernel_phase(torch, eng, feed, t_q, rng, dev)
+        rows = kernel_phase(torch, eng, feed, t_q, rng, dev, args.ab)
 
         # -- phase 4: serve (recent) while ingest publishes the tail ------
         queries = make_queries(rng, stream, tail, 512, 128, t_q)
@@ -817,7 +937,9 @@ def run(torch, dev, args, stream):
 
     per_batch = {k: v / max(batches, 1) for k, v in counts.items()}
     for r in rows:
-        run = u_counts if r["name"] == "temporal_sample_uniform" else counts
+        if r["path"] == "train_tgat":
+            continue                       # counted by the TGAT trainer
+        run = u_counts if r["path"] == "serve_uniform" else counts
         r["launches"] = int(run.get(r["name"], 0))
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']}: no launch on its path")
@@ -952,7 +1074,8 @@ class OverlapProbe:
 def train_runs(torch, dev, args, stream):
     """TGN and TGAT at full width on the card: ingest, then ROUNDS
     continuous rounds.  Returns the backward kernel's row (launches
-    summed over both trainers' rounds)."""
+    summed over both trainers' rounds) and the TGAT rounds' launch
+    counts."""
     from repro_torch.configs.tgn_gdelt import tgat, tgn
     from repro_torch.core.continuous import ContinuousTrainer
     from repro_torch.kernels import runtime
@@ -1019,12 +1142,14 @@ def train_runs(torch, dev, args, stream):
             if counts.get(k, 0) <= 0:
                 raise AssertionError(f"{name}: {k} never launched")
         bwd_launches += counts["temporal_attn_bwd"]
+        if name == "tgat":
+            tgat_counts = counts
         per = {k: round(v / (steps + evals), 3) for k, v in counts.items()}
         log(f"[train] {name}: launches over {ROUNDS} rounds ({steps} train "
             f"+ {evals} eval steps) {counts}; per step {per}")
         del tr
     row["launches"] = bwd_launches
-    return row
+    return row, tgat_counts
 
 
 def card_vs_cpu(torch, dev, args, stream):
@@ -1092,12 +1217,14 @@ def attached_serving(tr, hi):
 
 
 def train_phase(torch, dev, args, stream):
+    """Phase 6; returns the backward kernel's row and the TGAT rounds'
+    launch counts."""
     t0 = time.perf_counter()
-    row = train_runs(torch, dev, args, stream)
+    row, tgat_counts = train_runs(torch, dev, args, stream)
     attached_serving(card_vs_cpu(torch, dev, args, stream),
                      PARITY_EVENTS + PARITY_ROUND["tgat"])
     log(f"[train] training phase done in {time.perf_counter() - t0:.1f} s")
-    return [row]
+    return [row], tgat_counts
 
 
 # ---------------------------------------------------------------------------
@@ -1299,7 +1426,7 @@ def flash_row(torch, dev, cfg, flush):
                          "flash_attention.py:82",
                 max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
                 bound_ms=b, bound_by=by, library_ms=lib_ms,
-                library_call_ms=lib_call)
+                library_call_ms=lib_call, shape=shape)
 
 
 def scan_row(torch, dev, cfg, flush):
@@ -1346,7 +1473,7 @@ def scan_row(torch, dev, cfg, flush):
                          "selective_scan.py:57",
                 max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
                 bound_ms=b, bound_by=by, library_ms=None,
-                library_call_ms=None)
+                library_call_ms=None, shape=shape)
 
 
 def lm_cut_checks(torch, dev, args, cfg):

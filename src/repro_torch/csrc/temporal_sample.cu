@@ -10,30 +10,54 @@
 // noise bytes for uniform) per page it scans, and does a few compares per
 // lane — far below the card's operations-per-byte balance.  At serving
 // shapes (N = 128 or 1,280 targets, S = 16, C = 64, K = 10) one launch
-// moves well under 10 MB, so launch latency dominates.
+// moves well under 10 MB, so latency dominates: the chain of dependent
+// loads per target, and for uniform the serial merge of candidates.
 //
-// Design, one warp per target (the paper's own GPU layout):
+// Recent, one warp per target (the paper's own GPU layout):
 //  * the warp gathers its target's page-table row itself (the JAX wrapper
 //    did that gather in a separate pass), and walks the S page ids newest
 //    first, skipping pages whose [t_min, t_max] misses [t_start, t_end)
 //    without touching their lanes;
-//  * a page is swept in 32-lane chunks, each lane loading one
-//    (nbr, eid, ts, valid) cell, so a chunk is four coalesced loads;
-//  * recent: chunks go from lane C-1 down (newest first); in-window lanes
-//    are ranked with __ballot_sync/__popc and the walk stops as soon as K
-//    neighbours are found — only the pages the answer needs are read;
-//  * uniform: a K-entry Gumbel top-k reservoir lives in registers, slot
-//    r in lane r, sorted by descending score.  Each chunk's in-window
-//    candidates (score = the input noise, in storage lane order) that beat
-//    the current K-th score are inserted one at a time by a warp-wide
-//    shift; there is no early stop.  The result equals a global top-k
-//    (ties keep the lower storage index, like lax.top_k), emitted in
-//    descending score so slots [0, count) are the valid ones.
+//  * a page is swept in 32-lane chunks from lane C-1 down (newest first),
+//    each lane loading one (nbr, eid, ts, valid) cell; in-window lanes are
+//    ranked with __ballot_sync/__popc and the walk stops as soon as K
+//    neighbours are found, so only the pages the answer needs are read.
+//
+// Uniform, W = 4, 2 or 1 warps per target (redesigned for Hopper): the
+// answer is the global top-K of the target's in-window candidates by
+// (score desc, storage index s*C + j asc), score = the input noise.
+//  * W is the most warps per target that still fit every target on the
+//    card at once (N <= one wave of 4-warp CTAs: 4; twice that: 2; else
+//    1, four targets to a CTA): small launches gain parallelism, large
+//    ones do less merging.  On an H100 SXM one wave is 1,188 targets (9
+//    CTAs an SM at 56 registers a thread), so the serving hop of 1,280
+//    targets and TGAT's hop 0 of 1,800 run W = 2, its hop 1 W = 1.
+//  * Lane s loads page slot s's id and [t_min, t_max] for 32 slots at once
+//    and a ballot gives the pages that hit, so no page waits on another.
+//  * The hit pages' 32-lane chunks are dealt out round-robin to the
+//    target's warps in storage order (a skewed window still spreads over
+//    all of them).  A warp loads the ts and valid of kBatch chunks
+//    together, then the noise of their in-window lanes, then merges them
+//    in ascending order: two dependent loads per batch, not per page.
+//  * Each warp keeps a K-entry reservoir (score, storage index) in
+//    registers, slot r in lane r.  A chunk's lanes are rejected together:
+//    one ballot of `score > K-th score`; the lanes it passes are taken
+//    lowest first, each checked against the K-th score as it rises, and
+//    enter by a warp-wide shift.  With random scores about K(1 + ln(n/K))
+//    of n candidates ever enter.  A strict `>` keeps the lower index on
+//    ties, since a warp sees its chunks in storage order.
+//  * The W*K entries of a target meet in shared memory; each thread ranks
+//    one entry against all of them by (score desc, index asc), which is
+//    exact since the top-K of a union is the top-K of the union of the
+//    top-Ks.  The K winners' nbr, eid and ts are read once, at the end.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kWarpsPerBlock = 4;    // warps of a CTA (both policies)
+constexpr int kBatch = 8;            // uniform: chunks a warp loads at once
 
 struct SampleArgs {
   const int* page_table;    // (n_rows, table_stride) newest-first page ids
@@ -121,71 +145,164 @@ __global__ void sample_recent_kernel(SampleArgs a) {
   }
 }
 
-__global__ void sample_uniform_kernel(SampleArgs a) {
+// W warps per target, kWarpsPerBlock / W targets per CTA.
+template <int W>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+sample_uniform_kernel(SampleArgs a) {
+  __shared__ float m_sc[kWarpsPerBlock * 32];
+  __shared__ int m_idx[kWarpsPerBlock * 32];
   const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (i >= a.n) return;
-  const int row = a.targets[i];
-  const bool alive = a.tmask[i] && row >= 0 && row < a.n_rows;
-  const float t0 = a.t_start[i], t1 = a.t_end[i];
-  // reservoir slot `lane` (valid for lane < K), descending by score
-  float r_sc = -CUDART_INF_F, r_ts = 0.f;
-  int r_nbr = NULL_ID, r_eid = NULL_ID;
-  int count = 0;
-  for (int s = 0; s < a.scan; ++s) {
-    const int pid = page_of(a, alive, row, s);
-    if (pid == NULL_ID || !page_hit(a, pid, t0, t1)) continue;
-    const int64_t base = (int64_t)clamp_int(pid, 0, a.n_pages - 1) * a.cap;
-    const float* nz = a.noise + ((int64_t)i * a.scan + s) * a.cap;
-    for (int lo = 0; lo < a.cap; lo += 32) {    // storage order
-      const int j = lo + lane;
-      bool in = false;
-      float sc = -CUDART_INF_F, ts = 0.f;
-      int nbr = NULL_ID, eid = NULL_ID;
-      if (j < a.cap) {
-        ts = a.pages_ts[base + j];
-        in = a.pages_valid[base + j] && ts >= t0 && ts < t1;
-        if (in) {
-          sc = nz[j];
-          nbr = a.pages_nbr[base + j];
-          eid = a.pages_eid[base + j];
+  const int w = (threadIdx.x >> 5) % W;         // warp within the target
+  const int grp = (threadIdx.x >> 5) / W;       // target within the CTA
+  const int i = blockIdx.x * (kWarpsPerBlock / W) + grp;
+  const bool in_range = i < a.n;
+  const int row = in_range ? a.targets[i] : -1;
+  const bool alive = in_range && a.tmask[i] && row >= 0 && row < a.n_rows;
+  const float t0 = in_range ? a.t_start[i] : 0.f;
+  const float t1 = in_range ? a.t_end[i] : 0.f;
+  const int C = a.cap, K = a.k;
+  const int chunks = (C + 31) >> 5;
+  const unsigned lt_mask = (1u << lane) - 1u;
+  const float* nz_row = a.noise + (int64_t)i * a.scan * C;
+  // this warp's reservoir, slot `lane` (lane < K): (score, storage index
+  // s*C + j), by descending score, ascending index on ties
+  float r_sc = -CUDART_INF_F;
+  int r_idx = INT_MAX;
+  int dealt = 0;                                // units of earlier groups
+  for (int g = 0; g < a.scan; g += 32) {
+    // all pages of the group in one step: lane s has slot g + s
+    int pid = NULL_ID;
+    bool hit = false;
+    if (alive && g + lane < a.scan) {
+      pid = a.page_table[(int64_t)row * a.table_stride + g + lane];
+      hit = pid != NULL_ID && page_hit(a, pid, t0, t1);
+    }
+    const unsigned hits = __ballot_sync(FULL_MASK, hit);
+    const int rank = __popc(hits & lt_mask);
+    const int units = __popc(hits) * chunks;
+    // this warp's units u, u + W, ..., kBatch at a time: the lanes' ts and
+    // valid of the whole batch are loaded together, then the noise of
+    // their in-window lanes, then the batch is merged
+    for (int u0 = ((w - dealt) % W + W) % W; u0 < units;
+         u0 += W * kBatch) {
+      int at_s[kBatch];
+      float sc[kBatch];
+      bool val[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int u = u0 + b * W;
+        at_s[b] = 0;
+        val[b] = false;
+        sc[b] = 0.f;
+        if (u < units) {                        // warp-uniform
+          const int h = u / chunks;
+          const int c = u - h * chunks;
+          const int src = __ffs(__ballot_sync(FULL_MASK, hit && rank == h))
+              - 1;
+          const int p = __shfl_sync(FULL_MASK, pid, src);
+          at_s[b] = (g + src) * C + c * 32;     // storage index of lane 0
+          const int j = c * 32 + lane;
+          if (j < C) {
+            const int64_t o = (int64_t)clamp_int(p, 0, a.n_pages - 1) * C + j;
+            sc[b] = a.pages_ts[o];              // ts until scored
+            val[b] = a.pages_valid[o];
+          }
         }
       }
-      unsigned pending = __ballot_sync(FULL_MASK, in);
-      count += __popc(pending);
-      while (pending) {                         // warp-uniform loop
-        const int src = __ffs(pending) - 1;
-        pending &= pending - 1;
-        const float c_sc = __shfl_sync(FULL_MASK, sc, src);
-        const float kth = __shfl_sync(FULL_MASK, r_sc, a.k - 1);
-        if (!(c_sc > kth)) continue;            // ties keep the older entry
-        const int c_nbr = __shfl_sync(FULL_MASK, nbr, src);
-        const int c_eid = __shfl_sync(FULL_MASK, eid, src);
-        const float c_ts = __shfl_sync(FULL_MASK, ts, src);
-        // insert position = number of reservoir slots scoring >= c_sc
-        const int pos = __popc(__ballot_sync(FULL_MASK,
-                                             lane < a.k && r_sc >= c_sc));
-        const float u_sc = __shfl_up_sync(FULL_MASK, r_sc, 1);
-        const int u_nbr = __shfl_up_sync(FULL_MASK, r_nbr, 1);
-        const int u_eid = __shfl_up_sync(FULL_MASK, r_eid, 1);
-        const float u_ts = __shfl_up_sync(FULL_MASK, r_ts, 1);
-        if (lane == pos) {
-          r_sc = c_sc; r_nbr = c_nbr; r_eid = c_eid; r_ts = c_ts;
-        } else if (lane > pos) {
-          r_sc = u_sc; r_nbr = u_nbr; r_eid = u_eid; r_ts = u_ts;
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const float ts = sc[b];
+        const bool in = val[b] && ts >= t0 && ts < t1;
+        sc[b] = in ? nz_row[at_s[b] + lane] : -CUDART_INF_F;
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (u0 + b * W >= units) break;
+        // one ballot rejects the lanes at or below the K-th score; the
+        // rest are taken lowest lane first, each checked against the K-th
+        // score as it rises
+        float kth = __shfl_sync(FULL_MASK, r_sc, K - 1);
+        unsigned pass = __ballot_sync(FULL_MASK, sc[b] > kth);
+        while (pass) {
+          const int src = __ffs(pass) - 1;
+          pass &= pass - 1;
+          const float c_sc = __shfl_sync(FULL_MASK, sc[b], src);
+          if (!(c_sc > kth)) continue;
+          // position = reservoir slots scoring >= c_sc: equal scores came
+          // earlier in storage order, so they stay ahead
+          const int pos = __popc(__ballot_sync(FULL_MASK,
+                                               lane < K && r_sc >= c_sc));
+          const float u_sc = __shfl_up_sync(FULL_MASK, r_sc, 1);
+          const int u_idx = __shfl_up_sync(FULL_MASK, r_idx, 1);
+          if (lane == pos) {
+            r_sc = c_sc; r_idx = at_s[b] + src;
+          } else if (lane > pos) {
+            r_sc = u_sc; r_idx = u_idx;
+          }
+          kth = __shfl_sync(FULL_MASK, r_sc, K - 1);
         }
       }
     }
+    dealt += units;
   }
-  count = min(count, a.k);
-  if (lane < a.k) {
-    const int64_t o = (int64_t)i * a.k + lane;
-    const bool m = lane < count;
-    a.out_mask[o] = m;
-    a.out_nbr[o] = m ? r_nbr : NULL_ID;
-    a.out_eid[o] = m ? r_eid : NULL_ID;
-    a.out_ts[o] = m ? r_ts : 0.f;
+
+  // Merge the W reservoirs.  The global top-K of the union is the top-K
+  // of the union of the per-warp top-Ks; an entry's place is the number
+  // of entries ahead of it by (score desc, storage index asc).
+  const int m0 = grp * W * 32;                   // this target's entries
+  if (lane < K) {
+    m_sc[m0 + w * K + lane] = r_sc;
+    m_idx[m0 + w * K + lane] = r_idx;
   }
+  __syncthreads();
+  const int e = w * 32 + lane;                   // entry ranked by this thread
+  const int n_ent = W * K;
+  const bool live = e < n_ent && m_sc[m0 + e] > -CUDART_INF_F;
+  const float e_sc = live ? m_sc[m0 + e] : -CUDART_INF_F;
+  const int e_idx = live ? m_idx[m0 + e] : INT_MAX;
+  int place = 0, n_live = 0;
+  for (int f = 0; f < n_ent; ++f) {
+    const float f_sc = m_sc[m0 + f];
+    n_live += f_sc > -CUDART_INF_F;
+    place += f_sc > e_sc || (f_sc == e_sc && m_idx[m0 + f] < e_idx);
+  }
+  const int count = min(n_live, K);
+  if (!in_range) return;
+  if (live && place < K) {
+    // the pick's page id again from the page table (cached: read above)
+    const int pid = a.page_table[(int64_t)row * a.table_stride + e_idx / C];
+    const int64_t src =
+        (int64_t)clamp_int(pid, 0, a.n_pages - 1) * C + e_idx % C;
+    const int64_t o = (int64_t)i * K + place;
+    a.out_nbr[o] = a.pages_nbr[src];
+    a.out_eid[o] = a.pages_eid[src];
+    a.out_ts[o] = a.pages_ts[src];
+    a.out_mask[o] = true;
+  }
+  if (e >= count && e < K) {
+    const int64_t o = (int64_t)i * K + e;
+    a.out_nbr[o] = NULL_ID;
+    a.out_eid[o] = NULL_ID;
+    a.out_ts[o] = 0.f;
+    a.out_mask[o] = false;
+  }
+}
+
+// CTAs of the uniform kernel resident on the device at once (SM count x
+// CTAs per SM), read once per device.
+int uniform_wave() {
+  static int cached[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 1;
+  if (cached[dev] == 0) {
+    int sms = 1, per_sm = 1;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sample_uniform_kernel<4>, 32 * kWarpsPerBlock, 0);
+    cached[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return cached[dev];
 }
 
 }  // namespace
@@ -205,13 +322,20 @@ extern "C" int temporal_sample_launch(
                page_tmax, n_pages, pages_nbr, pages_eid, pages_ts,
                pages_valid, cap, targets, t_end, t_start, tmask, noise,
                n, k, out_nbr, out_eid, out_ts, out_mask};
-  const dim3 block(32 * kWarpsPerBlock);
-  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (policy == 0) {
-    sample_recent_kernel<<<grid, block, 0, st>>>(a);
+    sample_recent_kernel<<<(n + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                           32 * kWarpsPerBlock, 0, st>>>(a);
   } else {
-    sample_uniform_kernel<<<grid, block, 0, st>>>(a);
+    // the most warps per target that keep every target in one wave
+    const int wave = uniform_wave();
+    if (n <= wave) {
+      sample_uniform_kernel<4><<<n, 32 * kWarpsPerBlock, 0, st>>>(a);
+    } else if (n <= 2 * wave) {
+      sample_uniform_kernel<2><<<(n + 1) / 2, 32 * kWarpsPerBlock, 0, st>>>(a);
+    } else {
+      sample_uniform_kernel<1><<<(n + 3) / 4, 32 * kWarpsPerBlock, 0, st>>>(a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

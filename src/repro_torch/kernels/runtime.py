@@ -8,7 +8,9 @@ at first use, from the sources in the checkout, into
 ``src/repro_torch/_build/`` (git-ignored); the library's file name
 carries a digest of its source and flags, so an edited source is never
 served from a stale build.  :func:`build` compiles several sources in
-parallel, one ``nvcc`` process each.
+parallel, one ``nvcc`` process each.  :func:`sources_from` serves a
+kernel from another directory's source for the length of a block, so
+two designs with the same C interface can be timed in turns.
 
 Every wrapper that launches a kernel calls :func:`count_launch` right
 at the launch and nowhere else, so a run can show that its path went
@@ -16,6 +18,7 @@ through the kernels (:func:`launch_counts`, :func:`reset_launch_counts`).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +26,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 import torch
 
@@ -37,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_sigs: Dict[str, Dict[str, tuple]] = {}
 _counts: Dict[str, int] = {}
 
 # ctypes spellings of the C interface's argument kinds
@@ -58,30 +62,32 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    src = csrc / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
-    for dep in sorted(CSRC.glob("*.cuh")):
+    for dep in sorted(csrc.glob("*.cuh")):
         h.update(dep.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
-    """Compile every listed kernel whose library is missing, one
-    ``nvcc`` per source, all started together.  Returns each name's
-    compiler output (``-Xptxas -v`` register and spill report); raises
-    with the compiler's messages if any build fails."""
+def build(names: Iterable[str] = KERNELS,
+          csrc: Path = CSRC) -> Dict[str, str]:
+    """Compile every listed kernel whose library is missing from the
+    sources in ``csrc``, one ``nvcc`` per source, all started together.
+    Returns each name's compiler output (``-Xptxas -v`` register and
+    spill report); raises with the compiler's messages if any build
+    fails."""
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, csrc)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", f"-I{CSRC}",
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", f"-I{csrc}",
+               "-o", str(tmp), str(csrc / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, out)
@@ -109,15 +115,38 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            for fn, argtypes in signatures.items():
-                f = getattr(lib, fn)
-                f.argtypes = list(argtypes)
-                f.restype = ctypes.c_int
-            lib.kernel_error_string.argtypes = [ctypes.c_int]
-            lib.kernel_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            lib = _libs[name] = _open(library_path(name), signatures)
+            _sigs[name] = signatures
         return lib
+
+
+def _open(path: Path, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@contextlib.contextmanager
+def sources_from(name: str, csrc: Path) -> Iterator[None]:
+    """Inside the block, ``name``'s wrapper launches the kernel built
+    from ``csrc/<name>.cu`` (another design with the same C interface,
+    such as an earlier commit's sources) instead of the checkout's; the
+    checkout's comes back after it.  The wrapper must have loaded its
+    own library first."""
+    build([name], csrc)
+    with _lock:
+        own = _libs[name]
+        _libs[name] = _open(library_path(name, csrc), _sigs[name])
+    try:
+        yield
+    finally:
+        with _lock:
+            _libs[name] = own
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

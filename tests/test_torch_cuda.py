@@ -43,29 +43,28 @@ def _snapshot(tau, n_nodes=60, n_events=3000, seed=0):
     return build_snapshot(g), n_nodes
 
 
-@pytest.mark.parametrize("tau,k,policy", [
-    (8, 5, "recent"), (64, 10, "recent"), (128, 32, "recent"),
-    (8, 5, "uniform"), (64, 10, "uniform"), (128, 32, "uniform")])
-def test_temporal_sample_kernel_matches_plain(card, tau, k, policy):
-    snap, n = _snapshot(tau, seed=tau + k)
-    rng = np.random.default_rng(k)
-    N = 300
-    targets = rng.integers(-3, n + 3, N).astype(np.int32)
-    t_end = rng.uniform(50, 1100, N).astype(np.float32)
-    t_start = np.where(rng.random(N) < 0.5, -np.inf,
-                       t_end - 200).astype(np.float32)
-    tmask = rng.random(N) < 0.9
+def _uniform_noise(card, kind, shape, seed):
+    if kind == "tied":                      # integer scores 0-3: heavy ties
+        g = torch.Generator(device=card).manual_seed(seed)
+        return torch.randint(0, 4, shape, generator=g, device=card,
+                             dtype=torch.int32).float()
+    return gumbel_noise(torch.Generator(device=card).manual_seed(seed),
+                        shape, card)
+
+
+def _sample_and_check(card, snap, targets, t_end, t_start, tmask, *, k,
+                      policy, scan, noise_kind="gumbel"):
+    """One kernel launch against the plain version: exact, in order."""
     pages = [torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in
              (snap.page_table, snap.page_tmin, snap.page_tmax, snap.nbr,
               snap.eid, snap.ts, snap.valid)]
-    q = [torch.from_numpy(a).to(card) for a in (targets, t_end, t_start,
-                                                 tmask)]
-    scan = min(16, snap.page_table.shape[1])
+    q = [torch.from_numpy(np.asarray(a)).to(card) for a in
+         (targets, t_end, t_start, tmask)]
     plain_pt = pages[0][:, :scan].contiguous()
     noise = None
     if policy == "uniform":
-        noise = gumbel_noise(torch.Generator(device=card).manual_seed(k),
-                             (N, scan, snap.ts.shape[1]), card)
+        noise = _uniform_noise(card, noise_kind,
+                               (len(targets), scan, snap.ts.shape[1]), k)
     runtime.reset_launch_counts()
     got = temporal_sample(*pages, *q, k=k, policy=policy, noise=noise,
                           scan=scan)
@@ -76,31 +75,143 @@ def test_temporal_sample_kernel_matches_plain(card, tau, k, policy):
     else:
         want = temporal_sample_ref(plain_pt, *pages[1:], *q, k=k)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for name, g, w in zip(("nbr", "eid", "ts", "mask"), got, want):
+        assert torch.equal(g, w), name
+    return got
+
+
+@pytest.mark.parametrize("tau,k,policy,n,scan,noise", [
+    (8, 5, "recent", 300, 16, "gumbel"),
+    (64, 10, "recent", 300, 16, "gumbel"),
+    (128, 32, "recent", 300, 16, "gumbel"),
+    (8, 5, "uniform", 300, 16, "gumbel"),
+    (64, 10, "uniform", 300, 16, "gumbel"),
+    (128, 32, "uniform", 300, 16, "gumbel"),
+    (64, 10, "uniform", 300, 16, "tied"),
+    (8, 32, "uniform", 300, 16, "tied"),
+    (64, 1, "uniform", 300, 1, "gumbel"),     # fewer pages than warps
+    (64, 10, "uniform", 300, 2, "tied"),
+    (64, 10, "uniform", 300, 3, "gumbel"),
+    (8, 10, "uniform", 300, 32, "gumbel"),    # the most pages a group
+    (8, 32, "uniform", 300, 32, "tied"),
+    (8, 10, "uniform", 300, 40, "tied"),      # two page groups
+    (64, 10, "uniform", 1, 16, "gumbel"),
+    (64, 10, "uniform", 1280, 16, "gumbel"),   # past one wave of CTAs
+    (64, 10, "uniform", 1800, 16, "tied"),
+    (64, 10, "uniform", 2400, 16, "gumbel"),   # past two waves
+    (8, 32, "uniform", 3000, 32, "tied"),
+    (64, 10, "uniform", 18000, 16, "gumbel"),
+    (8, 1, "uniform", 18000, 32, "tied")])
+def test_temporal_sample_kernel_matches_plain(card, tau, k, policy, n, scan,
+                                              noise):
+    snap, n_nodes = _snapshot(tau, seed=tau + k)
+    scan = min(scan, snap.page_table.shape[1])    # tau 8: 150+ pages wide
+    rng = np.random.default_rng(k + n)
+    targets = rng.integers(-3, n_nodes + 3, n).astype(np.int32)
+    t_end = rng.uniform(50, 1100, n).astype(np.float32)
+    t_start = np.where(rng.random(n) < 0.5, -np.inf,
+                       t_end - 200).astype(np.float32)
+    empty = rng.random(n) < 0.1                      # some empty windows
+    t_start[empty] = t_end[empty]
+    tmask = rng.random(n) < 0.9
+    targets[0], t_start[0], tmask[0] = 1, -np.inf, True   # a live target
+    got = _sample_and_check(card, snap, targets, t_end, t_start, tmask,
+                            k=k, policy=policy, scan=scan, noise_kind=noise)
     assert int(got[3].sum()) > 0
 
 
-@pytest.mark.parametrize("dim", [172, 128, 7])
-def test_cache_gather_kernel_matches_plain(card, dim):
-    rng = np.random.default_rng(dim)
-    M, C, N = 5000, 300, 4096
+@pytest.mark.parametrize("k,noise", [(10, "gumbel"), (32, "tied"),
+                                     (1, "gumbel")])
+def test_temporal_sample_uniform_kernel_hub(card, k, noise):
+    """A hub whose window holds 2,000 candidates over 32 full pages, next
+    to targets with an empty window, a masked one and one out of range."""
+    g = DynamicGraph(threshold=64, min_block=64, undirected=False)
+    n_ev = 2000
+    g.add_edges(np.zeros(n_ev, np.int64), 1 + np.arange(n_ev) % 50,
+                np.arange(n_ev, dtype=float))
+    snap = build_snapshot(g)
+    scan = snap.page_table.shape[1]
+    assert scan >= 32 and snap.ts.shape[1] == 64
+    targets = np.array([0, 0, 0, 0, 7, 0, 999], np.int32)
+    t_end = np.array([3000, 1500, 10, 3000, 3000, 3000, 3000], np.float32)
+    t_start = np.array([-np.inf, -np.inf, 10, 0, -np.inf, -np.inf, 0],
+                       np.float32)
+    tmask = np.array([1, 1, 1, 1, 1, 0, 1], bool)
+    got = _sample_and_check(card, snap, targets, t_end, t_start, tmask,
+                            k=k, policy="uniform", scan=scan,
+                            noise_kind=noise)
+    counts = got[3].sum(1).tolist()
+    assert counts == [k, k, 0, k, 0, 0, 0]
+
+
+def _cache(card, dim, n, kind, seed):
+    """(slot_of, ids, feats, requested ids) on the card, and the number
+    of hits among the requests, counted here from the tables."""
+    rng = np.random.default_rng(seed)
+    M, C = 5000, 300
     slot_of = np.full(M, -1, np.int32)
     ids = rng.choice(M, C, replace=False).astype(np.int32)
     ids[::7] = -1                                   # empty slots
     live = ids >= 0
     slot_of[ids[live]] = np.nonzero(live)[0]
-    slot_of[rng.integers(0, M, 50)] = rng.integers(0, C, 50)  # stale
-    req = rng.integers(-2, M, N).astype(np.int32)
-    req[: N // 2] = rng.choice(ids[live], N // 2)
+    if kind == "stale_any":     # may also overwrite a cached id's entry
+        stale = rng.integers(0, M, 50)
+    else:                       # only uncached ids' entries
+        stale = rng.choice(np.setdiff1d(np.arange(M), ids[live]), 50)
+    slot_of[stale] = rng.integers(0, C, 50)         # point at other ids
+    if kind == "all_hit":
+        req = rng.choice(ids[live], n)
+    elif kind == "all_miss":
+        absent = np.setdiff1d(np.arange(-2, M + 3), ids[live])
+        req = rng.choice(absent, n)
+    else:
+        req = rng.integers(-2, M, n)
+        req[: n // 2] = rng.choice(ids[live], n // 2)
     feats = rng.normal(size=(C, dim)).astype(np.float32)
+    slot = slot_of[np.clip(req, 0, M - 1)]
+    n_hit = int(((req >= 0) & (slot >= 0)
+                 & (ids[np.clip(slot, 0, C - 1)] == req)).sum())
     args = [torch.from_numpy(a).to(card) for a in (slot_of, ids, feats,
-                                                    req)]
+                                                    req.astype(np.int32))]
+    return args, n_hit
+
+
+@pytest.mark.parametrize("dim,n,kind", [
+    (172, 4096, "mixed"), (128, 4096, "mixed"), (7, 4096, "mixed"),
+    (256, 4096, "mixed"),
+    (172, 1, "mixed"), (172, 33, "mixed"), (172, 16384, "mixed"),
+    (172, 32768, "mixed"), (128, 33, "mixed"), (7, 32768, "mixed"),
+    (256, 16384, "mixed"),
+    (172, 16384, "all_miss"), (7, 33, "all_miss"),
+    (172, 16384, "all_hit"), (128, 32768, "all_hit"), (7, 33, "all_hit"),
+    (172, 4096, "unaligned"), (128, 33, "unaligned"),
+    (256, 16384, "unaligned"),
+    (172, 4096, "stale_any"), (128, 4096, "stale_any"),
+    (7, 4096, "stale_any")])
+def test_cache_gather_kernel_matches_plain(card, dim, n, kind):
+    # stale_any at n 4,096 draws the inputs of the test's first version
+    args, n_want = _cache(card, dim, n,
+                          "mixed" if kind == "unaligned" else kind,
+                          seed=dim if kind == "stale_any" else dim + n)
+    if kind == "unaligned":              # a contiguous view off 16 bytes
+        buf = torch.empty(args[2].numel() + 1, device=card)
+        buf[1:] = args[2].reshape(-1)
+        args[2] = buf[1:].view(args[2].shape)
+        assert args[2].data_ptr() % 16 != 0 and args[2].is_contiguous()
+    runtime.reset_launch_counts()
     out, hit = cache_gather(*args)
+    assert runtime.launch_counts() == {"cache_gather": 1}
     w_out, w_hit = cache_gather_ref(*args)
     torch.cuda.synchronize()
-    assert torch.equal(hit, w_hit) and int(hit.sum()) >= N // 2
-    assert torch.equal(out, w_out)
+    assert torch.equal(hit, w_hit) and torch.equal(out, w_out)
+    n_hit = int(hit.sum())
+    assert n_hit == n_want
+    if kind == "all_hit":
+        assert n_hit == n
+    elif kind == "all_miss":
+        assert n_hit == 0
+    else:
+        assert n_hit > 0
 
 
 @pytest.mark.parametrize("n,k,h,dh", [(1280, 10, 2, 50), (37, 32, 4, 128),

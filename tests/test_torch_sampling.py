@@ -4,7 +4,9 @@ Same seeded numpy events go into both packages' dynamic graphs:
 * the port's plain recent hop is bit-exact against the JAX
   ``temporal_sample_ref`` and the JAX ``TemporalSampler.sample``;
 * the port's uniform plain versions agree exactly with the JAX
-  ``temporal_sample_uniform_ref`` under shared Gumbel noise;
+  ``temporal_sample_uniform_ref`` under shared Gumbel noise, and with it
+  and the Pallas kernel (interpret mode) in order under heavily tied
+  integer noise, which pins the tie rule (lower storage index first);
 * the k-hop ``uniform`` and ``window`` policies pick only oracle
   candidates, and the full min(k, n) of them, and the uniform policy
   draws every candidate about equally often;
@@ -23,6 +25,8 @@ from repro.core.snapshot import build_snapshot as j_build
 from repro.kernels.temporal_sample.ref import (
     temporal_sample_ref as j_recent_ref,
     temporal_sample_uniform_ref as j_uniform_ref)
+from repro.kernels.temporal_sample.temporal_sample import (
+    temporal_sample_kernel as j_pallas_kernel)
 from repro_torch.core.dgraph import NULL, DynamicGraph
 from repro_torch.core.rand import gumbel_noise
 from repro_torch.core.sampling import (DeviceMirror, TemporalSampler,
@@ -107,6 +111,43 @@ def test_uniform_exact_against_jax_ref_under_shared_noise(seed, k):
     for g, h in zip(got[:3], hop[:3]):
         np.testing.assert_array_equal(np.sort(g.numpy(), 1),
                                       np.sort(h.numpy(), 1))
+
+
+@pytest.mark.parametrize("seed,k", [(3, 5), (4, 9), (5, 10)])
+def test_uniform_tied_noise_same_order_as_jax_ref_and_pallas(seed, k):
+    """Integer noise in 0-3 ties most candidates: the port, the JAX
+    oracle and the Pallas kernel must still pick the same neighbours in
+    the same order (score descending, lower storage index first)."""
+    gj, gt = _graphs(_events(seed=seed))
+    sj, st = j_build(gj), build_snapshot(gt)
+    q = _query(gt.n_nodes, seed)
+    S, C = st.page_table.shape[1], st.ts.shape[1]
+    noise = np.random.default_rng(seed).integers(
+        0, 4, (len(q[0]), S, C)).astype(np.float32)
+    targs = [torch.from_numpy(np.array(a)) for a in _snap_args(st) + q]
+    got = temporal_sample(*targs, k=k, policy="uniform",
+                          noise=torch.from_numpy(noise))
+    jargs = [jnp.asarray(a) for a in _snap_args(sj)]
+    targets, t_end, t_start, tmask = (jnp.asarray(a) for a in q)
+    want = j_uniform_ref(*jargs, targets, t_end, t_start, tmask,
+                         jnp.asarray(noise), k=k)
+    # the Pallas kernel as its wrapper drives it, with this noise
+    pt = np.asarray(sj.page_table)
+    live = q[3] & (q[0] >= 0) & (q[0] < pt.shape[0])
+    rows = np.where(live[:, None], pt[np.clip(q[0], 0, pt.shape[0] - 1)],
+                    NULL).astype(np.int32)
+    nbr, eid, ts, cnt = j_pallas_kernel(
+        jnp.asarray(rows), *jargs[1:], jnp.stack([t_start, t_end], axis=1),
+        tmask, k=k, policy="uniform", noise=jnp.asarray(noise))
+    m = np.arange(k)[None, :] < np.asarray(cnt)[:, :1]
+    pallas = (np.where(m, nbr, NULL), np.where(m, eid, NULL),
+              np.where(m, ts, 0.0), m)
+    assert m.sum() > 0 and (m.sum(1) == k).any()
+    for name, g, w, p in zip(("nbr", "eid", "ts", "mask"), got, want,
+                             pallas):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=name)
+        np.testing.assert_array_equal(g.numpy(), p, err_msg=name)
 
 
 @pytest.mark.parametrize("fanouts", [(4,), (5, 3)])
