@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--events N] [--nodes N] [--ab DIR]...
+                          [--ab-wide DIR]...
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -20,21 +21,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and, for temporal_attn, a masked ``scaled_dot_product_attention``:
    device time per call from ``torch.profiler`` (L2 flushed before each
    call) and time per call between CUDA events, which also holds the
-   host's launch work while the stream waits.  Uniform sampling also
-   runs at the serving hop 0 (the link batch's 128 seeds), and uniform
-   sampling and cache_gather at the TGAT train step's shapes: the 1,800
-   hop-0 and 18,000 hop-1 targets of a 600-event batch, and that
-   batch's 18,000 hop-0 edge ids padded to 32,768 as
-   ``FeatureCache.fetch`` pads; those rows take their launch counts
-   from the TGAT rounds of phase 6, which launch each kernel at several
-   shapes (both hops, node and edge fetches), not only at the row's.
-   With ``--ab DIR`` (repeatable), each row whose
-   source file is also in ``DIR`` (another design with the same C
+   host's launch work while the stream waits.  Both samplers also
+   run at the serving hop 0 (the link batch's 128 seeds), and the
+   samplers, cache_gather and the attention forward at the train steps'
+   shapes: TGAT's 1,800 hop-0 and 18,000 hop-1 targets of a 600-event
+   batch (uniform), that batch's 18,000 hop-0 edge ids padded to 32,768
+   as ``FeatureCache.fetch`` pads, and TGN's 12,000 roots of a
+   4,000-event batch (recent), each attention row with the sampler's own
+   masks; those rows take their launch counts from the rounds of phase
+   6, which launch each kernel at several shapes, not only at the row's.
+   Rows at shapes past the kernels' old limits follow (uniform sampling
+   with K 50, the attention forward with K 50 and with Dh 150, its
+   backward with both); no path launches these shapes, so each such row
+   counts the launches of its own call.  Then the launch floor: the time
+   of a kernel that does nothing (``torch.cuda._sleep(0)``) under the
+   same timing.  With ``--ab DIR`` (repeatable), each row
+   whose source file is also in ``DIR`` (another design with the same C
    interface, such as ``git archive <commit> src/repro_torch/csrc``
    unpacked into a git-ignored directory) is checked against that
    design and timed in turns with it, other, tree, tree, other; the
    rows carry the times as ``ab`` (by directory) in the ``kernels``
-   line;
+   line; the rows past the old limits are not, since an older design
+   refuses their shapes, but ``--ab-wide DIR`` times them in turns
+   against a design that takes them;
 4. serving phase: TGAT at the paper's full width (d_node 128, d_edge
    172, d_time 100, d_hidden 100, 2 heads, fanouts 10/10) with
    ``recent`` sampling answers 512 link and 128 embed queries through
@@ -47,7 +56,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    in-window candidate and each target must get min(K, n) of them;
 6. training phase: the temporal_attn backward kernel against the plain
    autograd (1e-5) at the TGAT hop shapes of a sampled batch, timed
-   beside the plain backward and the autograd backward of a masked
+   beside the plain backward (and, with ``--ab``, in turns with the
+   other design) and the autograd backward of a masked
    ``scaled_dot_product_attention``; then ``ContinuousTrainer`` for TGN
    (recent, batch 4000) and TGAT (uniform, batch 600) at full width
    ingests the first 600,000 events and runs 3 rounds of 12,000 events
@@ -73,8 +83,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (2, 4096, 32/4 heads, 128) in bf16, the Hopper instance, within 4e-2
    and 1.6e-2 of each row's scale, timed per call in turns with one
    ``scaled_dot_product_attention``; the general instance at
-   Nemotron-4's heads of 192 in bf16 and float32; scan (2, 4096, 8192,
-   16) in float32 within 1e-5); then, at full width cut to 2 layers (B 2,
+   Nemotron-4's heads of 192 in bf16 and float32, and at head dims 320
+   (bf16) and 512 (float32), timed beside SDPA; scan (2, 4096, 8192,
+   16) in float32 within 1e-5, and at d_state 32 and 64 (these wide
+   rows, as the head dims 320 and 512, count their own call's launches:
+   no prefill runs them); with ``--ab``
+   the Hopper attention and the scan at d_state 16 in turns with the
+   other design); then, at full width cut to 2 layers (B 2,
    S 256), the card against the CPU (``forward_hidden`` in float32
    within 1e-4, bf16 prefill and decode logits within 0.1) and the
    prefill against token-by-token decode on the card (0.15, the
@@ -112,6 +127,11 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 # special-function units: 16 exp2 results per clock per SM (throughput
 # table for compute capability 9.0), 132 SMs at the 1.98 GHz boost clock
 SFU_PER_S = 16 * 132 * 1.98e9
+# shapes only the widened kernels take: the fanout of
+# TemporalSampler(g, (50,), "uniform") and the head dim of a TGAT with
+# d_hidden 300 and 2 heads
+WIDE_FANOUT = 50
+WIDE_HEAD_DIM = 150
 
 
 def log(msg: str) -> None:
@@ -347,9 +367,11 @@ class Feed:
 # ---------------------------------------------------------------------------
 
 
-def kernel_phase(torch, eng, feed, t_q, rng, dev, ab=()):
+def kernel_phase(torch, eng, feed, t_q, rng, dev, ab=(), ab_wide=()):
     """Phase 3; each row is also timed in turns against the design of
-    its source in each directory of ``ab`` (see :func:`in_turns`)."""
+    its source in each directory of ``ab`` (see :func:`in_turns`), and a
+    row at a shape past the old limits against those of ``ab_wide``."""
+    from repro_torch.configs.tgn_gdelt import tgn
     from repro_torch.core.rand import gumbel_noise
     from repro_torch.kernels.cache_gather.ops import cache_gather
     from repro_torch.kernels.cache_gather.ref import cache_gather_ref
@@ -386,12 +408,12 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev, ab=()):
     N = tgt.shape[0]
     rows = []
 
-    def sample_bytes(policy, tgt, tq, ts0, tm):
+    def sample_bytes(policy, tgt, tq, ts0, tm, k=K):
         """Bytes the walk needs on this data (see PERF.md), and its
-        compares.  Uniform needs the noise of each in-window lane and
-        nbr/eid of its picks only; for uniform a third value is the
-        looser count that also reads nbr/eid of every in-window lane, as
-        a one-warp-per-target walk does."""
+        compares.  Both policies need nbr/eid of their picks only, and
+        uniform the noise of each in-window lane; for uniform a third
+        value is the looser count that also reads nbr/eid of every
+        in-window lane, as a one-warp-per-target walk does."""
         N = tgt.shape[0]
         pt = d["page_table"][tgt.clamp(0, d["page_table"].shape[0] - 1)
                              .long()][:, :scan]
@@ -406,7 +428,7 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev, ab=()):
                  & (lane_ts < tq[:, None, None])).sum(-1)     # (N, S)
         if policy == "recent":
             before = inwin.cumsum(1) - inwin
-            reached = before < K
+            reached = before < k
         else:
             reached = torch.ones_like(inwin, dtype=torch.bool)
         reads = float((reached & alive[:, None]).sum())
@@ -414,16 +436,20 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev, ab=()):
         scanned = float((reached & hit).sum())
         lanes_in = float((inwin * reached).sum())
         common = 13 * N + 4 * reads + 8 * visited + 5 * C * scanned \
-            + 13 * N * K
+            + 13 * N * k
         ops = 3.0 * C * scanned
+        picks = float(inwin.sum(1).clamp(max=k).sum())
         if policy == "recent":
-            return common + 8 * lanes_in, ops
-        picks = float(inwin.sum(1).clamp(max=K).sum())
+            return common + 8 * picks, ops
         return (common + 4 * lanes_in + 8 * picks, ops,
                 common + 12 * lanes_in)
 
     def row(name, source, replaces, err, shape, kernel, plain, nbytes,
-            ops, library=None, path="serve"):
+            ops, library=None, path="serve", widened=False):
+        """Time and record one kernel row; ``widened``: a shape only the
+        widened kernels take and no path of this run launches, timed in
+        turns only against ``ab_wide`` (an older design refuses it), its
+        launches those of its own call."""
         ms, call = timings(torch, kernel, flush)
         plain_ms, plain_call = timings(torch, plain, flush)
         b, by = bound_ms(nbytes, ops)
@@ -434,58 +460,62 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev, ab=()):
             replaces=f"src/repro/kernels/{replaces}", max_abs_err=err,
             shape=shape, ms=ms, call_ms=call, plain_ms=plain_ms,
             plain_call_ms=plain_call, bound_ms=b, bound_by=by,
-            library_ms=lib_ms, library_call_ms=lib_call, path=path))
-        for other in ab:
-            if (other / source).is_file():
-                rows[-1].setdefault("ab", {})[str(other)] = in_turns(
-                    torch, Path(source).stem, other, kernel, flush,
-                    f"{name} ({shape})")
+            library_ms=lib_ms, library_call_ms=lib_call,
+            path="widened" if widened else path))
+        if widened:
+            rows[-1]["launches"] = own_launches(torch, name, kernel)
+        ab_rows(torch, rows[-1], Path(source).stem,
+                ab_wide if widened else ab, kernel, flush,
+                f"{name} ({shape})")
 
-    # -- temporal_sample, recent ------------------------------------------
-    args = (tgt, tq, ts0, tm)
-    got = temporal_sample(*pages, *args, k=K, policy="recent", scan=scan)
-    want = temporal_sample_ref(*plain_pages, *args, k=K)
-    torch.cuda.synchronize()
-    for name, g_, w_ in zip(("nbr", "eid", "mask"),
-                            (got[0], got[1], got[3]),
-                            (want[0], want[1], want[3])):
-        assert_equal(torch, g_, w_, f"temporal_sample_recent {name}")
-    err = max_err(torch, got[2], want[2], "temporal_sample_recent ts")
-    row("temporal_sample_recent", "temporal_sample.cu",
-        "temporal_sample/temporal_sample.py:42", err,
-        f"N={N} S={scan} C={C} K={K}",
-        lambda: temporal_sample(*pages, *args, k=K, policy="recent",
-                                scan=scan),
-        lambda: temporal_sample_ref(*plain_pages, *args, k=K),
-        *sample_bytes("recent", *args))
-
-    # -- temporal_sample, uniform (shared noise) --------------------------
-    def uniform_row(tag, args, noise, path):
-        """Check, time and record one uniform launch; returns the plain
-        version's output."""
-        got = temporal_sample(*pages, *args, k=K, policy="uniform",
-                              noise=noise, scan=scan)
-        want = temporal_sample_uniform_ref(*plain_pages, *args, noise, k=K)
+    def check_sample(what, got, want):
         torch.cuda.synchronize()
         for name, g_, w_ in zip(("nbr", "eid", "mask"),
                                 (got[0], got[1], got[3]),
                                 (want[0], want[1], want[3])):
-            assert_equal(torch, g_, w_, f"temporal_sample_uniform {name} "
-                                        f"({tag})")
-        err = max_err(torch, got[2], want[2],
-                      f"temporal_sample_uniform ts ({tag})")
-        nbytes, ops, loose = sample_bytes("uniform", *args)
+            assert_equal(torch, g_, w_, f"{what} {name}")
+        return max_err(torch, got[2], want[2], f"{what} ts")
+
+    # -- temporal_sample, recent ------------------------------------------
+    def recent_row(tag, args, path):
+        """Check, time and record one recent launch; returns the plain
+        version's output."""
+        got = temporal_sample(*pages, *args, k=K, policy="recent", scan=scan)
+        want = temporal_sample_ref(*plain_pages, *args, k=K)
+        err = check_sample(f"temporal_sample_recent ({tag})", got, want)
+        row("temporal_sample_recent", "temporal_sample.cu",
+            "temporal_sample/temporal_sample.py:42", err,
+            f"N={args[0].shape[0]} S={scan} C={C} K={K} ({tag})",
+            lambda: temporal_sample(*pages, *args, k=K, policy="recent",
+                                    scan=scan),
+            lambda: temporal_sample_ref(*plain_pages, *args, k=K),
+            *sample_bytes("recent", *args), path=path)
+        return want
+
+    recent_row("serving hop 0", (tgt0, t0, ninf(t0), m0), "serve")
+    args = (tgt, tq, ts0, tm)
+    recent_row("serving hop 1", args, "serve")
+
+    # -- temporal_sample, uniform (shared noise) --------------------------
+    def uniform_row(tag, args, noise, path, k=K):
+        """Check, time and record one uniform launch; returns the plain
+        version's output."""
+        got = temporal_sample(*pages, *args, k=k, policy="uniform",
+                              noise=noise, scan=scan)
+        want = temporal_sample_uniform_ref(*plain_pages, *args, noise, k=k)
+        err = check_sample(f"temporal_sample_uniform ({tag})", got, want)
+        nbytes, ops, loose = sample_bytes("uniform", *args, k=k)
         log(f"[kernel] temporal_sample_uniform ({tag}): bound from "
             f"{nbytes / 1e6:.3f} MB ({loose / 1e6:.3f} MB with nbr/eid of "
             f"every in-window lane: {bound_ms(loose, ops)[0]:.5f} ms)")
         row("temporal_sample_uniform", "temporal_sample.cu",
             "temporal_sample/temporal_sample.py:103", err,
-            f"N={args[0].shape[0]} S={scan} C={C} K={K}",
-            lambda: temporal_sample(*pages, *args, k=K, policy="uniform",
+            f"N={args[0].shape[0]} S={scan} C={C} K={k} ({tag})",
+            lambda: temporal_sample(*pages, *args, k=k, policy="uniform",
                                     noise=noise, scan=scan),
             lambda: temporal_sample_uniform_ref(*plain_pages, *args, noise,
-                                                k=K),
-            nbytes, ops, path=path)
+                                                k=k),
+            nbytes, ops, path=path, widened=k > 32)
         return want
 
     uniform_row("serving hop 0", (tgt0, t0, ninf(t0), m0),
@@ -514,8 +544,27 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev, ab=()):
               hop0_t[2].reshape(-1).contiguous(),
               torch.full((3 * B * K,), float("-inf"), device=dev),
               hop0_t[3].reshape(-1).contiguous())
-    uniform_row("TGAT train hop 1", args_t,
-                gumbel_noise(gen, (3 * B * K, scan, C), dev), "train_tgat")
+    hop1_t = uniform_row("TGAT train hop 1", args_t,
+                         gumbel_noise(gen, (3 * B * K, scan, C), dev),
+                         "train_tgat")
+    # the TGN train step: a 4,000-event batch's [src|dst|neg] roots at the
+    # events' times (12,000 targets), sampled recent at its one hop
+    Bn = tgn().batch_size
+    lo = feed.ingested - Bn
+    seeds_n = np.concatenate([feed.stream.src[lo:lo + Bn],
+                              feed.stream.dst[lo:lo + Bn],
+                              rng.integers(0, feed.stream.n_nodes, Bn)])
+    tgt_n = torch.from_numpy(seeds_n.astype(np.int32)).to(dev)
+    t_n = torch.from_numpy(np.tile(feed.stream.ts[lo:lo + Bn], 3)
+                           .astype(np.float32)).to(dev)
+    hop_n = recent_row("TGN train hop", (tgt_n, t_n, ninf(t_n),
+                                         torch.ones_like(tgt_n,
+                                                         dtype=torch.bool)),
+                       "train_tgn")
+    # K > 32 (the shared-memory reservoir) at the serving hop 1's targets
+    uniform_row("serving hop 1, K > 32", args,
+                gumbel_noise(gen, (N, scan, C), dev), "serve_uniform",
+                k=WIDE_FANOUT)
 
     # -- cache_gather: edge fetches on the warmed edge cache ---------------
     st = eng.edge_cache.state
@@ -547,32 +596,64 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev, ab=()):
     # TGAT train step: the edges of the 1,800 hop-0 targets (18,000 ids)
     gather_row("TGAT train hop 0", hop0_t[1].reshape(-1), "train_tgat")
 
-    # -- temporal_attn: layer 1 (hop-1 targets) at full width -------------
-    H, dh = cfg.n_heads, cfg.d_hidden // cfg.n_heads
-    gq = torch.Generator(device=dev).manual_seed(11)
-    q = torch.randn((N, H, dh), generator=gq, device=dev)
-    kk = torch.randn((N, K, H, dh), generator=gq, device=dev)
-    v = torch.randn((N, K, H, dh), generator=gq, device=dev)
-    mask = hop1[3].contiguous()
-    with torch.no_grad():
-        got = temporal_attn(q, kk, v, mask)
-        want = temporal_attn_ref(q, kk, v, mask)
-    torch.cuda.synchronize()
-    err = max_err(torch, got, want, "temporal_attn")
-    # yardstick only: one library call computing the same masked softmax
+    # -- temporal_attn forward, at full width -------------------------------
     F = torch.nn.functional
-    q_l = q.reshape(N * H, 1, dh)
-    k_l = kk.permute(0, 2, 1, 3).reshape(N * H, K, dh).contiguous()
-    v_l = v.permute(0, 2, 1, 3).reshape(N * H, K, dh).contiguous()
-    m_l = mask[:, None, :].expand(N, H, K).reshape(N * H, 1, K).contiguous()
-    row("temporal_attn", "temporal_attn.cu",
-        "temporal_attn/temporal_attn.py:21", err, f"N={N} H={H} Dh={dh} K={K}",
-        lambda: temporal_attn(q, kk, v, mask),
-        lambda: temporal_attn_ref(q, kk, v, mask),
-        4 * (N * H * dh * 2 + 2 * N * K * H * dh) + N * K,
-        4.0 * N * H * K * dh + 3.0 * N * H * K,
-        library=lambda: F.scaled_dot_product_attention(q_l, k_l, v_l,
-                                                       attn_mask=m_l))
+    H, dh = cfg.n_heads, cfg.d_hidden // cfg.n_heads
+
+    def attn_row(tag, mask, path, dh=dh, seed=11):
+        """The forward on random q, k, v with the sampler's ``mask``
+        (N, K), timed beside one masked ``scaled_dot_product_attention``
+        (a yardstick, never called by the port)."""
+        n, k = mask.shape
+        gq = torch.Generator(device=dev).manual_seed(seed)
+        q = torch.randn((n, H, dh), generator=gq, device=dev)
+        kk = torch.randn((n, k, H, dh), generator=gq, device=dev)
+        v = torch.randn((n, k, H, dh), generator=gq, device=dev)
+        with torch.no_grad():
+            got = temporal_attn(q, kk, v, mask)
+            want = temporal_attn_ref(q, kk, v, mask)
+        torch.cuda.synchronize()
+        err = max_err(torch, got, want, f"temporal_attn ({tag})")
+        empty = ~mask.any(1)
+        if not bool((got[empty] == 0).all()):
+            raise AssertionError(f"temporal_attn ({tag}): a target with no "
+                                 f"neighbour has a nonzero row")
+        q_l = q.reshape(n * H, 1, dh)
+        k_l = kk.permute(0, 2, 1, 3).reshape(n * H, k, dh).contiguous()
+        v_l = v.permute(0, 2, 1, 3).reshape(n * H, k, dh).contiguous()
+        m_l = mask[:, None, :].expand(n, H, k).reshape(n * H, 1,
+                                                       k).contiguous()
+        row("temporal_attn", "temporal_attn.cu",
+            "temporal_attn/temporal_attn.py:21", err,
+            f"N={n} H={H} Dh={dh} K={k} ({tag}; {int(empty.sum())} "
+            f"targets without neighbours)",
+            lambda: temporal_attn(q, kk, v, mask),
+            lambda: temporal_attn_ref(q, kk, v, mask),
+            4 * (n * H * dh * 2 + 2 * n * k * H * dh) + n * k,
+            4.0 * n * H * k * dh + 3.0 * n * H * k,
+            library=lambda: F.scaled_dot_product_attention(
+                q_l, k_l, v_l, attn_mask=m_l),
+            path=path, widened=k > 32 or dh > 128)
+
+    attn_row("serving hop 1", hop1[3].contiguous(), "serve")
+    attn_row("TGAT train hop 0", hop0_t[3].contiguous(), "train_tgat")
+    attn_row("TGAT train hop 1", hop1_t[3].contiguous(), "train_tgat")
+    attn_row("TGN train hop", hop_n[3].contiguous(), "train_tgn")
+    # K and Dh past 32 and 128: the shared-memory instance
+    gm = torch.Generator(device=dev).manual_seed(12)
+    wide_mask = torch.rand((N, WIDE_FANOUT), generator=gm, device=dev) < 0.5
+    wide_mask[::5] = False
+    attn_row("K > 32", wide_mask, "serve")
+    attn_row("Dh > 128", hop1[3].contiguous(), "serve", dh=WIDE_HEAD_DIM)
+    backward_wide_row(torch, dev, flush, rows, ab_wide)
+
+    # -- the launch floor: a kernel that does nothing, same timing -------
+    floor = timings(torch, lambda: torch.cuda._sleep(0), flush)
+    log(f"[kernel] launch floor: a kernel that does nothing "
+        f"(torch.cuda._sleep(0), one thread) takes device ms "
+        f"{floor[0]:.4f}, ms per call {floor[1]:.4f}, under the rows' "
+        f"timing")
+
     for r in rows:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms ({r['library_call_ms']:.4f} "
@@ -584,6 +665,46 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev, ab=()):
             f"ms per call: kernel {r['call_ms']:.4f}  plain "
             f"{r['plain_call_ms']:.4f}")
     return rows
+
+
+def backward_wide_row(torch, dev, flush, rows, ab_wide=()):
+    """The temporal_attn backward's shared-memory instance (K > 32, Dh >
+    128) against the plain autograd at the TGAT hop 0's 1,800 targets,
+    with random masks, some targets without neighbours."""
+    from repro_torch.kernels.temporal_attn.ops import temporal_attn
+    from repro_torch.kernels.temporal_attn.ref import temporal_attn_ref
+
+    N, H, K, dh = 1800, 2, WIDE_FANOUT, WIDE_HEAD_DIM
+    g = torch.Generator(device=dev).manual_seed(13)
+    ins = [torch.randn(shape, generator=g, device=dev).requires_grad_()
+           for shape in ((N, H, dh), (N, K, H, dh), (N, K, H, dh))]
+    mask = torch.rand((N, K), generator=g, device=dev) < 0.5
+    mask[::5] = False
+    dout = torch.randn((N, H, dh), generator=g, device=dev)
+    out_k = temporal_attn(*ins, mask)
+    out_p = temporal_attn_ref(*ins, mask)
+    got = torch.autograd.grad(out_k, ins, dout, retain_graph=True)
+    want = torch.autograd.grad(out_p, ins, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    err = max(max_err(torch, a, b, f"temporal_attn_bwd (wide) {nm}")
+              for nm, a, b in zip(("dq", "dk", "dv"), got, want))
+    kernel = lambda: torch.autograd.grad(out_k, ins, dout, retain_graph=True)
+    plain = lambda: torch.autograd.grad(out_p, ins, dout, retain_graph=True)
+    ms, call = timings(torch, kernel, flush)
+    plain_ms, plain_call = timings(torch, plain, flush)
+    nbytes = 4 * N * H * dh * ((2 * K + 2) + (2 * K + 1)) + N * K
+    b, by = bound_ms(nbytes, 8.0 * N * H * K * dh + 6.0 * N * H * K)
+    rows.append(dict(
+        name="temporal_attn_bwd", route="cuda",
+        source="src/repro_torch/csrc/temporal_attn.cu",
+        replaces="src/repro/kernels/temporal_attn/temporal_attn.py:21",
+        max_abs_err=err, shape=f"N={N} H={H} Dh={dh} K={K} (K > 32, "
+        f"Dh > 128)", ms=ms, call_ms=call, plain_ms=plain_ms,
+        plain_call_ms=plain_call, bound_ms=b, bound_by=by, library_ms=None,
+        library_call_ms=None, path="widened",
+        launches=own_launches(torch, "temporal_attn_bwd", kernel)))
+    ab_rows(torch, rows[-1], "temporal_attn", ab_wide, kernel, flush,
+            f"temporal_attn_bwd ({rows[-1]['shape']})")
 
 
 # ---------------------------------------------------------------------------
@@ -692,6 +813,11 @@ def main() -> int:
                     metavar="DIR",
                     help="also time each kernel-phase row in turns against "
                          "the design of its source in DIR (repeatable)")
+    ap.add_argument("--ab-wide", type=Path, action="append", default=[],
+                    metavar="DIR",
+                    help="also time the rows at shapes past the kernels' "
+                         "old limits against DIR, whose design takes them "
+                         "(repeatable)")
     args = ap.parse_args()
 
     import torch
@@ -732,13 +858,14 @@ def main() -> int:
     stream = synth_ctdg(n_nodes=args.nodes, n_events=args.events,
                         d_node=128, d_edge=172, seed=args.seed)
     rows = run(torch, dev, args, stream)
-    train_rows, tgat_counts = train_phase(torch, dev, args, stream)
+    train_rows, train_counts = train_phase(torch, dev, args, stream)
     for r in rows:
-        if r["path"] == "train_tgat":      # the TGAT train step's shapes
-            r["launches"] = int(tgat_counts.get(r["name"], 0))
+        if r["path"].startswith("train_"):   # a train step's shapes
+            trainer = r["path"][len("train_"):]
+            r["launches"] = int(train_counts[trainer].get(r["name"], 0))
             if r["launches"] <= 0:
-                raise AssertionError(f"{r['name']}: no launch in the TGAT "
-                                     f"rounds")
+                raise AssertionError(f"{r['name']}: no launch in the "
+                                     f"{trainer} rounds")
     rows += train_rows
     del stream
     rows += lm_phase(torch, dev, args)
@@ -749,6 +876,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys}
         | {k: r[k] for k in ("instance", "ab") if k in r}
+        | ({"launches_of": "own call"} if r.get("path") == "widened"
+           else {})
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -798,7 +927,8 @@ def run(torch, dev, args, stream):
         torch.cuda.synchronize()
 
         # -- phase 3: kernels against their plain versions ----------------
-        rows = kernel_phase(torch, eng, feed, t_q, rng, dev, args.ab)
+        rows = kernel_phase(torch, eng, feed, t_q, rng, dev, args.ab,
+                            args.ab_wide)
 
         # -- phase 4: serve (recent) while ingest publishes the tail ------
         queries = make_queries(rng, stream, tail, 512, 128, t_q)
@@ -937,8 +1067,8 @@ def run(torch, dev, args, stream):
 
     per_batch = {k: v / max(batches, 1) for k, v in counts.items()}
     for r in rows:
-        if r["path"] == "train_tgat":
-            continue                       # counted by the TGAT trainer
+        if r["path"].startswith("train_") or r["path"] == "widened":
+            continue                       # counted by its trainer / call
         run = u_counts if r["path"] == "serve_uniform" else counts
         r["launches"] = int(run.get(r["name"], 0))
         if r["launches"] <= 0:
@@ -959,7 +1089,7 @@ PARITY_EVENTS = 50_000    # prefix of the card-vs-CPU check
 PARITY_ROUND = {"tgn": 4_000, "tgat": 600}
 
 
-def backward_row(torch, tr, dev):
+def backward_row(torch, tr, dev, ab=()):
     """The temporal_attn backward kernel against the plain autograd at
     the two hop shapes of one sampled TGAT batch (hop 0: N = 3 x batch,
     hop 1: N x K), with the masks the sampler gave; random q, k, v and
@@ -1028,7 +1158,33 @@ def backward_row(torch, tr, dev):
                    plain_ms=plain_ms, plain_call_ms=plain_call,
                    bound_ms=b, bound_by=by, library_ms=lib_ms,
                    library_call_ms=lib_call)
+        ab_rows(torch, row, "temporal_attn", ab, kernel, flush,
+                f"temporal_attn_bwd ({shape})")
     return row
+
+
+def ab_rows(torch, row, lib, ab, kernel, flush, what):
+    """``row`` timed in turns against the design of ``lib``'s source in
+    each directory of ``ab`` that has it (see :func:`in_turns`)."""
+    for other in ab:
+        if (other / f"{lib}.cu").is_file():
+            row.setdefault("ab", {})[str(other)] = in_turns(
+                torch, lib, other, kernel, flush, what)
+
+
+def own_launches(torch, name, fn) -> int:
+    """Launches of kernel ``name`` in one call of ``fn``, counted from 0:
+    the launch count of a row at a shape that no path of this run takes
+    (its instance never runs there, so the path's count is not its)."""
+    from repro_torch.kernels import runtime
+
+    runtime.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    n = runtime.launch_counts().get(name, 0)
+    if n <= 0:
+        raise AssertionError(f"{name}: its own call launched nothing")
+    return n
 
 
 class OverlapProbe:
@@ -1074,14 +1230,15 @@ class OverlapProbe:
 def train_runs(torch, dev, args, stream):
     """TGN and TGAT at full width on the card: ingest, then ROUNDS
     continuous rounds.  Returns the backward kernel's row (launches
-    summed over both trainers' rounds) and the TGAT rounds' launch
-    counts."""
+    summed over both trainers' rounds) and each trainer's launch counts
+    over its rounds, by name."""
     from repro_torch.configs.tgn_gdelt import tgat, tgn
     from repro_torch.core.continuous import ContinuousTrainer
     from repro_torch.kernels import runtime
 
     row = None
     bwd_launches = 0
+    train_counts = {}
     for cfg in (tgn(), tgat()):
         name, L = cfg.name, cfg.n_layers
         t0 = time.perf_counter()
@@ -1093,7 +1250,7 @@ def train_runs(torch, dev, args, stream):
             f"{time.perf_counter() - t0:.1f} s; node cache "
             f"{tr.node_cache.capacity}, edge cache {tr.edge_cache.capacity}")
         if name == "tgat":
-            row = backward_row(torch, tr, dev)
+            row = backward_row(torch, tr, dev, args.ab)
         runtime.reset_launch_counts()
         steps = evals = 0
         for r in range(ROUNDS):
@@ -1142,14 +1299,13 @@ def train_runs(torch, dev, args, stream):
             if counts.get(k, 0) <= 0:
                 raise AssertionError(f"{name}: {k} never launched")
         bwd_launches += counts["temporal_attn_bwd"]
-        if name == "tgat":
-            tgat_counts = counts
+        train_counts[name] = counts
         per = {k: round(v / (steps + evals), 3) for k, v in counts.items()}
         log(f"[train] {name}: launches over {ROUNDS} rounds ({steps} train "
             f"+ {evals} eval steps) {counts}; per step {per}")
         del tr
     row["launches"] = bwd_launches
-    return row, tgat_counts
+    return row, train_counts
 
 
 def card_vs_cpu(torch, dev, args, stream):
@@ -1217,14 +1373,14 @@ def attached_serving(tr, hi):
 
 
 def train_phase(torch, dev, args, stream):
-    """Phase 6; returns the backward kernel's row and the TGAT rounds'
+    """Phase 6; returns the backward kernel's row and each trainer's
     launch counts."""
     t0 = time.perf_counter()
-    row, tgat_counts = train_runs(torch, dev, args, stream)
+    row, train_counts = train_runs(torch, dev, args, stream)
     attached_serving(card_vs_cpu(torch, dev, args, stream),
                      PARITY_EVENTS + PARITY_ROUND["tgat"])
     log(f"[train] training phase done in {time.perf_counter() - t0:.1f} s")
-    return [row], tgat_counts
+    return [row], train_counts
 
 
 # ---------------------------------------------------------------------------
@@ -1339,7 +1495,7 @@ def lm_serve(torch, dev, args, cfg):
     return counts[kernel]
 
 
-def flash_row(torch, dev, cfg, flush):
+def flash_row(torch, dev, cfg, flush, ab=()):
     """flash_attention against its plain version at Yi's prefill shape in
     bf16 (the Hopper instance), timed beside one
     scaled_dot_product_attention (a yardstick, never called by the port):
@@ -1420,23 +1576,91 @@ def flash_row(torch, dev, cfg, flush):
         f"library, kernel): {' '.join(f'{t:.4f}' for t in turns)}; device "
         f"ms by CUDA events over a burst: kernel {burst:.4f}  library "
         f"{lib_burst:.4f}")
-    return dict(name="flash_attention", route="cuda", instance=inst,
-                source="src/repro_torch/csrc/flash_attention_sm90.cu",
-                replaces="src/repro/kernels/flash_attention/"
-                         "flash_attention.py:82",
-                max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=lib_ms,
-                library_call_ms=lib_call, shape=shape)
+    row = dict(name="flash_attention", route="cuda", instance=inst,
+               source="src/repro_torch/csrc/flash_attention_sm90.cu",
+               replaces="src/repro/kernels/flash_attention/"
+                        "flash_attention.py:82",
+               max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
+               bound_ms=b, bound_by=by, library_ms=lib_ms,
+               library_call_ms=lib_call, shape=shape)
+    if ab:
+        q, k, v = inputs(B, S, Hq, Hkv, D, torch.bfloat16)
+        ab_rows(torch, row, "flash_attention_sm90", ab,
+                lambda: flash_attention(q, k, v, causal=True), flush,
+                f"flash_attention ({shape})")
+    return row
 
 
-def scan_row(torch, dev, cfg, flush):
+def wide_flash_rows(torch, dev, flush):
+    """The general instance at head dims past 256 (output columns in
+    chunks, scores over slices of D), against its plain version, timed
+    beside one scaled_dot_product_attention: D 320 in bf16, causal, and
+    D 512 in float32, not causal, both GQA 4:1."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         instance)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(19)
+    rows = []
+    for B, S, Hq, Hkv, D, dtype, causal in (
+            (1, 2048, 8, 2, 320, torch.bfloat16, True),
+            (1, 1024, 8, 2, 512, torch.float32, False)):
+        q, k, v = [torch.randn(sh, generator=g, device=dev).to(dtype)
+                   for sh in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+        kern = lambda: flash_attention(q, k, v, causal=causal)
+        plain = lambda: flash_attention_ref(q, k, v, causal=causal)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        what = f"flash_attention D={D} {dtype}"
+        if dtype == torch.bfloat16:
+            err = max_err(torch, got, want, what, ATOL_BF16)
+            row_rel_err(torch, got, want, what)
+        else:
+            err = max_err(torch, got, want, what)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        ms, call = timings(torch, kern, flush)
+        lib_ms, lib_call = timings(torch, library, flush)
+        plain_ms = device_ms(torch, plain, flush, reps=3)
+        pairs = B * Hq * ((S * S + S) / 2 if causal else S * S)
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        b, by = bound_ms(nbytes, 4.0 * D * pairs,
+                         BF16_OPS_PER_S if dtype == torch.bfloat16
+                         else FP32_OPS_PER_S, exps=pairs)
+        shape = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+                 f"{str(dtype).split('.')[-1]} "
+                 f"{'causal' if causal else 'full'}")
+        log(f"[kernel] flash_attention ({instance(dtype, D)}) {shape} ok "
+            f"max|err| {err:.3g} device ms: kernel {ms:.4f}  plain "
+            f"{plain_ms:.4f}  bound {b:.4f} ({by})  library {lib_ms:.4f}; "
+            f"ms per call: kernel {call:.4f}  library {lib_call:.4f}")
+        rows.append(dict(
+            name="flash_attention", route="cuda",
+            instance=instance(dtype, D),
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/"
+                     "flash_attention.py:82",
+            max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
+            bound_ms=b, bound_by=by, library_ms=lib_ms,
+            library_call_ms=lib_call, shape=shape, path="widened",
+            launches=own_launches(torch, "flash_attention", kern)))
+        del q, k, v, got, want
+    return rows
+
+
+def scan_row(torch, dev, cfg, flush, ab=(), N=None, L=None):
     """selective_scan against its plain version at Falcon-Mamba-7B's
-    prefill shape in float32; no PyTorch call computes the scan."""
+    prefill shape in float32 (or with d_state ``N`` and length ``L``,
+    shapes no path of this run takes: the row's launches are then those
+    of its own call); no PyTorch call computes the scan."""
+    widened = N is not None
     from repro_torch.kernels.selective_scan.ops import selective_scan
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
-    B, L = LM_PREFILL
-    Din, N = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
+    B, L = LM_PREFILL[0], L or LM_PREFILL[1]
+    Din, N = cfg.ssm.expand * cfg.d_model, N or cfg.ssm.d_state
     g = torch.Generator(device=dev).manual_seed(17)
     r = lambda *s: torch.rand(s, generator=g, device=dev)
     n = lambda *s: torch.randn(s, generator=g, device=dev)
@@ -1467,13 +1691,20 @@ def scan_row(torch, dev, cfg, flush):
         f"{nbytes / 1e6:.1f} MB {nbytes / HBM_BYTES_PER_S * 1e3:.4f})  "
         f"library none; ms per call: kernel {call:.4f}; device ms by CUDA "
         f"events over a burst {burst:.4f}")
-    return dict(name="selective_scan", route="cuda",
-                source="src/repro_torch/csrc/selective_scan.cu",
-                replaces="src/repro/kernels/selective_scan/"
-                         "selective_scan.py:57",
-                max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=None,
-                library_call_ms=None, shape=shape)
+    row = dict(name="selective_scan", route="cuda",
+               source="src/repro_torch/csrc/selective_scan.cu",
+               replaces="src/repro/kernels/selective_scan/"
+                        "selective_scan.py:57",
+               max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
+               bound_ms=b, bound_by=by, library_ms=None,
+               library_call_ms=None, shape=shape)
+    if widened:
+        row["launches"] = own_launches(torch, "selective_scan", kern)
+        row["path"] = "widened"
+    if N <= 16:                  # an older design takes only N <= 16
+        ab_rows(torch, row, "selective_scan", ab, kern, flush,
+                f"selective_scan ({shape})")
+    return row
 
 
 def lm_cut_checks(torch, dev, args, cfg):
@@ -1544,8 +1775,9 @@ def lm_cut_checks(torch, dev, args, cfg):
 
 def lm_phase(torch, dev, args):
     """Yi-6B, then Falcon-Mamba-7B: serve at full size, hold the kernel
-    against its plain version, check the depth cut.  Returns the rows of
-    flash_attention and selective_scan."""
+    against its plain version (and at the shapes past its old limits),
+    check the depth cut.  Returns the rows of flash_attention and
+    selective_scan."""
     from repro_torch.configs import get_arch
 
     t0 = time.perf_counter()
@@ -1556,9 +1788,13 @@ def lm_phase(torch, dev, args):
         launches = lm_serve(torch, dev, args, cfg)
         torch.cuda.empty_cache()
         row = (scan_row if cfg.family == "ssm" else flash_row)(
-            torch, dev, cfg, flush)
+            torch, dev, cfg, flush, args.ab)
+        # d_state and head dims past the old limits (16 and 256)
+        wide = ([scan_row(torch, dev, cfg, flush, N=32),
+                 scan_row(torch, dev, cfg, flush, N=64, L=1024)]
+                if cfg.family == "ssm" else wide_flash_rows(torch, dev, flush))
         row["launches"] = launches
-        rows.append(row)
+        rows += [row] + wide
         torch.cuda.empty_cache()
         lm_cut_checks(torch, dev, args, cfg)
         torch.cuda.empty_cache()

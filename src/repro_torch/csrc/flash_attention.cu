@@ -43,6 +43,17 @@
 // No score, weight or partial sum goes through device memory.  The q
 // tiles are launched longest-first (the last causal tiles walk the most
 // keys), so short tiles fill in behind them.
+//
+// Head dims past 256 (any D, as the Pallas body takes): the output
+// columns are split into nd = ceil(D / 256) chunks of Dc <= 256 columns
+// (a multiple of 16), one CTA per (q tile, head, batch, chunk), each
+// keeping its chunk's accumulator in registers as above.  Each such CTA
+// computes the scores over all of D, in slices of 256 columns: per K/V
+// tile it stages the q and k slices in turn and adds each slice's part
+// to the same score accumulators, then stages only its chunk's columns
+// of v.  The chunks repeat the score work, nd times in all, and the
+// shared memory is that of D = 256.  D <= 256 is one chunk and one slice,
+// and runs as before: the q tile is staged once.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
@@ -56,9 +67,9 @@ namespace wmma = nvcuda::wmma;
 constexpr int kBQ = 64;        // q rows per CTA
 constexpr int kBK = 64;        // keys per K/V tile
 constexpr int kThreads = 256;  // a 16 x 16 grid of threads, 8 warps
-constexpr int kMaxD = 256;
-// Accumulator columns per thread: kCols = 8 up to D = 128 and 16 up to
-// D = 256 (Nemotron-4's 192), each a template instance of the kernels;
+constexpr int kMaxD = 256;     // widest slice of q and k, widest chunk
+// Accumulator columns per thread: kCols = 8 up to Dc = 128 and 16 up to
+// Dc = 256 (Nemotron-4's 192), each a template instance of the kernels;
 // the wide one runs one CTA per SM for its registers and shared memory.
 
 // --- shared-memory layouts --------------------------------------------
@@ -81,17 +92,20 @@ __host__ __device__ inline size_t align128(size_t n) {
   return (n + 127) / 128 * 128;
 }
 
-inline size_t smem_f32(int d) {
-  const int dp = f32_stride(d);
+// sw: the q and k tiles' width, min(D, kMaxD); dc: the v tile's and the
+// output chunk's width
+inline size_t smem_f32(int sw, int dc) {
   return sizeof(float) *
-         (size_t)(kBQ * dp + 2 * kBK * dp + kBQ * (kBK + 1) + 2 * kBQ);
+         (size_t)(kBQ * f32_stride(sw) + kBK * f32_stride(sw) +
+                  kBK * f32_stride(dc) + kBQ * (kBK + 1) + 2 * kBQ);
 }
 
-inline size_t smem_bf16(int d) {
-  return 3 * align128(sizeof(bf16) * kBQ * bf16_stride(d)) +
+inline size_t smem_bf16(int sw, int dc) {
+  return 2 * align128(sizeof(bf16) * kBQ * bf16_stride(sw)) +
+         align128(sizeof(bf16) * kBQ * bf16_stride(dc)) +
          align128(sizeof(float) * kBQ * kSStride) +
          align128(sizeof(bf16) * kBQ * kPStride) +
-         align128(sizeof(float) * kBQ * o_stride(d)) +
+         align128(sizeof(float) * kBQ * o_stride(dc)) +
          2 * sizeof(float) * kBQ;
 }
 
@@ -102,32 +116,36 @@ __device__ __forceinline__ void put(bf16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// Stage rows [r0, r0 + rows) of head hd of a (B, S, H, D) tensor into
-// rows of stride ld (element type Dst), zero beyond S and, up to width,
-// beyond D.
+// Stage rows [r0, r0 + rows) of head hd of a (B, S, H, D) tensor,
+// columns [c0, c0 + n), into rows of stride ld (element type Dst), zero
+// beyond S and, up to width, beyond the n columns.
 template <typename Src, typename Dst>
 __device__ __forceinline__ void stage(Dst* dst, const Src* __restrict__ src,
                                       int b, int r0, int S, int H, int hd,
-                                      int D, int width, int ld, int rows) {
+                                      int D, int c0, int n, int width,
+                                      int ld, int rows) {
   for (int idx = threadIdx.x; idx < rows * width; idx += kThreads) {
     const int r = idx / width, d = idx - r * width;
     const int s = r0 + r;
     float x = 0.f;
-    if (s < S && d < D) x = to_f(src[(((int64_t)b * S + s) * H + hd) * D + d]);
+    if (s < S && d < n)
+      x = to_f(src[(((int64_t)b * S + s) * H + hd) * D + c0 + d]);
     put(dst + r * ld + d, x);
   }
 }
 
-// bfloat16 staging into rows of stride ld padded with zeros to width
-// (a multiple of 16): 16-byte copies where D % 8 == 0 and the tensor is
-// 16-byte aligned, else one element at a time.
+// bfloat16 staging of columns [c0, c0 + n) into rows of stride ld padded
+// with zeros to width (a multiple of 16): 16-byte copies where D % 8 == 0
+// (so c0 and n are multiples of 8 too) and the tensor is 16-byte aligned,
+// else one element at a time.
 __device__ __forceinline__ void stage_bf16(bf16* dst,
                                            const bf16* __restrict__ src,
                                            int b, int r0, int S, int H,
-                                           int hd, int D, int width, int ld,
-                                           int rows, bool vec) {
+                                           int hd, int D, int c0, int n,
+                                           int width, int ld, int rows,
+                                           bool vec) {
   if (!vec) {
-    stage(dst, src, b, r0, S, H, hd, D, width, ld, rows);
+    stage(dst, src, b, r0, S, H, hd, D, c0, n, width, ld, rows);
     return;
   }
   const int cpr = width / 8;   // 16-byte chunks per row
@@ -135,9 +153,9 @@ __device__ __forceinline__ void stage_bf16(bf16* dst,
     const int r = idx / cpr, c = idx - r * cpr;
     const int s = r0 + r;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S && c * 8 < D)
+    if (s < S && c * 8 < n)
       x = *reinterpret_cast<const uint4*>(
-          src + (((int64_t)b * S + s) * H + hd) * D + c * 8);
+          src + (((int64_t)b * S + s) * H + hd) * D + c0 + c * 8);
     *reinterpret_cast<uint4*>(dst + r * ld + c * 8) = x;
   }
 }
@@ -182,38 +200,43 @@ __device__ __forceinline__ float softmax_tile(const float* s_row, P* p_row,
   return cf;
 }
 
-// out rows ty + 16a, columns tx + 16c: acc / max(l, 1e-30)
+// out rows ty + 16a, columns d0 + tx + 16c (< d0 + dn):
+// acc / max(l, 1e-30)
 template <int kCols, typename T>
 __device__ __forceinline__ void store_out(T* __restrict__ out,
                                           const float (&acc)[4][kCols],
                                           const float* lsum, int b, int q0,
                                           int Sq, int Hq, int h, int D,
-                                          int ty, int tx) {
+                                          int d0, int dn, int ty, int tx) {
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int r = ty + 16 * a;
     const int s = q0 + r;
     if (s >= Sq) continue;
     const float l = lsum[r];
-    T* o = out + (((int64_t)b * Sq + s) * Hq + h) * D;
+    T* o = out + (((int64_t)b * Sq + s) * Hq + h) * D + d0;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) put(o + d, acc[a][c] / l);
+      if (d < dn) put(o + d, acc[a][c] / l);
     }
   }
 }
 
 struct Tile {
   int qt, h, b, hk, q0, off, n_kt;
+  int d0, dn;   // this CTA's output columns [d0, d0 + dn)
 };
 
 __device__ __forceinline__ Tile tile_of(int Sq, int Skv, int Hq, int Hkv,
-                                        int causal) {
+                                        int D, int Dc, int causal) {
   Tile t;
+  const int nd = (D + Dc - 1) / Dc;
   t.qt = gridDim.x - 1 - blockIdx.x;   // longest tiles first
   t.h = blockIdx.y;
-  t.b = blockIdx.z;
+  t.b = blockIdx.z / nd;
+  t.d0 = blockIdx.z % nd * Dc;
+  t.dn = min(Dc, D - t.d0);
   t.hk = t.h / (Hq / Hkv);
   t.q0 = t.qt * kBQ;
   t.off = Skv - Sq;                    // q row i sits at i + off
@@ -232,25 +255,26 @@ __global__ void __launch_bounds__(kThreads)
                                const float* __restrict__ v,
                                float* __restrict__ out, int Sq, int Skv,
                                int Hq, int Hkv, int D, int causal,
-                               float scale) {
+                               float scale, int Dc) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
-  const int dp = f32_stride(D);
+  const bool sliced = D > kMaxD;
+  const int dp = f32_stride(min(D, kMaxD)), dv = f32_stride(Dc);
   constexpr int ps_ld = kBK + 1;
   float* qs = smem;                   // (kBQ, dp)
   float* ks = qs + kBQ * dp;          // (kBK, dp)
-  float* vs = ks + kBK * dp;          // (kBK, dp)
-  float* ps = vs + kBK * dp;          // (kBQ, ps_ld) scores, then p
+  float* vs = ks + kBK * dp;          // (kBK, dv)
+  float* ps = vs + kBK * dv;          // (kBQ, ps_ld) scores, then p
   float* corr = ps + kBQ * ps_ld;     // (kBQ) rescale factor of the tile
   float* lsum = corr + kBQ;           // (kBQ) final row sums
 
-  const Tile t = tile_of(Sq, Skv, Hq, Hkv, causal);
+  const Tile t = tile_of(Sq, Skv, Hq, Hkv, D, Dc, causal);
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
   const int srow = tid >> 2, spart = tid & 3;   // softmax lanes
   const int sqpos = t.q0 + srow + t.off;
 
-  stage(qs, q, t.b, t.q0, Sq, Hq, t.h, D, D, dp, kBQ);
+  if (!sliced) stage(qs, q, t.b, t.q0, Sq, Hq, t.h, D, 0, D, D, dp, kBQ);
   float acc[4][kCols];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
@@ -261,8 +285,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < t.n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();   // the previous tile's P.V is done with vs and ps
-    stage(ks, k, t.b, k0, Skv, Hkv, t.hk, D, D, dp, kBK);
-    stage(vs, v, t.b, k0, Skv, Hkv, t.hk, D, D, dp, kBK);
+    if (!sliced) stage(ks, k, t.b, k0, Skv, Hkv, t.hk, D, 0, D, D, dp, kBK);
+    stage(vs, v, t.b, k0, Skv, Hkv, t.hk, D, t.d0, t.dn, t.dn, dv, kBK);
     __syncthreads();
 
     float sc[4][4];
@@ -270,16 +294,26 @@ __global__ void __launch_bounds__(kThreads)
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[a][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+    for (int c0 = 0; c0 < D; c0 += kMaxD) {   // one slice unless sliced
+      const int n = min(kMaxD, D - c0);
+      if (sliced) {
+        if (c0 > 0) __syncthreads();   // done with the slice before
+        stage(qs, q, t.b, t.q0, Sq, Hq, t.h, D, c0, n, n, dp, kBQ);
+        stage(ks, k, t.b, k0, Skv, Hkv, t.hk, D, c0, n, n, dp, kBK);
+        __syncthreads();
+      }
+      for (int d = 0; d < n; ++d) {
+        float qv[4], kv[4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) qv[a] = qs[(ty + 16 * a) * dp + d];
+        for (int a = 0; a < 4; ++a) qv[a] = qs[(ty + 16 * a) * dp + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * dp + d];
+        for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * dp + d];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[a][j] = fmaf(qv[a], kv[j], sc[a][j]);
+          for (int j = 0; j < 4; ++j)
+            sc[a][j] = fmaf(qv[a], kv[j], sc[a][j]);
+      }
     }
 #pragma unroll
     for (int a = 0; a < 4; ++a)
@@ -308,7 +342,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const int d = tx + 16 * c;
-        vv[c] = d < D ? vs[j * dp + d] : 0.f;
+        vv[c] = d < t.dn ? vs[j * dv + d] : 0.f;
       }
 #pragma unroll
       for (int a = 0; a < 4; ++a)
@@ -320,7 +354,8 @@ __global__ void __launch_bounds__(kThreads)
 
   if (spart == 0) lsum[srow] = fmaxf(l_run, 1e-30f);
   __syncthreads();
-  store_out<kCols>(out, acc, lsum, t.b, t.q0, Sq, Hq, t.h, D, ty, tx);
+  store_out<kCols>(out, acc, lsum, t.b, t.q0, Sq, Hq, t.h, D, t.d0, t.dn,
+                   ty, tx);
 }
 
 // --- bfloat16: tensor cores (WMMA) -------------------------------------
@@ -331,16 +366,18 @@ __global__ void __launch_bounds__(kThreads, kCols <= 8 ? 2 : 1)
                                 const bf16* __restrict__ v,
                                 bf16* __restrict__ out, int Sq, int Skv,
                                 int Hq, int Hkv, int D, int causal,
-                                float scale) {
+                                float scale, int Dc) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int d16 = pad16(D), ld = bf16_stride(D), old = o_stride(D);
+  const bool sliced = D > kMaxD;
+  const int ld = bf16_stride(min(D, kMaxD));
+  const int ldv = bf16_stride(Dc), old = o_stride(Dc);
   unsigned char* p = smem_raw;
   bf16* qs = reinterpret_cast<bf16*>(p);      // (kBQ, ld)
   p += align128(sizeof(bf16) * kBQ * ld);
   bf16* ks = reinterpret_cast<bf16*>(p);      // (kBK, ld)
   p += align128(sizeof(bf16) * kBQ * ld);
-  bf16* vs = reinterpret_cast<bf16*>(p);      // (kBK, ld)
-  p += align128(sizeof(bf16) * kBQ * ld);
+  bf16* vs = reinterpret_cast<bf16*>(p);      // (kBK, ldv)
+  p += align128(sizeof(bf16) * kBQ * ldv);
   float* ss = reinterpret_cast<float*>(p);    // (kBQ, kSStride) scores
   p += align128(sizeof(float) * kBQ * kSStride);
   bf16* pb = reinterpret_cast<bf16*>(p);      // (kBQ, kPStride) p
@@ -350,19 +387,21 @@ __global__ void __launch_bounds__(kThreads, kCols <= 8 ? 2 : 1)
   float* corr = reinterpret_cast<float*>(p);  // (kBQ)
   float* lsum = corr + kBQ;                   // (kBQ)
 
-  const Tile t = tile_of(Sq, Skv, Hq, Hkv, causal);
+  const Tile t = tile_of(Sq, Skv, Hq, Hkv, D, Dc, causal);
   const int tid = threadIdx.x, warp = tid >> 5;
   const int ty = tid >> 4, tx = tid & 15;
   const int srow = tid >> 2, spart = tid & 3;
   const int sqpos = t.q0 + srow + t.off;
   const int wr = warp >> 1, wc = warp & 1;   // warp's 16-row block, half
-  const int nkk = d16 / 16;
+  const int v16 = pad16(t.dn);                // the v tile's width
   const bool vec = D % 8 == 0 &&
                    ((reinterpret_cast<uintptr_t>(q) |
                      reinterpret_cast<uintptr_t>(k) |
                      reinterpret_cast<uintptr_t>(v)) & 15) == 0;
 
-  stage_bf16(qs, q, t.b, t.q0, Sq, Hq, t.h, D, d16, ld, kBQ, vec);
+  if (!sliced)
+    stage_bf16(qs, q, t.b, t.q0, Sq, Hq, t.h, D, 0, D, pad16(D), ld, kBQ,
+               vec);
   float acc[4][kCols];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
@@ -373,8 +412,11 @@ __global__ void __launch_bounds__(kThreads, kCols <= 8 ? 2 : 1)
   for (int kt = 0; kt < t.n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();   // the previous tile is done with ks, vs and os
-    stage_bf16(ks, k, t.b, k0, Skv, Hkv, t.hk, D, d16, ld, kBK, vec);
-    stage_bf16(vs, v, t.b, k0, Skv, Hkv, t.hk, D, d16, ld, kBK, vec);
+    if (!sliced)
+      stage_bf16(ks, k, t.b, k0, Skv, Hkv, t.hk, D, 0, D, pad16(D), ld, kBK,
+                 vec);
+    stage_bf16(vs, v, t.b, k0, Skv, Hkv, t.hk, D, t.d0, t.dn, v16, ldv, kBK,
+               vec);
     __syncthreads();
 
     // S = Q K^T: warp (wr, wc) computes key blocks 2wc and 2wc + 1
@@ -382,15 +424,28 @@ __global__ void __launch_bounds__(kThreads, kCols <= 8 ? 2 : 1)
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0, c1;
       wmma::fill_fragment(c0, 0.f);
       wmma::fill_fragment(c1, 0.f);
-      for (int kk = 0; kk < nkk; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> f0,
-            f1;
-        wmma::load_matrix_sync(fa, qs + wr * 16 * ld + kk * 16, ld);
-        wmma::load_matrix_sync(f0, ks + (2 * wc) * 16 * ld + kk * 16, ld);
-        wmma::load_matrix_sync(f1, ks + (2 * wc + 1) * 16 * ld + kk * 16, ld);
-        wmma::mma_sync(c0, fa, f0, c0);
-        wmma::mma_sync(c1, fa, f1, c1);
+      for (int s0 = 0; s0 < D; s0 += kMaxD) {   // one slice unless sliced
+        const int n = min(kMaxD, D - s0);
+        if (sliced) {
+          if (s0 > 0) __syncthreads();   // done with the slice before
+          stage_bf16(qs, q, t.b, t.q0, Sq, Hq, t.h, D, s0, n, pad16(n), ld,
+                     kBQ, vec);
+          stage_bf16(ks, k, t.b, k0, Skv, Hkv, t.hk, D, s0, n, pad16(n), ld,
+                     kBK, vec);
+          __syncthreads();
+        }
+        for (int kk = 0; kk < pad16(n) / 16; ++kk) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
+              fa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
+              f0, f1;
+          wmma::load_matrix_sync(fa, qs + wr * 16 * ld + kk * 16, ld);
+          wmma::load_matrix_sync(f0, ks + (2 * wc) * 16 * ld + kk * 16, ld);
+          wmma::load_matrix_sync(f1, ks + (2 * wc + 1) * 16 * ld + kk * 16,
+                                 ld);
+          wmma::mma_sync(c0, fa, f0, c0);
+          wmma::mma_sync(c1, fa, f1, c1);
+        }
       }
       float* s0 = ss + wr * 16 * kSStride + 2 * wc * 16;
       wmma::store_matrix_sync(s0, c0, kSStride, wmma::mem_row_major);
@@ -406,7 +461,7 @@ __global__ void __launch_bounds__(kThreads, kCols <= 8 ? 2 : 1)
 
     // P.V of this tile into os: warp (wr, wc) takes column blocks wc,
     // wc + 2, ...
-    for (int cb = wc; cb < nkk; cb += 2) {
+    for (int cb = wc; cb < v16 / 16; cb += 2) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> co;
       wmma::fill_fragment(co, 0.f);
 #pragma unroll
@@ -415,7 +470,7 @@ __global__ void __launch_bounds__(kThreads, kCols <= 8 ? 2 : 1)
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
         wmma::load_matrix_sync(fa, pb + wr * 16 * kPStride + kk * 16,
                                kPStride);
-        wmma::load_matrix_sync(fb, vs + kk * 16 * ld + cb * 16, ld);
+        wmma::load_matrix_sync(fb, vs + kk * 16 * ldv + cb * 16, ldv);
         wmma::mma_sync(co, fa, fb, co);
       }
       wmma::store_matrix_sync(os + wr * 16 * old + cb * 16, co, old,
@@ -430,28 +485,30 @@ __global__ void __launch_bounds__(kThreads, kCols <= 8 ? 2 : 1)
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int d = tx + 16 * j;
-        if (d < D) acc[a][j] = fmaf(acc[a][j], c, os[r * old + d]);
+        if (d < t.dn) acc[a][j] = fmaf(acc[a][j], c, os[r * old + d]);
       }
     }
   }
 
   if (spart == 0) lsum[srow] = fmaxf(l_run, 1e-30f);
   __syncthreads();
-  store_out<kCols>(out, acc, lsum, t.b, t.q0, Sq, Hq, t.h, D, ty, tx);
+  store_out<kCols>(out, acc, lsum, t.b, t.q0, Sq, Hq, t.h, D, t.d0, t.dn,
+                   ty, tx);
 }
 
 template <typename T, typename K>
 int launch(K kernel, size_t smem, const void* q, const void* k,
            const void* v, void* out, int B, int Sq, int Skv, int Hq,
-           int Hkv, int D, int causal, float scale, cudaStream_t stream) {
+           int Hkv, int D, int causal, float scale, int Dc,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B * ((D + Dc - 1) / Dc));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, Hq, Hkv, D,
-      causal, scale);
+      causal, scale, Dc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -459,7 +516,7 @@ int launch(K kernel, size_t smem, const void* q, const void* k,
 
 // q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D) -> out (B, Sq, Hq, D), all
 // contiguous, of float32 (dtype 0) or bfloat16 (dtype 1).  Requires
-// Hq % Hkv == 0, 1 <= D <= 256 and, if causal, Sq <= Skv.  Returns
+// Hq % Hkv == 0, D >= 1 and, if causal, Sq <= Skv.  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
@@ -467,15 +524,20 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int D, int dtype, int causal,
                                       float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D < 1 || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
-  const bool wide = D > 128;
+  if (D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // output chunk width: D itself up to kMaxD, else an even split of D
+  // into the fewest chunks of at most kMaxD columns, rounded up to 16
+  const int nd = (D + kMaxD - 1) / kMaxD;
+  const int Dc = nd == 1 ? D : pad16((D + nd - 1) / nd);
+  const int sw = D < kMaxD ? D : kMaxD;
+  const bool wide = Dc > 128;
   if (dtype == 1)
     return launch<bf16>(wide ? flash_attention_bf16_kernel<16>
                              : flash_attention_bf16_kernel<8>,
-                        smem_bf16(D), q, k, v, out, B, Sq, Skv, Hq, Hkv, D,
-                        causal, scale, s);
+                        smem_bf16(sw, Dc), q, k, v, out, B, Sq, Skv, Hq, Hkv,
+                        D, causal, scale, Dc, s);
   return launch<float>(wide ? flash_attention_f32_kernel<16>
                             : flash_attention_f32_kernel<8>,
-                       smem_f32(D), q, k, v, out, B, Sq, Skv, Hq, Hkv, D,
-                       causal, scale, s);
+                       smem_f32(sw, Dc), q, k, v, out, B, Sq, Skv, Hq, Hkv, D,
+                       causal, scale, Dc, s);
 }

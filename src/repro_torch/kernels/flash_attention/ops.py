@@ -8,11 +8,16 @@ launches one kernel, the instance :func:`instance` picks from the dtype
 and head dim before the launch, counted as ``flash_attention`` either
 way, or raises on what the kernel does not take: q, k and v must be
 contiguous float32 or bfloat16 tensors of one dtype, (B, S, H, D) with
-Hq % Hkv == 0 and D <= 256, and a causal call needs Sq <= Skv (every
+Hq % Hkv == 0 and any head dim D (the general instance takes D > 256 in
+chunks of output columns), and a causal call needs Sq <= Skv (every
 query row then has at least one key).  The Hopper instance reads q, k
 and v by TMA, which needs them 16-byte aligned.  Unlike the Pallas
 wrapper, any Sq and Skv are taken: both kernels mask the ragged edge of
 their tiles themselves.
+
+The kernels have no backward yet (it comes with LM training), so a CUDA
+call raises ``RuntimeError`` when grad mode is on and an input requires
+grad, instead of returning an output that silently carries no gradient.
 """
 from __future__ import annotations
 
@@ -26,7 +31,6 @@ _SIG = {"flash_attention_launch": (P, P, P, P, I, I, I, I, I, I, I, I, F,
                                    P)}
 _SIG_SM90 = {"flash_attention_sm90_launch": (P, P, P, P, I, I, I, I, I, I,
                                              I, F, P)}
-MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SM90_HEAD_DIMS = (64, 128)
 
@@ -46,6 +50,7 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
     _check(q, k, v, causal)
+    rt.forbid_grad("flash_attention", q, k, v)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -82,9 +87,8 @@ def _check(q, k, v, causal):
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"flash_attention: Hq={Hq} is not a multiple of "
                          f"Hkv={Hkv}")
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {D} not in "
-                         f"[1, {MAX_HEAD_DIM}]")
+    if D < 1:
+        raise ValueError(f"flash_attention: head dim {D} < 1")
     if causal and Sq > Skv:
         raise ValueError(f"flash_attention: causal needs Sq <= Skv, got "
                          f"Sq={Sq} Skv={Skv}")

@@ -177,6 +177,18 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: must be contiguous")
 
 
+def forbid_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would need the backward of a forward-only
+    kernel: grad mode is on and an input requires grad.  The kernel's
+    output has no ``grad_fn``, so without this a loss through it would
+    give every weight upstream no gradient, and no error."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the kernel has no "
+            f"backward yet (its backward kernel comes with LM training); "
+            f"call it under torch.no_grad() or on detached inputs")
+
+
 def count_launch(name: str) -> None:
     with _lock:
         _counts[name] = _counts.get(name, 0) + 1

@@ -3,8 +3,13 @@
 A CPU tensor takes the plain version (``ref.py``).  A CUDA tensor
 launches the kernel, counted as ``selective_scan``, or raises on what the
 kernel does not take: every input must be a contiguous float32 tensor
-(the Pallas wrapper casts to float32 too), with d_state N <= 16.  Any L
-is taken: the scan needs no padding.
+(the Pallas wrapper casts to float32 too).  Any L and any d_state N are
+taken, as by the Pallas body: the scan needs no padding, and the kernel
+takes N > 64 in groups of 64 states.
+
+The kernel has no backward yet (it comes with LM training), so a CUDA
+call raises ``RuntimeError`` when grad mode is on and an input requires
+grad, instead of returning outputs that silently carry no gradient.
 """
 from __future__ import annotations
 
@@ -15,7 +20,6 @@ from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 P, I = rt.PTR, rt.INT
 _SIG = {"selective_scan_launch": (P, P, P, P, P, P, I, I, I, I, P, P, P)}
-MAX_STATE = 16
 
 
 def selective_scan(dt, x, A, Bt, Ct, h0):
@@ -24,6 +28,7 @@ def selective_scan(dt, x, A, Bt, Ct, h0):
     if x.device.type == "cpu":
         return selective_scan_ref(dt, x, A, Bt, Ct, h0)
     _check(dt, x, A, Bt, Ct, h0)
+    rt.forbid_grad("selective_scan", dt, x, A, Bt, Ct, h0)
     B, L, Din = x.shape
     N = A.shape[1]
     y = torch.empty_like(x)
@@ -51,6 +56,5 @@ def _check(dt, x, A, Bt, Ct, h0):
             or Bt.shape != (B, L, N) or Ct.shape != Bt.shape
             or h0.shape != (B, Din, N)):
         raise ValueError("selective_scan: shapes disagree")
-    if not 1 <= N <= MAX_STATE:
-        raise ValueError(f"selective_scan: d_state {N} not in "
-                         f"[1, {MAX_STATE}]")
+    if N < 1:
+        raise ValueError(f"selective_scan: d_state {N} < 1")

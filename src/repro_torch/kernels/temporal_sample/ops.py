@@ -3,7 +3,10 @@
 Same call as the plain versions in ``ref.py`` plus the scan width: the
 page table may be wider than the ``scan`` newest pages the kernel reads
 (the device mirror keeps only that prefix anyway).  A CPU tensor takes
-the plain version; a CUDA tensor launches the kernel or raises.
+the plain version; a CUDA tensor launches the kernel or raises.  Any
+fanout k is taken, as by the Pallas bodies: uniform sampling with k > 32
+keeps its reservoirs in shared memory, 32 k bytes a CTA, which a block's
+limit caps at several thousand.
 """
 from __future__ import annotations
 
@@ -75,8 +78,8 @@ def _launch(page_table, page_tmin, page_tmax, pages_nbr, pages_eid,
     if rows < 1 or n_pages < 1 or not 1 <= scan <= stride:
         raise ValueError(f"bad extents rows={rows} pages={n_pages} "
                          f"scan={scan} stride={stride}")
-    if k < 1 or (policy == "uniform" and k > 32):
-        raise ValueError(f"k={k}: need 1 <= k (<= 32 for uniform)")
+    if k < 1:
+        raise ValueError(f"k={k}: need 1 <= k")
     if policy == "uniform":
         rt.require(noise, "noise", torch.float32, dev, 3)
         if noise.shape != (n, scan, cap):

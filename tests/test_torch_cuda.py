@@ -101,7 +101,19 @@ def _sample_and_check(card, snap, targets, t_end, t_start, tmask, *, k,
     (64, 10, "uniform", 2400, 16, "gumbel"),   # past two waves
     (8, 32, "uniform", 3000, 32, "tied"),
     (64, 10, "uniform", 18000, 16, "gumbel"),
-    (8, 1, "uniform", 18000, 32, "tied")])
+    (8, 1, "uniform", 18000, 32, "tied"),
+    # K > 32: the shared-memory reservoir, at each W the launch picks
+    (64, 33, "uniform", 128, 16, "gumbel"),
+    (64, 33, "uniform", 1280, 16, "tied"),
+    (64, 33, "uniform", 18000, 16, "gumbel"),
+    (64, 50, "uniform", 128, 16, "tied"),
+    (64, 50, "uniform", 1280, 16, "gumbel"),
+    (64, 50, "uniform", 18000, 16, "tied"),
+    (128, 64, "uniform", 128, 16, "gumbel"),
+    (8, 64, "uniform", 1280, 32, "tied"),
+    (64, 64, "uniform", 18000, 16, "gumbel"),
+    (8, 50, "recent", 300, 32, "gumbel"),
+    (64, 10, "recent", 12000, 16, "gumbel")])
 def test_temporal_sample_kernel_matches_plain(card, tau, k, policy, n, scan,
                                               noise):
     snap, n_nodes = _snapshot(tau, seed=tau + k)
@@ -121,7 +133,8 @@ def test_temporal_sample_kernel_matches_plain(card, tau, k, policy, n, scan,
 
 
 @pytest.mark.parametrize("k,noise", [(10, "gumbel"), (32, "tied"),
-                                     (1, "gumbel")])
+                                     (1, "gumbel"), (50, "gumbel"),
+                                     (64, "tied")])
 def test_temporal_sample_uniform_kernel_hub(card, k, noise):
     """A hub whose window holds 2,000 candidates over 32 full pages, next
     to targets with an empty window, a masked one and one out of range."""
@@ -142,6 +155,32 @@ def test_temporal_sample_uniform_kernel_hub(card, k, noise):
                             noise_kind=noise)
     counts = got[3].sum(1).tolist()
     assert counts == [k, k, 0, k, 0, 0, 0]
+
+
+@pytest.mark.parametrize("tau,scan", [(8, 32), (64, 16)])
+def test_temporal_sample_recent_skips_pages_at_12000_targets(card, tau,
+                                                             scan):
+    """The TGN train step's hop (12,000 targets) on a graph whose targets'
+    windows end before their newest pages: those pages' [t_min, t_max]
+    miss the window and are skipped, and the picks come from older
+    pages, newest first, exactly as the plain version walks them."""
+    snap, n_nodes = _snapshot(tau, seed=tau)
+    scan = min(scan, snap.page_table.shape[1])
+    rng = np.random.default_rng(tau)
+    n = 12000
+    targets = rng.integers(0, n_nodes, n).astype(np.int32)
+    t_end = rng.uniform(100, 900, n).astype(np.float32)
+    t_start = np.where(rng.random(n) < 0.7, -np.inf,
+                       t_end - 150).astype(np.float32)
+    tmask = rng.random(n) < 0.95
+    newest = snap.page_table[targets, 0]
+    skipped = (newest >= 0) & (snap.page_tmin[np.maximum(newest, 0)]
+                               >= t_end)
+    assert skipped.sum() > n // 4
+    got = _sample_and_check(card, snap, targets, t_end, t_start, tmask,
+                            k=10, policy="recent", scan=scan)
+    mask = got[3].cpu().numpy()
+    assert mask[skipped & tmask].sum(1).max() == 10
 
 
 def _cache(card, dim, n, kind, seed):
@@ -214,10 +253,17 @@ def test_cache_gather_kernel_matches_plain(card, dim, n, kind):
         assert n_hit > 0
 
 
-@pytest.mark.parametrize("n,k,h,dh", [(1280, 10, 2, 50), (37, 32, 4, 128),
-                                      (5, 1, 1, 7)])
+@pytest.mark.parametrize("n,k,h,dh", [
+    (1280, 10, 2, 50), (37, 32, 4, 128), (5, 1, 1, 7),
+    (12000, 10, 2, 50), (18000, 10, 2, 50),     # the training hops
+    # any K and Dh: past K 32 or Dh 128 the forward's and the backward's
+    # shared-memory instances
+    (600, 33, 2, 50), (600, 64, 2, 50), (300, 10, 2, 150),
+    (300, 10, 2, 256), (257, 33, 2, 150), (200, 64, 2, 256),
+    (64, 64, 1, 256), (50, 40, 3, 33), (7, 100, 1, 129),
+    (40, 10, 2, 300), (30, 5, 3, 260), (100, 80, 2, 50), (60, 70, 1, 20)])
 def test_temporal_attn_kernel_matches_plain(card, n, k, h, dh):
-    g = torch.Generator(device=card).manual_seed(n)
+    g = torch.Generator(device=card).manual_seed(n + k + dh)
     q = torch.randn((n, h, dh), generator=g, device=card)
     kk = torch.randn((n, k, h, dh), generator=g, device=card)
     v = torch.randn((n, k, h, dh), generator=g, device=card)
@@ -242,6 +288,55 @@ def test_temporal_attn_kernel_matches_plain(card, n, k, h, dh):
         assert (a[0] == 0).all()
     with pytest.raises(TypeError):
         temporal_attn(q.double(), kk, v, mask)
+
+
+@pytest.mark.parametrize("k,dh", [(64, 50), (64, 256), (10, 50)])
+def test_temporal_attn_forward_all_masked_rows(card, k, dh):
+    """Targets with no valid neighbour, in every chunk of K = 64, next to
+    rows whose only valid neighbour is the last one: zero rows, and the
+    rest within 1e-5 of the plain version."""
+    n, h = 500, 2
+    g = torch.Generator(device=card).manual_seed(k + dh)
+    q = torch.randn((n, h, dh), generator=g, device=card)
+    kk = torch.randn((n, k, h, dh), generator=g, device=card)
+    v = torch.randn((n, k, h, dh), generator=g, device=card)
+    mask = torch.rand((n, k), generator=g, device=card) < 0.5
+    mask[1::7] = False
+    mask[1::7, -1] = True
+    mask[::3] = False
+    with torch.no_grad():
+        got = temporal_attn(q, kk, v, mask)
+    want = temporal_attn_ref(q, kk, v, mask)
+    torch.cuda.synchronize()
+    assert (got[::3] == 0).all()
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("n,k,dh", [(300, 10, 50), (64, 40, 64),
+                                    (2000, 10, 50)])
+def test_temporal_attn_forward_unaligned_views(card, n, k, dh):
+    """q, k and v one float into larger buffers: not 16-byte aligned, so
+    the forward copies them by its lanes instead of by TMA bulk copies;
+    the result is the plain version's within 1e-5, empty rows zero."""
+    h = 2
+    g = torch.Generator(device=card).manual_seed(n + k)
+
+    def view(shape):
+        buf = torch.randn(int(np.prod(shape)) + 1, generator=g, device=card)
+        return buf[1:].view(shape)
+
+    q, kk, v = view((n, h, dh)), view((n, k, h, dh)), view((n, k, h, dh))
+    assert q.data_ptr() % 16 and kk.data_ptr() % 16 and v.data_ptr() % 16
+    mask = torch.rand((n, k), generator=g, device=card) < 0.6
+    mask[::4] = False
+    runtime.reset_launch_counts()
+    with torch.no_grad():
+        got = temporal_attn(q, kk, v, mask)
+    assert runtime.launch_counts() == {"temporal_attn": 1}
+    want = temporal_attn_ref(q, kk, v, mask)
+    torch.cuda.synchronize()
+    assert (got[::4] == 0).all()
+    assert float((got - want).abs().max()) <= 1e-5
 
 
 def test_engine_on_the_card_matches_the_cpu_engine(card):
@@ -360,7 +455,10 @@ def _assert_bf16_rows_close(got, want):
     (2, 32, 64, 8, 4, 16), (1, 5, 70, 2, 1, 80), (2, 130, 130, 8, 1, 128),
     (1, 33, 40, 2, 2, 20),     # D % 8 != 0: element-wise staging
     (1, 70, 70, 12, 1, 192),   # Nemotron-4's head dim: the wide instance
-    (1, 40, 72, 4, 2, 136), (2, 65, 65, 2, 2, 256)])
+    (1, 40, 72, 4, 2, 136), (2, 65, 65, 2, 2, 256),
+    # D > 256: chunks of output columns, scores over slices of D
+    (1, 70, 70, 4, 2, 320), (2, 65, 90, 4, 1, 512),
+    (1, 40, 40, 2, 2, 300)])   # D % 8 != 0, a ragged last slice
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(card, B, Sq, Skv, Hq, Hkv, D,
@@ -432,7 +530,10 @@ def test_flash_attention_one_launch_per_call(card, dtype, D, inst):
 
 @pytest.mark.parametrize("B,L,Din,N", [
     (1, 16, 8, 4), (2, 21, 16, 4), (2, 48, 64, 16), (3, 200, 100, 8),
-    (2, 130, 96, 6)])
+    (2, 130, 96, 6),
+    # d_state > 16: 4 or 8 threads a channel, then groups of 64 states
+    (2, 130, 96, 24), (2, 200, 100, 32), (1, 150, 64, 64),
+    (2, 70, 40, 100), (1, 90, 48, 70), (1, 65, 30, 130)])
 def test_selective_scan_kernel_matches_plain(card, B, L, Din, N):
     from repro_torch.kernels.selective_scan.ops import selective_scan
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
@@ -474,6 +575,32 @@ def test_selective_scan_kernel_exp2_over_model_ranges(card, B, L, Din, N):
     torch.cuda.synchronize()
     torch.testing.assert_close(y, y_w, atol=1e-5, rtol=0)
     torch.testing.assert_close(h, h_w, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "falcon-mamba-7b"])
+def test_lm_kernels_raise_under_autograd_on_the_card(card, arch):
+    """flash_attention and selective_scan have no backward kernel yet: a
+    2-layer model's forward on an input that requires grad raises,
+    instead of giving the weights upstream no gradient without a word;
+    the same call under torch.no_grad() runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm_zoo as Z
+    from repro_torch.models import transformer_lm as T
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), n_layers=2)
+    params = Z.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                           device=card)
+    B, S = 2, 40
+    x = torch.randn((B, S, cfg.d_model), device=card, requires_grad=True)
+    pos = torch.arange(S, device=card)[None].expand(B, S)
+    kernel = "selective_scan" if cfg.family == "ssm" else "flash_attention"
+    with pytest.raises(RuntimeError, match=f"{kernel}.*backward"):
+        T.forward_hidden(cfg, params, x, pos)
+    with torch.no_grad():
+        h, _, _ = T.forward_hidden(cfg, params, x, pos)
+    assert torch.isfinite(h).all()
 
 
 @pytest.mark.parametrize("arch", ["yi-6b", "hubert-xlarge",

@@ -60,6 +60,7 @@ def _np(x):
     (1, 64, 4, 2, 16),     # GQA 2:1
     (2, 128, 8, 8, 8),     # MHA
     (2, 96, 6, 2, 32),     # GQA 3:1, non-pow2 S
+    (1, 32, 4, 2, 320),    # D > 256, which the card's kernel takes too
 ])
 def test_flash_plain_matches_pallas_and_ref(causal, shape):
     (qj, kj, vj), (q, k, v) = _qkv(*shape, seed=sum(shape))
@@ -181,8 +182,8 @@ def test_flash_wrapper_rejects(bad, match):
         q, k, v = (t.half() for t in (q, k, v))
     elif bad == "heads":
         _, (q, k, v) = _qkv(1, 16, 5, 2, 8, seed=2)
-    elif bad == "head_dim":
-        _, (q, k, v) = _qkv(1, 4, 2, 1, 264, seed=2)
+    elif bad == "head_dim":      # any D >= 1 is taken, as by the Pallas body
+        _, (q, k, v) = _qkv(1, 4, 2, 1, 0, seed=2)
     elif bad == "causal_long_q":
         _, (q, k, v) = _qkv(1, 16, 4, 2, 8, seed=2, Skv=8)
     elif bad == "strided":
@@ -214,6 +215,7 @@ def _scan_inputs(B, L, Din, N, seed=0):
 @pytest.mark.parametrize("shape", [
     (1, 16, 8, 4), (2, 32, 16, 8), (2, 48, 64, 16), (3, 24, 128, 4),
     (2, 21, 16, 4),      # L = 21: no chunk multiple
+    (2, 24, 16, 32),     # d_state > 16, which the card's kernel takes too
 ])
 def test_scan_plain_matches_pallas_ref_and_model(shape):
     ja, ta = _scan_inputs(*shape, seed=sum(shape))
@@ -238,11 +240,31 @@ def test_scan_wrapper_rejects(bad, match):
     _, ta = _scan_inputs(2, 8, 16, 4, seed=5)
     if bad == "dtype":
         ta[1] = ta[1].double()
-    elif bad == "state":
-        _, ta = _scan_inputs(1, 4, 8, 20, seed=5)
+    elif bad == "state":         # any d_state >= 1 is taken
+        _, ta = _scan_inputs(1, 4, 8, 0, seed=5)
     elif bad == "strided":
         ta[0] = ta[0].transpose(1, 2).contiguous().transpose(1, 2)
     elif bad == "shapes":
         ta[3] = ta[3][:, :4].contiguous()
     with pytest.raises((TypeError, ValueError), match=match):
         scan_ops._check(*ta)
+
+
+# ---------------------------------------------------------------------------
+# no silent loss of gradients on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "selective_scan"])
+def test_forward_only_kernels_refuse_grad(kernel):
+    """The guard each of these kernels' CUDA path calls before launching:
+    it raises when grad mode is on and an input requires grad (the kernel
+    has no backward yet, so its output would carry no gradient), and is
+    silent under torch.no_grad() and for inputs that need none."""
+    x = torch.ones(3, requires_grad=True)
+    y = torch.ones(3)
+    with pytest.raises(RuntimeError, match=f"{kernel}.*backward"):
+        runtime.forbid_grad(kernel, y, x)
+    with torch.no_grad():
+        runtime.forbid_grad(kernel, y, x)
+    runtime.forbid_grad(kernel, y, x.detach())

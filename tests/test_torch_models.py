@@ -1,8 +1,9 @@
 """Model parity of the PyTorch port against the JAX package.
 
 * the plain ``temporal_attn`` (the CPU path of the kernel wrapper) is
-  within 1e-5 of the JAX ``temporal_attn_ref``, including targets with
-  no valid neighbour (zero rows);
+  within 1e-5 of the JAX ``temporal_attn_ref`` and of the Pallas kernel
+  in interpret mode, including targets with no valid neighbour (zero
+  rows) and K and Dh past 32 and 128;
 * ``gnn_embed`` and ``link_score`` are within 1e-5 for tgat, tgn,
   graphsage and gat, with the JAX weights loaded by ``params_from_jax``.
 """
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from repro.configs.tgn_gdelt import gat, graphsage, tgat, tgn
+from repro.kernels.temporal_attn.ops import temporal_attn_pallas
 from repro.kernels.temporal_attn.ref import temporal_attn_ref as j_attn_ref
 from repro.models import gnn as G
 from repro.models.layers import time_encode as j_time_encode
@@ -26,7 +28,8 @@ TOL = 1e-5
 
 
 @pytest.mark.parametrize("n,k,h,dh", [(7, 10, 2, 50), (16, 3, 4, 8),
-                                      (5, 1, 1, 33)])
+                                      (5, 1, 1, 33), (6, 33, 2, 150),
+                                      (3, 64, 2, 256)])
 def test_temporal_attn_plain_matches_jax_ref(n, k, h, dh):
     rng = np.random.default_rng(n * k)
     q = rng.normal(size=(n, h, dh)).astype(np.float32)
@@ -39,6 +42,11 @@ def test_temporal_attn_plain_matches_jax_ref(n, k, h, dh):
     got = temporal_attn(*(torch.from_numpy(a) for a in (q, kk, v, mask)))
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
     assert (got[0] == 0).all()
+    # the Pallas body in interpret mode, at every K and Dh the card's
+    # kernel takes
+    pallas = np.asarray(temporal_attn_pallas(
+        *(jnp.asarray(a) for a in (q, kk, v, mask))))
+    np.testing.assert_allclose(got.numpy(), pallas, atol=TOL, rtol=0)
 
 
 def test_time_encode_matches_jax():
