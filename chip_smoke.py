@@ -94,7 +94,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    within 1e-4, bf16 prefill and decode logits within 0.1) and the
    prefill against token-by-token decode on the card (0.15, the
    reference's bar; for Falcon also prefill(S) + one decode step against
-   prefill(S + 1)).
+   prefill(S + 1));
+8. LM training phase: Yi-6B and Falcon-Mamba-7B at full width, cut to 8
+   layers, take 3 steps of ``make_train_step`` (B 2 x S 4,096, block
+   remat, AdamW from ``make_optimizer``) on one seeded batch: the loss
+   falls at every step, each step launches the forward kernel twice a
+   layer and its backward kernel (``flash_attention_bwd`` or
+   ``selective_scan_bwd``) once, and the step time, peak memory, device
+   busy share and top device ops are printed.  Then both backward
+   kernels against the plain version's autograd (flash at Yi's train
+   shape in bf16, within 2e-2 of max(1, max |grad|), and at a ragged
+   float32 shape within 1e-5; the scan at Falcon's with L cut to 1,024
+   for the oracle, within 1e-5), timed beside the plain backward and,
+   for flash, the backward of one ``scaled_dot_product_attention``; one
+   train step's loss and gradients of a 2-layer cut (B 2, S 256) on the
+   card against the CPU (float32: loss within 1e-4, each gradient leaf
+   within 1e-4 of its max; bf16: loss within 1e-3); ``LMTrainer``'s
+   save, restore and continue on the card equal to an uninterrupted
+   run, exactly; and ``python -m repro_torch.launch.train lm`` in a
+   subprocess.
 
 The second-to-last line is the JSON ``kernels`` record, the last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -670,7 +688,9 @@ def kernel_phase(torch, eng, feed, t_q, rng, dev, ab=(), ab_wide=()):
 def backward_wide_row(torch, dev, flush, rows, ab_wide=()):
     """The temporal_attn backward's shared-memory instance (K > 32, Dh >
     128) against the plain autograd at the TGAT hop 0's 1,800 targets,
-    with random masks, some targets without neighbours."""
+    with random masks, some targets without neighbours; timed beside the
+    autograd backward of one masked ``scaled_dot_product_attention``, as
+    the hop rows are."""
     from repro_torch.kernels.temporal_attn.ops import temporal_attn
     from repro_torch.kernels.temporal_attn.ref import temporal_attn_ref
 
@@ -688,10 +708,21 @@ def backward_wide_row(torch, dev, flush, rows, ab_wide=()):
     torch.cuda.synchronize()
     err = max(max_err(torch, a, b, f"temporal_attn_bwd (wide) {nm}")
               for nm, a, b in zip(("dq", "dk", "dv"), got, want))
+    q, kk, v = (t.detach() for t in ins)
+    lib_in = [q.reshape(N * H, 1, dh)] + [
+        t.permute(0, 2, 1, 3).reshape(N * H, K, dh) for t in (kk, v)]
+    lib_in = [t.contiguous().requires_grad_() for t in lib_in]
+    m_l = mask[:, None, :].expand(N, H, K).reshape(N * H, 1, K)
+    out_l = torch.nn.functional.scaled_dot_product_attention(
+        *lib_in, attn_mask=m_l)
+    d_l = dout.reshape(N * H, 1, dh)
     kernel = lambda: torch.autograd.grad(out_k, ins, dout, retain_graph=True)
     plain = lambda: torch.autograd.grad(out_p, ins, dout, retain_graph=True)
+    library = lambda: torch.autograd.grad(out_l, lib_in, d_l,
+                                          retain_graph=True)
     ms, call = timings(torch, kernel, flush)
     plain_ms, plain_call = timings(torch, plain, flush)
+    lib_ms, lib_call = timings(torch, library, flush)
     nbytes = 4 * N * H * dh * ((2 * K + 2) + (2 * K + 1)) + N * K
     b, by = bound_ms(nbytes, 8.0 * N * H * K * dh + 6.0 * N * H * K)
     rows.append(dict(
@@ -700,8 +731,8 @@ def backward_wide_row(torch, dev, flush, rows, ab_wide=()):
         replaces="src/repro/kernels/temporal_attn/temporal_attn.py:21",
         max_abs_err=err, shape=f"N={N} H={H} Dh={dh} K={K} (K > 32, "
         f"Dh > 128)", ms=ms, call_ms=call, plain_ms=plain_ms,
-        plain_call_ms=plain_call, bound_ms=b, bound_by=by, library_ms=None,
-        library_call_ms=None, path="widened",
+        plain_call_ms=plain_call, bound_ms=b, bound_by=by, library_ms=lib_ms,
+        library_call_ms=lib_call, path="widened",
         launches=own_launches(torch, "temporal_attn_bwd", kernel)))
     ab_rows(torch, rows[-1], "temporal_attn", ab_wide, kernel, flush,
             f"temporal_attn_bwd ({rows[-1]['shape']})")
@@ -869,6 +900,7 @@ def main() -> int:
     rows += train_rows
     del stream
     rows += lm_phase(torch, dev, args)
+    rows += lm_train_phase(torch, dev, args)
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1799,6 +1831,411 @@ def lm_phase(torch, dev, args):
         lm_cut_checks(torch, dev, args, cfg)
         torch.cuda.empty_cache()
     log(f"[lm] LM serving phase done in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# LM training phase
+# ---------------------------------------------------------------------------
+
+LM_TRAIN = (8, 2, 4096)   # layers (cut from 32 and 64), B, S (train_4k's S;
+LM_TRAIN_STEPS = 3        # its global batch of 256 cut to 2)
+SCAN_ORACLE_L = 1024      # the plain scan's autograd graph, L cut from 4,096
+# the flash_attention backward rows (B, S, Hq, Hkv, D, causal): Yi-6B's
+# train shape in bf16, then a ragged float32 one
+FLASH_BWD_SHAPES = ((2, 4096, 32, 4, 128, True), (2, 1000, 8, 2, 80, False))
+# float32 train step, card vs CPU: the loss within the reference's
+# per-round bar, each gradient leaf within 1e-4 of its max |value|
+ATOL_LOSS = 1e-4
+RTOL_GRAD = 1e-4
+# bf16 attention gradients: within 2e-2 of max(1, max |grad|), from
+# readings (tests/test_torch_cuda.py; PERF.md section 2)
+BF16_GRAD_REL = 2e-2
+# bf16 train step, card vs CPU: the loss, from readings (PERF.md section 2)
+ATOL_LOSS_BF16 = 1e-3
+
+
+def grad_err(torch, got, want, what, tol) -> float:
+    """max |got - want|, checked against ``tol`` x max(1, max |want|);
+    returns the absolute error."""
+    err = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    scale = max(1.0, float(want.float().abs().max()) if want.numel() else 0)
+    if not err <= tol * scale:
+        raise AssertionError(f"{what}: max |err| {err} > {tol} x {scale}")
+    return err
+
+
+def lm_train_steps(torch, dev, args, cfg) -> dict:
+    """Full width, depth cut to 8 layers: 3 steps of ``make_train_step``
+    on one seeded batch of B 2 x S 4,096, the config's own optimizer
+    from ``make_optimizer`` (AdamW, its default warmup schedule), block
+    remat as the config says.  The loss must be finite and fall at every
+    step; each step must launch the forward kernel twice a layer (the
+    remat recompute) and the backward kernel once.  Returns the launches
+    per step."""
+    import dataclasses
+
+    from repro_torch.kernels import runtime
+    from repro_torch.models import lm_zoo as Z
+    from repro_torch.train.optimizer import tree_leaves
+
+    depth, B, S = LM_TRAIN
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    kernel = "selective_scan" if cfg.family == "ssm" else "flash_attention"
+    want = {kernel: 2 * depth, f"{kernel}_bwd": depth}
+    t0 = time.perf_counter()
+    opt = Z.make_optimizer(cut)
+    state = Z.init_train_state(
+        cut, torch.Generator(device=dev).manual_seed(args.seed), opt,
+        device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    rng = np.random.default_rng(args.seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cut.vocab, (B, S)).astype(np.int32)).to(dev)}
+    step = Z.make_train_step(cut, opt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, busy = [], [], None
+    for i in range(LM_TRAIN_STEPS):
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        if i == LM_TRAIN_STEPS - 1:          # the last step, profiled
+            busy = profiled_busy(torch, lambda: step(state, batch))
+            state, m = busy[3]
+        else:
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = runtime.launch_counts()
+        if counts != want:
+            raise AssertionError(f"{cfg.name} train step {i} launched "
+                                 f"{counts}, expected {want}")
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{cfg.name}: losses {losses} do not fall")
+    log(f"[lm_train] {cfg.name} cut to {depth} layers ({n_params / 1e9:.3f}"
+        f" B params), B {B} x S {S}, remat {cut.remat!r}, AdamW: init "
+        f"{init_s:.1f} s; losses {[round(x, 4) for x in losses]}; step ms "
+        f"{[round(x, 1) for x in step_ms]} (the last profiled); peak "
+        f"{peak / 1e9:.2f} GB; launches per step {want} (exact); profiled "
+        f"step: device busy {busy[0]:.4f} of {busy[1] * 1e3:.1f} ms, top "
+        f"device ops (ms) {busy[2]}")
+    del state, m, batch
+    return want
+
+
+def flash_bwd_rows(torch, dev, flush, launches):
+    """The flash_attention backward against the plain version's autograd
+    at Yi-6B's train shape (2, 4,096, 32/4 heads of 128) in bf16, causal
+    (after the Hopper forward instance), and at (2, 1,000, 8/2, 80) in
+    float32, not causal (after the general one), timed beside the plain
+    autograd backward and the autograd backward of one
+    ``scaled_dot_product_attention`` (a yardstick, never called by the
+    port).  The second row's shape is on no path: it counts its own
+    call's launches."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         instance)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    F = torch.nn.functional
+    rows = []
+    for (B, S, Hq, Hkv, D, causal), dtype in zip(
+            FLASH_BWD_SHAPES, (torch.bfloat16, torch.float32)):
+        g = torch.Generator(device=dev).manual_seed(23)
+        ins = [torch.randn(sh, generator=g, device=dev).to(dtype)
+               .requires_grad_()
+               for sh in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+        dout = torch.randn((B, S, Hq, D), generator=g, device=dev).to(dtype)
+        out_k = flash_attention(*ins, causal=causal)
+        out_p = flash_attention_ref(*ins, causal=causal)
+        got = torch.autograd.grad(out_k, ins, dout, retain_graph=True)
+        want = torch.autograd.grad(out_p, ins, dout, retain_graph=True)
+        torch.cuda.synchronize()
+        tol = BF16_GRAD_REL if dtype == torch.bfloat16 else ATOL_KERNEL
+        err = max(grad_err(torch, a, b, f"flash_attention_bwd {nm} D={D}",
+                           tol)
+                  for nm, a, b in zip(("dq", "dk", "dv"), got, want))
+        rel = max(float((a.float() - b.float()).abs().max())
+                  / max(1.0, float(b.float().abs().max()))
+                  for a, b in zip(got, want))
+        del got, want
+        lib_in = [t.detach().transpose(1, 2).requires_grad_() for t in ins]
+        out_l = F.scaled_dot_product_attention(*lib_in, is_causal=causal,
+                                               enable_gqa=True)
+        d_l = dout.transpose(1, 2)
+        kernel = lambda: torch.autograd.grad(out_k, ins, dout,
+                                             retain_graph=True)
+        plain = lambda: torch.autograd.grad(out_p, ins, dout,
+                                            retain_graph=True)
+        library = lambda: torch.autograd.grad(out_l, lib_in, d_l,
+                                              retain_graph=True)
+        ms, call = timings(torch, kernel, flush)
+        plain_ms = device_ms(torch, plain, flush, reps=3)
+        lib_ms, lib_call = timings(torch, library, flush)
+        pairs = B * Hq * ((S * S + S) / 2 if causal else S * S)
+        ops = 10.0 * D * pairs        # S, dP, dv, dk, dq: 2D FLOP a pair
+        esize = ins[0].element_size()
+        nbytes = esize * 4 * (ins[0].numel() + ins[1].numel()) \
+            + 4 * B * Hq * S          # q o dO dq, k v dk dv; the lse
+        b, by = bound_ms(nbytes, ops, BF16_OPS_PER_S if dtype ==
+                         torch.bfloat16 else FP32_OPS_PER_S, exps=pairs)
+        inst = instance(dtype, D)
+        shape = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+                 f"{str(dtype).split('.')[-1]} "
+                 f"{'causal' if causal else 'full'} (after {inst})")
+        log(f"[kernel] flash_attention_bwd {shape} ok max|err| {err:.3g}, "
+            f"of max(1, max|grad|) {rel:.3g} (tol {tol}) device ms: kernel "
+            f"{ms:.4f}  plain {plain_ms:.4f}  bound {b:.4f} ({by}: "
+            f"{ops:.3g} FLOP, {pairs:.3g} exp, {nbytes / 1e6:.1f} MB)  "
+            f"library (SDPA backward) {lib_ms:.4f}; ms per call: kernel "
+            f"{call:.4f}  library {lib_call:.4f}")
+        row = dict(name="flash_attention_bwd", route="cuda", instance=inst,
+                   source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                   replaces="src/repro/kernels/flash_attention/"
+                            "flash_attention.py:82",
+                   max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
+                   bound_ms=b, bound_by=by, library_ms=lib_ms,
+                   library_call_ms=lib_call, shape=shape)
+        if dtype == torch.bfloat16:
+            row["launches"] = launches["flash_attention_bwd"]
+        else:
+            row["path"] = "widened"
+            row["launches"] = own_launches(torch, "flash_attention_bwd",
+                                           kernel)
+        rows.append(row)
+        del ins, dout, out_k, out_p, lib_in, out_l
+        torch.cuda.empty_cache()
+    return rows
+
+
+def scan_bwd_row(torch, dev, flush, cfg, launches):
+    """The selective_scan backward at Falcon-Mamba-7B's train shape (2,
+    4,096, 8,192, 16), with a gradient into h_last too: held against the
+    plain loop's autograd with L cut to 1,024 (its graph keeps every
+    step's tensors), timed at the full L; the plain time is at the cut
+    L.  No PyTorch call computes the scan."""
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    B, L = LM_TRAIN[1], LM_TRAIN[2]
+    Din, N = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
+    g = torch.Generator(device=dev).manual_seed(29)
+    r = lambda *s: torch.rand(s, generator=g, device=dev)
+    n = lambda *s: torch.randn(s, generator=g, device=dev)
+    full = (0.001 + 0.099 * r(B, L, Din), n(B, L, Din),
+            -(0.5 + 3.5 * r(Din, N)), n(B, L, N), n(B, L, N), n(B, Din, N))
+    d_out = (n(B, L, Din), n(B, Din, N))
+
+    def leaves(length):   # the inputs cut to ``length`` steps, as leaves
+        return [(t[:, :length] if i in (0, 1, 3, 4) else t).contiguous()
+                .requires_grad_() for i, t in enumerate(full)]
+
+    Lc = SCAN_ORACLE_L
+    cut_in, cut_d = leaves(Lc), (d_out[0][:, :Lc].contiguous(), d_out[1])
+    out_k = selective_scan(*cut_in)
+    out_p = selective_scan_ref(*cut_in)
+    got = torch.autograd.grad(out_k, cut_in, cut_d, retain_graph=True)
+    want = torch.autograd.grad(out_p, cut_in, cut_d, retain_graph=True)
+    torch.cuda.synchronize()
+    err = max(grad_err(torch, a, b, f"selective_scan_bwd {nm}", ATOL_KERNEL)
+              for nm, a, b in zip(("ddt", "dx", "dA", "dB", "dC", "dh0"),
+                                  got, want))
+    plain = lambda: torch.autograd.grad(out_p, cut_in, cut_d,
+                                        retain_graph=True)
+    plain_ms = device_ms(torch, plain, flush, reps=2)
+    del got, want, out_p, plain
+    ins = leaves(L)
+    out_f = selective_scan(*ins)
+    kernel = lambda: torch.autograd.grad(out_f, ins, d_out,
+                                         retain_graph=True)
+    ms, call = timings(torch, kernel, flush)
+    elems = B * L * Din * N
+    nbytes = 4 * (5 * B * L * Din + 4 * B * L * N + 2 * Din * N
+                  + 3 * B * Din * N)
+    b, by = bound_ms(nbytes, 10.0 * elems, exps=elems)
+    shape = (f"B={B} L={L} Din={Din} N={N} f32 (oracle and plain at "
+             f"L={Lc})")
+    log(f"[kernel] selective_scan_bwd {shape} ok max|err| {err:.3g} (tol "
+        f"{ATOL_KERNEL} of max(1, max|grad|)) device ms: kernel {ms:.4f}  "
+        f"plain (L {Lc}) {plain_ms:.4f}  bound {b:.4f} ({by}: "
+        f"{nbytes / 1e6:.1f} MB, {elems:.3g} exp)  library none; ms per "
+        f"call: kernel {call:.4f}")
+    return dict(name="selective_scan_bwd", route="cuda",
+                source="src/repro_torch/csrc/selective_scan_bwd.cu",
+                replaces="src/repro/kernels/selective_scan/"
+                         "selective_scan.py:57",
+                max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by, library_ms=None,
+                library_call_ms=None, shape=shape,
+                launches=launches["selective_scan_bwd"])
+
+
+@contextlib.contextmanager
+def float32_compute(torch, Z, T):
+    """The loss in float32, as the CPU parity tests run it: the bf16
+    compute cast and the embedding's bf16 output set aside."""
+    import functools
+
+    saved = Z._cast_compute, Z.embed_input
+    Z._cast_compute = lambda params, dtype=None: params
+    Z.embed_input = functools.partial(T.embed_input, dtype=torch.float32)
+    try:
+        yield
+    finally:
+        Z._cast_compute, Z.embed_input = saved
+
+
+def lm_train_cut(torch, dev, args, cfg):
+    """Full width, depth cut to 2 layers (B 2, S 256): the loss and every
+    gradient leaf of one train step on the card against the CPU, in
+    float32 (within ATOL_LOSS and RTOL_GRAD) and in bf16 (the loss
+    within ATOL_LOSS_BF16; the gradients' differences are logged)."""
+    import dataclasses
+
+    from repro_torch.models import lm_zoo as Z
+    from repro_torch.models import transformer_lm as T
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+
+    depth, B, S = LM_CUT
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    params = Z.init_params(cut, torch.Generator(device=dev).manual_seed(
+        args.seed + 2), device=dev)
+    cpu = _to_cpu(params)
+    rng = np.random.default_rng(args.seed + 2)
+    toks = torch.from_numpy(rng.integers(0, cut.vocab, (B, S)).astype(
+        np.int32))
+
+    def loss_grads(tree, device):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(tree)]
+        loss, _ = Z.make_loss_fn(cut)(tree_unflatten(tree, leaves),
+                                      {"tokens": toks.to(device)})
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return float(loss.detach()), [x.cpu() for x in grads]
+
+    t0 = time.perf_counter()
+    out = {}
+    for mode in ("f32", "bf16"):
+        with (float32_compute(torch, Z, T) if mode == "f32"
+              else contextlib.nullcontext()):
+            (l_g, g_g), (l_c, g_c) = loss_grads(params, dev), loss_grads(
+                cpu, "cpu")
+        rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+                  for a, b in zip(g_g, g_c))
+        out[mode] = (l_g, l_c, abs(l_g - l_c), rel)
+    d_f, rel_f = out["f32"][2], out["f32"][3]
+    if not (d_f <= ATOL_LOSS and rel_f <= RTOL_GRAD):
+        raise AssertionError(f"{cfg.name} f32 train step, card vs CPU: "
+                             f"loss {d_f}, gradients {rel_f} of a leaf's "
+                             f"max")
+    if not out["bf16"][2] <= ATOL_LOSS_BF16:
+        raise AssertionError(f"{cfg.name} bf16 train step, card vs CPU: "
+                             f"loss {out['bf16'][2]} > {ATOL_LOSS_BF16}")
+    log(f"[lm_train] {cfg.name} cut to {depth} layers, B {B} S {S}, one "
+        f"train step's loss and gradients, card vs CPU: f32 loss "
+        f"{out['f32'][0]:.6f} vs {out['f32'][1]:.6f} (|diff| {d_f:.3g}, tol "
+        f"{ATOL_LOSS}), largest leaf max|diff| / leaf max|grad| {rel_f:.3g} "
+        f"(tol {RTOL_GRAD}); bf16 loss {out['bf16'][0]:.6f} vs "
+        f"{out['bf16'][1]:.6f} (|diff| {out['bf16'][2]:.3g}, tol "
+        f"{ATOL_LOSS_BF16}), gradients {out['bf16'][3]:.3g} of a leaf's max "
+        f"(logged); in {time.perf_counter() - t0:.1f} s")
+
+
+def lm_resume(torch, dev, args):
+    """``LMTrainer`` on the card (Yi-6B's reduced 2-layer config): 2
+    steps, a save, a new trainer that restores and runs to step 4 must
+    equal an uninterrupted 4-step run leaf by leaf, exactly."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import lm_batches
+    from repro_torch.train.checkpoint import flatten_with_names
+    from repro_torch.train.trainer import LMTrainer, TrainerConfig
+
+    cfg = get_arch("yi-6b").reduced()
+    stream = lm_batches(cfg, 2, 64, seed=args.seed, device=dev)
+    batches = [next(stream) for _ in range(4)]
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(name, steps):
+            return LMTrainer(cfg, TrainerConfig(
+                ckpt_dir=f"{tmp}/{name}", ckpt_every=100, log_every=1,
+                max_steps=steps), seed=args.seed, device=dev)
+        whole = trainer("whole", 4)
+        whole.init_or_restore()
+        whole.train(iter(batches))
+        first = trainer("split", 2)
+        first.init_or_restore()
+        first.train(iter(batches))
+        again = trainer("split", 4)
+        again.init_or_restore()
+        if (again.step, again.cursor) != (2, 2):
+            raise AssertionError(f"resume at step {again.step}, cursor "
+                                 f"{again.cursor}")
+        again.train(iter(batches[again.cursor:]))
+        a = flatten_with_names(whole.state)
+        b = flatten_with_names(again.state)
+        for (name, x), (_, y) in zip(a, b):
+            same = x == y if isinstance(x, int) else torch.equal(x, y)
+            if not same:
+                raise AssertionError(f"resumed run differs at {name}")
+    log(f"[lm_train] LMTrainer resume on the card ({cfg.name} reduced, "
+        f"{cfg.n_layers} layers): steps 0-2, save, restore, steps 2-4 equal "
+        f"an uninterrupted 4-step run in all {len(a)} leaves, exactly")
+
+
+def lm_launcher():
+    """``python -m repro_torch.launch.train lm --arch yi-6b`` (the reduced
+    config, on the card) in a subprocess must exit 0."""
+    import os
+    import tempfile
+
+    src = Path(__file__).resolve().parent / "src"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = f"{src}{os.pathsep}{env.get('PYTHONPATH', '')}"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "lm",
+             "--arch", "yi-6b", "--steps", "12", "--ckpt", tmp], env=env,
+            capture_output=True, text=True, timeout=300)
+    if p.returncode != 0:
+        raise AssertionError(f"launch.train lm exited {p.returncode}:\n"
+                             f"{p.stdout}\n{p.stderr}")
+    log(f"[lm_train] python -m repro_torch.launch.train lm --arch yi-6b "
+        f"--steps 12: exit 0 in {time.perf_counter() - t0:.1f} s; "
+        f"{' | '.join(p.stdout.strip().splitlines())}")
+
+
+def lm_train_phase(torch, dev, args):
+    """Yi-6B, then Falcon-Mamba-7B: train steps at full width and 8
+    layers; then the two backward kernels against the plain autograd;
+    the 2-layer card-vs-CPU train step; the resume; the launcher.
+    Returns the rows of flash_attention_bwd and selective_scan_bwd."""
+    from repro_torch.configs import get_arch
+
+    t0 = time.perf_counter()
+    launches = {}
+    for arch in LM_ARCHS:
+        launches.update(lm_train_steps(torch, dev, args, get_arch(arch)))
+        torch.cuda.empty_cache()
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    rows = flash_bwd_rows(torch, dev, flush, launches)
+    rows.append(scan_bwd_row(torch, dev, flush,
+                             get_arch("falcon-mamba-7b"), launches))
+    del flush
+    torch.cuda.empty_cache()
+    for arch in LM_ARCHS:
+        lm_train_cut(torch, dev, args, get_arch(arch))
+        torch.cuda.empty_cache()
+    lm_resume(torch, dev, args)
+    lm_launcher()
+    log(f"[lm_train] LM training phase done in "
+        f"{time.perf_counter() - t0:.1f} s")
     return rows
 
 

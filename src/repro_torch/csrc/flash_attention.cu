@@ -40,7 +40,10 @@
 //     the output accumulator of rows ty + 16a and columns tx + 16c in
 //     registers (4 x 8 up to D = 128, 4 x 16 up to D = 256) and rescales
 //     it there.
-// No score, weight or partial sum goes through device memory.  The q
+// No score, weight or partial sum goes through device memory.  When the
+// caller gives an lse buffer (training), each row's log-sum-exp
+// m + log(l) is written for the backward (csrc/flash_attention_bwd.cu);
+// serving passes none and skips the store.  The q
 // tiles are launched longest-first (the last causal tiles walk the most
 // keys), so short tiles fill in behind them.
 //
@@ -247,13 +250,27 @@ __device__ __forceinline__ Tile tile_of(int Sq, int Skv, int Hq, int Hkv,
   return t;
 }
 
+// The row's log-sum-exp of its scaled scores, m + log(l), for the
+// backward (+inf for a row with no key, so that its recomputed weights
+// are 0); written by the CTA of the first output chunk only.
+__device__ __forceinline__ void store_lse(float* __restrict__ lse,
+                                          const Tile& t, int Sq, int Hq,
+                                          int srow, float m_run,
+                                          float l_run) {
+  const int s = t.q0 + srow;
+  if (t.d0 == 0 && s < Sq)
+    lse[((int64_t)t.b * Hq + t.h) * Sq + s] =
+        l_run > 0.f ? m_run + logf(l_run) : CUDART_INF_F;
+}
+
 // --- float32: scalar FMAs ----------------------------------------------
 template <int kCols>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_f32_kernel(const float* __restrict__ q,
                                const float* __restrict__ k,
                                const float* __restrict__ v,
-                               float* __restrict__ out, int Sq, int Skv,
+                               float* __restrict__ out,
+                               float* __restrict__ lse, int Sq, int Skv,
                                int Hq, int Hkv, int D, int causal,
                                float scale, int Dc) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -353,6 +370,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if (spart == 0) lsum[srow] = fmaxf(l_run, 1e-30f);
+  if (lse != nullptr && spart == 0)
+    store_lse(lse, t, Sq, Hq, srow, m_run, l_run);
   __syncthreads();
   store_out<kCols>(out, acc, lsum, t.b, t.q0, Sq, Hq, t.h, D, t.d0, t.dn,
                    ty, tx);
@@ -364,7 +383,8 @@ __global__ void __launch_bounds__(kThreads, kCols <= 8 ? 2 : 1)
     flash_attention_bf16_kernel(const bf16* __restrict__ q,
                                 const bf16* __restrict__ k,
                                 const bf16* __restrict__ v,
-                                bf16* __restrict__ out, int Sq, int Skv,
+                                bf16* __restrict__ out,
+                                float* __restrict__ lse, int Sq, int Skv,
                                 int Hq, int Hkv, int D, int causal,
                                 float scale, int Dc) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -491,6 +511,8 @@ __global__ void __launch_bounds__(kThreads, kCols <= 8 ? 2 : 1)
   }
 
   if (spart == 0) lsum[srow] = fmaxf(l_run, 1e-30f);
+  if (lse != nullptr && spart == 0)
+    store_lse(lse, t, Sq, Hq, srow, m_run, l_run);
   __syncthreads();
   store_out<kCols>(out, acc, lsum, t.b, t.q0, Sq, Hq, t.h, D, t.d0, t.dn,
                    ty, tx);
@@ -498,7 +520,8 @@ __global__ void __launch_bounds__(kThreads, kCols <= 8 ? 2 : 1)
 
 template <typename T, typename K>
 int launch(K kernel, size_t smem, const void* q, const void* k,
-           const void* v, void* out, int B, int Sq, int Skv, int Hq,
+           const void* v, void* out, float* lse, int B, int Sq, int Skv,
+           int Hq,
            int Hkv, int D, int causal, float scale, int Dc,
            cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -507,21 +530,22 @@ int launch(K kernel, size_t smem, const void* q, const void* k,
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B * ((D + Dc - 1) / Dc));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, Hq, Hkv, D,
-      causal, scale, Dc);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Skv, Hq,
+      Hkv, D, causal, scale, Dc);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D) -> out (B, Sq, Hq, D), all
-// contiguous, of float32 (dtype 0) or bfloat16 (dtype 1).  Requires
-// Hq % Hkv == 0, D >= 1 and, if causal, Sq <= Skv.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// contiguous, of float32 (dtype 0) or bfloat16 (dtype 1), and, where lse
+// is not null, each row's float32 log-sum-exp into lse (B, Hq, Sq) for
+// the backward.  Requires Hq % Hkv == 0, D >= 1 and, if causal,
+// Sq <= Skv.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B,
-                                      int Sq, int Skv, int Hq, int Hkv,
-                                      int D, int dtype, int causal,
+                                      const void* v, void* out, void* lse,
+                                      int B, int Sq, int Skv, int Hq,
+                                      int Hkv, int D, int dtype, int causal,
                                       float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -534,10 +558,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 1)
     return launch<bf16>(wide ? flash_attention_bf16_kernel<16>
                              : flash_attention_bf16_kernel<8>,
-                        smem_bf16(sw, Dc), q, k, v, out, B, Sq, Skv, Hq, Hkv,
-                        D, causal, scale, Dc, s);
+                        smem_bf16(sw, Dc), q, k, v, out,
+                        static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, D,
+                        causal, scale, Dc, s);
   return launch<float>(wide ? flash_attention_f32_kernel<16>
                             : flash_attention_f32_kernel<8>,
-                       smem_f32(sw, Dc), q, k, v, out, B, Sq, Skv, Hq, Hkv, D,
+                       smem_f32(sw, Dc), q, k, v, out,
+                       static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, D,
                        causal, scale, Dc, s);
 }

@@ -52,6 +52,9 @@
 // Overlap: S of tile kt is issued with P.V of tile kt - 1, and the
 // softmax of tile kt runs while the tensor cores do that P.V (and the
 // other warpgroup's products).
+// Training: when the caller gives an lse buffer, the epilogue also writes
+// each row's log-sum-exp for the backward (csrc/flash_attention_bwd.cu);
+// serving passes none and skips the store.
 #include "common.cuh"
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder comes from the
@@ -70,6 +73,7 @@ constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
 constexpr int kBox = 64;             // bf16 columns per TMA box (128 bytes)
 constexpr int kHalfBytes = kBQ * kBox * 2;  // one 128-row x 64-column box
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // 128-row tile of a head of D columns: D / 64 boxes of 16 KB
 template <int D>
@@ -288,7 +292,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv,
-                                bf16* __restrict__ out, int B, int Sq,
+                                bf16* __restrict__ out,
+                                float* __restrict__ lse, int B, int Sq,
                                 int Skv, int Hq, int Hkv, int causal,
                                 float scale_log2) {
   constexpr int kBoxes = D / kBox;
@@ -529,6 +534,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       l0 += __shfl_xor_sync(FULL_MASK, l0, w);
       l1 += __shfl_xor_sync(FULL_MASK, l1, w);
     }
+    if (lse != nullptr && (t & 3) == 0) {
+      // the rows' log-sum-exp for the backward: m and l are in log2
+      // units; +inf for a row with no key, whose weights are then 0
+      float* lrow = lse + ((int64_t)tile.b * Hq + tile.h) * Sq;
+      if (row0 < Sq)
+        lrow[row0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : CUDART_INF_F;
+      if (row0 + 8 < Sq)
+        lrow[row0 + 8] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : CUDART_INF_F;
+    }
     const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
     bf16* o0 = out + (((int64_t)tile.b * Sq + row0) * Hq + tile.h) * D + cq;
     bf16* o1 = o0 + (int64_t)8 * Hq * D;
@@ -591,9 +605,9 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int B,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+           float scale, cudaStream_t stream) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   // with no keys the kernel loads no K/V tile: its maps stay blank
@@ -615,7 +629,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const int tiles = (Sq + kBQ - 1) / kBQ * Hq * B;
   const int ctas = min(tiles, sms);                 // one CTA per SM
   flash_attention_sm90_kernel<D><<<ctas, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(out), B, Sq, Skv, Hq, Hkv, causal,
+      tq, tk, tv, static_cast<bf16*>(out), lse, B, Sq, Skv, Hq, Hkv, causal,
       scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -623,19 +637,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D) -> out (B, Sq, Hq, D), all
-// contiguous bfloat16 with 16-byte aligned q, k, v.  Requires D 64 or
-// 128, Hq % Hkv == 0 and, if causal, Sq <= Skv.  Returns
-// cudaGetLastError() after the launch (0 on success), or the error that
-// kept it from launching.
+// contiguous bfloat16 with 16-byte aligned q, k, v, and, where lse is not
+// null, each row's float32 log-sum-exp into lse (B, Hq, Sq) for the
+// backward.  Requires D 64 or 128, Hq % Hkv == 0 and, if causal,
+// Sq <= Skv.  Returns cudaGetLastError() after the launch (0 on success),
+// or the error that kept it from launching.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
-                                           const void* v, void* out, int B,
-                                           int Sq, int Skv, int Hq, int Hkv,
-                                           int D, int causal, float scale,
+                                           const void* v, void* out,
+                                           void* lse, int B, int Sq, int Skv,
+                                           int Hq, int Hkv, int D,
+                                           int causal, float scale,
                                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (D == 128)
-    return launch<128>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
+    return launch<128>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, causal, scale,
+                       s);
   if (D == 64)
-    return launch<64>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
+    return launch<64>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, causal, scale,
+                      s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

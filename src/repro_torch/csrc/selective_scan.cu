@@ -42,6 +42,10 @@
 //     while it scans one chunk, cp.async brings the next chunk's dt and x
 //     columns and B_t and C_t rows.  Two barriers per chunk.
 // L is not split across CTAs: B x Din recurrences fill the card.
+// Training: when the caller gives a ckpt buffer, each chunk's starting
+// state is stored too (67 MB a layer at Falcon's train shape), from
+// which the backward (csrc/selective_scan_bwd.cu) recomputes the states
+// a chunk at a time; serving passes none and skips the store.
 #include "common.cuh"
 
 namespace {
@@ -147,7 +151,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const float* __restrict__ Ct,
                           const float* __restrict__ h0, int L, int Din,
                           int N, float* __restrict__ y,
-                          float* __restrict__ h_last, int vec) {
+                          float* __restrict__ h_last,
+                          float* __restrict__ ckpt, int vec) {
   using Buf = Buffer<kLanes>;
   constexpr int kChannels = Buf::kChannels;
   constexpr int kMaxN = Buf::kMaxN;
@@ -195,6 +200,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();
       const Buf& cur = bufs[k];
       float* yrow = ycol + (int64_t)t0 * Din;
+      if (ckpt != nullptr) {   // the state before chunk c, for the backward
+        float* cp = ckpt + (((int64_t)b * n_chunks + c) * Din + d) * N;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int n = n_base + n0 + i;
+          if (live && n < N) cp[n] = h[i];
+        }
+      }
 #pragma unroll 8
       for (int t = 0; t < tn; ++t) {
         const float dtt = cur.dt[t][ch];
@@ -238,7 +251,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int kLanes>
 int launch(const float* dt, const float* x, const float* A, const float* Bt,
            const float* Ct, const float* h0, int B, int L, int Din, int N,
-           float* y, float* h_last, int vec, cudaStream_t stream) {
+           float* y, float* h_last, float* ckpt, int vec,
+           cudaStream_t stream) {
   const size_t smem = kBufs * sizeof(Buffer<kLanes>);
   cudaError_t err = cudaFuncSetAttribute(
       selective_scan_kernel<kLanes>,
@@ -247,7 +261,7 @@ int launch(const float* dt, const float* x, const float* A, const float* Bt,
   const int channels = Buffer<kLanes>::kChannels;
   const dim3 grid((Din + channels - 1) / channels, B);
   selective_scan_kernel<kLanes><<<grid, kThreads, smem, stream>>>(
-      dt, x, A, Bt, Ct, h0, L, Din, N, y, h_last, vec);
+      dt, x, A, Bt, Ct, h0, L, Din, N, y, h_last, ckpt, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -255,12 +269,16 @@ int launch(const float* dt, const float* x, const float* A, const float* Bt,
 
 // dt and x (B, L, Din), A (Din, N), Bt and Ct (B, L, N), h0 (B, Din, N) ->
 // y (B, L, Din), h_last (B, Din, N); all contiguous float32, any N >= 1.
-// Returns cudaGetLastError() after the launch (0 on success).
+// Where ckpt is not null (training), the state before every chunk of 64
+// steps goes to ckpt (B, ceil(L / 64), Din, N) for the backward
+// (csrc/selective_scan_bwd.cu).  Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int selective_scan_launch(const float* dt, const float* x,
                                      const float* A, const float* Bt,
                                      const float* Ct, const float* h0, int B,
                                      int L, int Din, int N, float* y,
-                                     float* h_last, void* stream) {
+                                     float* h_last, float* ckpt,
+                                     void* stream) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(dt) |
                          reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(Bt) |
@@ -268,8 +286,11 @@ extern "C" int selective_scan_launch(const float* dt, const float* x,
   const int vec = Din % 4 == 0 && N % 4 == 0 && (addr & 15) == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N <= 16)
-    return launch<2>(dt, x, A, Bt, Ct, h0, B, L, Din, N, y, h_last, vec, s);
+    return launch<2>(dt, x, A, Bt, Ct, h0, B, L, Din, N, y, h_last, ckpt,
+                     vec, s);
   if (N <= 32)
-    return launch<4>(dt, x, A, Bt, Ct, h0, B, L, Din, N, y, h_last, vec, s);
-  return launch<8>(dt, x, A, Bt, Ct, h0, B, L, Din, N, y, h_last, vec, s);
+    return launch<4>(dt, x, A, Bt, Ct, h0, B, L, Din, N, y, h_last, ckpt,
+                     vec, s);
+  return launch<8>(dt, x, A, Bt, Ct, h0, B, L, Din, N, y, h_last, ckpt,
+                   vec, s);
 }

@@ -1,43 +1,50 @@
-"""Wrapper of the flash_attention CUDA kernels: the Hopper instance
-(``csrc/flash_attention_sm90.cu``: wgmma, TMA, a K/V ring) for bfloat16
-with head dim 64 or 128, and the general instance
-(``csrc/flash_attention.cu``) for every other dtype and head dim.
+"""Wrapper of the flash_attention CUDA kernels, forward and backward: the
+Hopper forward instance (``csrc/flash_attention_sm90.cu``: wgmma, TMA, a
+K/V ring) for bfloat16 with head dim 64 or 128, the general forward
+instance (``csrc/flash_attention.cu``) for every other dtype and head
+dim, and the backward (``csrc/flash_attention_bwd.cu``) for all of them.
 
-A CPU tensor takes the plain version (``ref.py``).  A CUDA tensor
-launches one kernel, the instance :func:`instance` picks from the dtype
-and head dim before the launch, counted as ``flash_attention`` either
-way, or raises on what the kernel does not take: q, k and v must be
+A CPU tensor takes the plain version (``ref.py``), whose gradient is
+PyTorch's autograd of the same expression.  A CUDA tensor launches one
+forward kernel, the instance :func:`instance` picks from the dtype and
+head dim before the launch, counted as ``flash_attention`` either way,
+or raises on what the kernel does not take: q, k and v must be
 contiguous float32 or bfloat16 tensors of one dtype, (B, S, H, D) with
 Hq % Hkv == 0 and any head dim D (the general instance takes D > 256 in
 chunks of output columns), and a causal call needs Sq <= Skv (every
 query row then has at least one key).  The Hopper instance reads q, k
 and v by TMA, which needs them 16-byte aligned.  Unlike the Pallas
-wrapper, any Sq and Skv are taken: both kernels mask the ragged edge of
+wrapper, any Sq and Skv are taken: the kernels mask the ragged edge of
 their tiles themselves.
 
-The kernels have no backward yet (it comes with LM training), so a CUDA
-call raises ``RuntimeError`` when grad mode is on and an input requires
-grad, instead of returning an output that silently carries no gradient.
+When grad mode is on and an input requires grad, the call goes through
+one ``torch.autograd.Function``: the forward kernel also writes each
+row's log-sum-exp, and autograd's backward launches the backward kernel
+once, counted as ``flash_attention_bwd``.  Otherwise (serving) no
+log-sum-exp is written and no autograd node is made.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 P, I, F = rt.PTR, rt.INT, rt.FLOAT
-_SIG = {"flash_attention_launch": (P, P, P, P, I, I, I, I, I, I, I, I, F,
-                                   P)}
-_SIG_SM90 = {"flash_attention_sm90_launch": (P, P, P, P, I, I, I, I, I, I,
-                                             I, F, P)}
+_SIG = {"flash_attention_launch": (P, P, P, P, P, I, I, I, I, I, I, I, I,
+                                   F, P)}
+_SIG_SM90 = {"flash_attention_sm90_launch": (P, P, P, P, P, I, I, I, I, I,
+                                             I, I, F, P)}
+_SIG_BWD = {"flash_attention_bwd_launch": (P, P, P, P, P, P, P, P, P, P, I,
+                                           I, I, I, I, I, I, I, F, P)}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SM90_HEAD_DIMS = (64, 128)
 
 
 def instance(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a CUDA call launches: ``"sm90"`` (wgmma and TMA) for
-    bfloat16 with a head dim in :data:`SM90_HEAD_DIMS`, else
+    """The forward kernel a CUDA call launches: ``"sm90"`` (wgmma and
+    TMA) for bfloat16 with a head dim in :data:`SM90_HEAD_DIMS`, else
     ``"general"``."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return "sm90"
@@ -50,7 +57,14 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
     _check(q, k, v, causal)
-    rt.forbid_grad("flash_attention", q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal, None)
+
+
+def _forward(q, k, v, causal, lse):
+    """One forward launch; writes each row's log-sum-exp into ``lse``
+    (B, Hq, Sq) float32 unless it is None."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -60,16 +74,62 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     if instance(q.dtype, D) == "sm90":
         lib = rt.load("flash_attention_sm90", _SIG_SM90)
         rc = lib.flash_attention_sm90_launch(
-            rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), B, Sq, Skv, Hq,
-            Hkv, D, int(causal), D ** -0.5, stream)
+            rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), rt.ptr(lse), B,
+            Sq, Skv, Hq, Hkv, D, int(causal), D ** -0.5, stream)
     else:
         lib = rt.load("flash_attention", _SIG)
         rc = lib.flash_attention_launch(
-            rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), B, Sq, Skv, Hq,
-            Hkv, D, DTYPES[q.dtype], int(causal), D ** -0.5, stream)
+            rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), rt.ptr(lse), B,
+            Sq, Skv, Hq, Hkv, D, DTYPES[q.dtype], int(causal), D ** -0.5,
+            stream)
     rt.count_launch("flash_attention")
     rt.check(lib, rc, "flash_attention")
     return out
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool):
+    """The backward kernel: (dq, dk, dv) of the inputs' shapes and dtype
+    from the forward's inputs, its output ``out``, its row log-sum-exps
+    ``lse`` (B, Hq, Sq) and the output's gradient ``dout``."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rt.require(dout, "dout", q.dtype, q.device, 4)
+    rt.require(lse, "lse", torch.float32, q.device, 3)
+    if dout.shape != q.shape or lse.shape != (B, Hq, Sq):
+        raise ValueError("flash_attention_bwd: shapes disagree")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    dd = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    lib = rt.load("flash_attention_bwd", _SIG_BWD)
+    rc = lib.flash_attention_bwd_launch(
+        rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), rt.ptr(dout),
+        rt.ptr(lse), rt.ptr(dd), rt.ptr(dq), rt.ptr(dk), rt.ptr(dv), B, Sq,
+        Skv, Hq, Hkv, D, DTYPES[q.dtype], int(causal), D ** -0.5,
+        rt.stream_handle(q.device))
+    rt.count_launch("flash_attention_bwd")
+    rt.check(lib, rc, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        B, Sq, Hq, _ = q.shape
+        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+        out = _forward(q, k, v, causal, lse)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
 
 
 def _check(q, k, v, causal):

@@ -34,7 +34,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 KERNELS = ("temporal_sample", "cache_gather", "temporal_attn",
-           "flash_attention", "flash_attention_sm90", "selective_scan")
+           "flash_attention", "flash_attention_sm90", "flash_attention_bwd",
+           "selective_scan", "selective_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -175,18 +176,6 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: rank {t.dim()}, expected {ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-
-
-def forbid_grad(name: str, *tensors: torch.Tensor) -> None:
-    """Raise where autograd would need the backward of a forward-only
-    kernel: grad mode is on and an input requires grad.  The kernel's
-    output has no ``grad_fn``, so without this a loss through it would
-    give every weight upstream no gradient, and no error."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name}: an input requires grad, but the kernel has no "
-            f"backward yet (its backward kernel comes with LM training); "
-            f"call it under torch.no_grad() or on detached inputs")
 
 
 def count_launch(name: str) -> None:

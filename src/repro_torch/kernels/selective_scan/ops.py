@@ -1,25 +1,35 @@
-"""Wrapper of the selective_scan CUDA kernel (``csrc/selective_scan.cu``).
+"""Wrapper of the selective_scan CUDA kernels, forward
+(``csrc/selective_scan.cu``) and backward (``csrc/selective_scan_bwd.cu``).
 
-A CPU tensor takes the plain version (``ref.py``).  A CUDA tensor
-launches the kernel, counted as ``selective_scan``, or raises on what the
-kernel does not take: every input must be a contiguous float32 tensor
-(the Pallas wrapper casts to float32 too).  Any L and any d_state N are
-taken, as by the Pallas body: the scan needs no padding, and the kernel
-takes N > 64 in groups of 64 states.
+A CPU tensor takes the plain version (``ref.py``), whose gradient is
+PyTorch's autograd of the same loop.  A CUDA tensor launches the forward
+kernel, counted as ``selective_scan``, or raises on what the kernel does
+not take: every input must be a contiguous float32 tensor (the Pallas
+wrapper casts to float32 too).  Any L and any d_state N are taken, as by
+the Pallas body: the scan needs no padding, and the kernels take N > 64
+in groups of 64 states.
 
-The kernel has no backward yet (it comes with LM training), so a CUDA
-call raises ``RuntimeError`` when grad mode is on and an input requires
-grad, instead of returning outputs that silently carry no gradient.
+When grad mode is on and an input requires grad, the call goes through
+one ``torch.autograd.Function``: the forward kernel also stores the state
+before every 64 steps, and autograd's backward launches the backward
+kernel once, counted as ``selective_scan_bwd``, which recomputes the
+states from them.  Otherwise (serving) nothing is stored and no autograd
+node is made.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 P, I = rt.PTR, rt.INT
-_SIG = {"selective_scan_launch": (P, P, P, P, P, P, I, I, I, I, P, P, P)}
+_SIG = {"selective_scan_launch": (P, P, P, P, P, P, I, I, I, I, P, P, P, P)}
+_SIG_BWD = {"selective_scan_bwd_launch": (P, P, P, P, P, P, P, P, I, I, I, I,
+                                          P, P, P, P, P, P, P, P, P),
+            "selective_scan_bwd_blocks": (I, I)}
+CHUNK = 64          # steps between the states the forward stores
 
 
 def selective_scan(dt, x, A, Bt, Ct, h0):
@@ -28,7 +38,15 @@ def selective_scan(dt, x, A, Bt, Ct, h0):
     if x.device.type == "cpu":
         return selective_scan_ref(dt, x, A, Bt, Ct, h0)
     _check(dt, x, A, Bt, Ct, h0)
-    rt.forbid_grad("selective_scan", dt, x, A, Bt, Ct, h0)
+    args = (dt, x, A, Bt, Ct, h0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SelectiveScan.apply(*args)
+    return _forward(*args, None)
+
+
+def _forward(dt, x, A, Bt, Ct, h0, ckpt):
+    """One forward launch; stores the state before every ``CHUNK`` steps
+    into ``ckpt`` (B, ceil(L / CHUNK), Din, N) unless it is None."""
     B, L, Din = x.shape
     N = A.shape[1]
     y = torch.empty_like(x)
@@ -38,11 +56,61 @@ def selective_scan(dt, x, A, Bt, Ct, h0):
     lib = rt.load("selective_scan", _SIG)
     rc = lib.selective_scan_launch(
         rt.ptr(dt), rt.ptr(x), rt.ptr(A), rt.ptr(Bt), rt.ptr(Ct),
-        rt.ptr(h0), B, L, Din, N, rt.ptr(y), rt.ptr(h_last),
+        rt.ptr(h0), B, L, Din, N, rt.ptr(y), rt.ptr(h_last), rt.ptr(ckpt),
         rt.stream_handle(x.device))
     rt.count_launch("selective_scan")
     rt.check(lib, rc, "selective_scan")
     return y, h_last
+
+
+def selective_scan_bwd(dt, x, A, Bt, Ct, ckpt, dy, dh_last):
+    """The backward kernel: (ddt, dx, dA, dB, dC, dh0) from the forward's
+    inputs, its stored states ``ckpt`` and the gradients of its outputs
+    ``dy`` (B, L, Din) and ``dh_last`` (B, Din, N)."""
+    B, L, Din = x.shape
+    N = A.shape[1]
+    rt.require(dy, "dy", torch.float32, x.device, 3)
+    rt.require(dh_last, "dh_last", torch.float32, x.device, 3)
+    if dy.shape != x.shape or dh_last.shape != (B, Din, N):
+        raise ValueError("selective_scan_bwd: shapes disagree")
+    ddt, dx = torch.empty_like(x), torch.empty_like(x)
+    dB, dC = torch.empty_like(Bt), torch.empty_like(Ct)
+    dA = torch.empty_like(A)
+    dh0 = torch.empty_like(dh_last)
+    if B * L * Din == 0:         # no step: h_last is h0
+        dh0.copy_(dh_last)
+        return ddt.zero_(), dx.zero_(), dA.zero_(), dB.zero_(), \
+            dC.zero_(), dh0
+    lib = rt.load("selective_scan_bwd", _SIG_BWD)
+    blocks = lib.selective_scan_bwd_blocks(Din, N)
+    part_bc = torch.empty((2, B, blocks, L, N), dtype=torch.float32,
+                          device=x.device)
+    part_a = torch.empty((B, Din, N), dtype=torch.float32, device=x.device)
+    rc = lib.selective_scan_bwd_launch(
+        rt.ptr(dt), rt.ptr(x), rt.ptr(A), rt.ptr(Bt), rt.ptr(Ct),
+        rt.ptr(ckpt), rt.ptr(dy), rt.ptr(dh_last), B, L, Din, N, rt.ptr(ddt),
+        rt.ptr(dx), rt.ptr(dA), rt.ptr(dB), rt.ptr(dC), rt.ptr(dh0),
+        rt.ptr(part_bc), rt.ptr(part_a), rt.stream_handle(x.device))
+    rt.count_launch("selective_scan_bwd")
+    rt.check(lib, rc, "selective_scan_bwd")
+    return ddt, dx, dA, dB, dC, dh0
+
+
+class _SelectiveScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dt, x, A, Bt, Ct, h0):
+        B, L, Din = x.shape
+        ckpt = torch.empty((B, -(-L // CHUNK), Din, A.shape[1]),
+                           dtype=torch.float32, device=x.device)
+        y, h_last = _forward(dt, x, A, Bt, Ct, h0, ckpt)
+        ctx.save_for_backward(dt, x, A, Bt, Ct, ckpt)
+        return y, h_last
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dh_last):
+        return selective_scan_bwd(*ctx.saved_tensors, dy.contiguous(),
+                                  dh_last.contiguous())
 
 
 def _check(dt, x, A, Bt, Ct, h0):

@@ -5,9 +5,10 @@ Two wings share this module:
 * the temporal GNNs: ``time_encode`` and its parameters;
 * the LM backbones: ``rms_norm``, rotary embeddings (rotate-half, in
   float32), ``blocked_attention`` (the full-sequence GQA attention; on
-  the card it is the hand-written ``flash_attention`` kernel),
-  ``decode_attention`` (one token against a padded KV cache, plain
-  PyTorch as in the JAX package) and the MLP activations.
+  the card it is the hand-written ``flash_attention`` kernel, and its
+  backward kernel under autograd), ``decode_attention`` (one token
+  against a padded KV cache, plain PyTorch as in the JAX package), the
+  MLP activations and the LM loss ``chunked_softmax_xent``.
 
 Initialisers take an explicit ``torch.Generator`` and draw on the
 generator's own device: a CPU generator gives the same weights on every
@@ -25,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
@@ -83,8 +85,9 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     row i sits at position i + Skv - Sq.  Returns (B, Sq, Hq, D) in
     q.dtype.  On the card this is one launch of the ``flash_attention``
     kernel, which tiles the sequence itself (the JAX package's
-    ``q_chunk``/``kv_chunk`` have no counterpart); on the CPU it is the
-    kernel's plain version.
+    ``q_chunk``/``kv_chunk`` have no counterpart), and under autograd
+    one launch of its backward kernel; on the CPU it is the kernel's
+    plain version.
     """
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=causal)
@@ -141,6 +144,52 @@ def mlp_param_shapes(d_model: int, d_ff: int, act: str) -> dict:
     if act == "swiglu":
         shapes["w_gate"] = (d_model, d_ff)
     return shapes
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (never materializes (B, S, V))
+# ---------------------------------------------------------------------------
+
+
+def chunked_softmax_xent(h: torch.Tensor, w_out: torch.Tensor,
+                         labels: torch.Tensor,
+                         valid: Optional[torch.Tensor] = None,
+                         n_chunks: int = 4
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h: (B, S, d); w_out: (d, V); labels: (B, S) int.
+
+    Returns (mean loss over the valid tokens (float32), valid-token count
+    (int32)).  Computed per batch chunk (``n_chunks`` lowered until it
+    divides B), each under ``torch.utils.checkpoint`` when autograd
+    records it, so the full (B, S, V) logits never exist: only one
+    chunk's, in the forward and again in the backward.  Logits go to
+    float32 before the logsumexp.  (The JAX version's sharding hints
+    have no single-device meaning and are left out.)
+    """
+    B, S, _ = h.shape
+    if valid is None:
+        valid = torch.ones((B, S), dtype=torch.bool, device=h.device)
+    while n_chunks > 1 and B % n_chunks:
+        n_chunks -= 1
+    c = B // n_chunks
+    remat = torch.is_grad_enabled() and (h.requires_grad
+                                         or w_out.requires_grad)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        chunk = (h[i * c:(i + 1) * c], w_out, labels[i * c:(i + 1) * c],
+                 valid[i * c:(i + 1) * c])
+        tot = tot + (checkpoint(_xent_sum, *chunk, use_reentrant=False)
+                     if remat else _xent_sum(*chunk))
+    cnt = valid.sum(dtype=torch.int32)
+    return tot / cnt.clamp_min(1).float(), cnt
+
+
+def _xent_sum(h, w_out, labels, valid) -> torch.Tensor:
+    """The summed token losses of one batch chunk."""
+    logits = (h @ w_out).float()                          # (c, S, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.where(valid, lse - gold, 0.0).sum()
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 
 The selective scan ``_mamba1_scan_y`` is one launch of the hand-written
 ``selective_scan`` kernel on the card (the state stays in registers
-across the whole sequence) and its plain float32 loop on the CPU.  The
+across the whole sequence; under autograd, one launch of its backward
+kernel too) and its plain float32 loop on the CPU.  The
 JAX package's chunking of the scan is a TPU working-set device; the
 kernel needs none, so ``ssm.chunk`` is not read here.
 

@@ -14,6 +14,13 @@ Families:
     ``selective_scan`` kernel on the card.
 The ``moe`` and ``hybrid`` families raise ``NotImplementedError``.
 
+Training: unless ``cfg.remat`` is ``"none"``, each block of
+``forward_hidden`` runs under ``torch.utils.checkpoint`` (non-reentrant)
+when autograd records it, the counterpart of the JAX package's
+``jax.checkpoint`` of the scanned block: only the blocks' inputs stay
+alive, and each block's forward (its kernel launch included) runs again
+in the backward.  Serving (no grad) calls the blocks directly.
+
 Per-layer leaves are stacked on a leading ``L`` axis, the layout
 ``jax.vmap`` of the JAX init gives, so a JAX tree maps across one to one
 (``repro_torch.models.convert.params_from_jax``); ``lax.scan`` over the
@@ -33,6 +40,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve
@@ -189,6 +197,25 @@ def _block_apply(cfg: ArchConfig, p: dict, x: torch.Tensor,
     return x, {}, kv
 
 
+def _ssm_block(cfg: ArchConfig, lp: dict, x: torch.Tensor,
+               collect_state: bool):
+    out = M.mamba1_forward(lp["mamba1"], rms_norm(x, lp["ln"], cfg.norm_eps),
+                           cfg.ssm, return_state=collect_state)
+    y, st = out if collect_state else (out, None)
+    return x + y, st
+
+
+def _remat(cfg: ArchConfig, block):
+    """``block`` under non-reentrant ``torch.utils.checkpoint`` when the
+    config asks for block remat and autograd records the call; else
+    ``block`` itself.  The blocks draw no random numbers, so no RNG state
+    is kept for the recompute."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return block
+    return lambda *args: checkpoint(block, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+
+
 def forward_hidden(cfg: ArchConfig, params: dict, x: torch.Tensor,
                    positions: torch.Tensor, collect_state: bool = False
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], PyTree]:
@@ -200,14 +227,10 @@ def forward_hidden(cfg: ArchConfig, params: dict, x: torch.Tensor,
     check_family(cfg)
     L = cfg.n_layers
     if cfg.family == "ssm":
+        block = _remat(cfg, _ssm_block)
         states = []
         for i in range(L):
-            lp = layer(params["layers"], i)
-            out = M.mamba1_forward(lp["mamba1"],
-                                   rms_norm(x, lp["ln"], cfg.norm_eps),
-                                   cfg.ssm, return_state=collect_state)
-            y, st = out if collect_state else (out, None)
-            x = x + y
+            x, st = block(cfg, layer(params["layers"], i), x, collect_state)
             states.append(st)
         if not collect_state:
             return x, {}, None
@@ -215,10 +238,10 @@ def forward_hidden(cfg: ArchConfig, params: dict, x: torch.Tensor,
             key: torch.stack([st[key] for st in states])
             for key in ("conv", "h")}}
 
+    block = _remat(cfg, _block_apply)
     ks, vs = [], []
     for i in range(L):
-        x, _, (k, v) = _block_apply(cfg, layer(params["layers"], i), x,
-                                    positions)
+        x, _, (k, v) = block(cfg, layer(params["layers"], i), x, positions)
         if collect_state:
             ks.append(k)
             vs.append(v)

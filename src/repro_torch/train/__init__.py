@@ -1,2 +1,2 @@
-"""Training substrate: the functional optimizer of the continuous
-trainers."""
+"""Training substrate: functional optimizers, checkpointing, the elastic
+policy and the LM train loop."""

@@ -1,11 +1,13 @@
-"""Functional AdamW with global-norm clipping (counterpart of
-``repro.train.optimizer``: ``constant_schedule``, ``global_norm``,
-``clip_by_global_norm``, ``AdamWState``, ``Optimizer``, ``adamw``).
+"""Functional optimizers (counterpart of ``repro.train.optimizer``):
+the schedules (``constant_schedule``, ``warmup_cosine_schedule``,
+``linear_warmup_schedule``), ``global_norm``, ``clip_by_global_norm``,
+``AdamWState``, ``Optimizer``, ``adamw``, ``SGDState``, ``sgd``,
+``adafactor_lite`` and the ``OPTIMIZERS`` map.
 
 Parameters, gradients and moments are trees of nested dicts and lists
 of tensors, walked in the JAX package's leaf order (dict keys sorted).
-``update`` is functional as the JAX update is: it returns new tensors
-and never writes a parameter or a moment in place.  The serving wing
+Every ``update`` is functional as the JAX update is: it returns new
+tensors and never writes a parameter or a moment in place.  The serving wing
 relies on that, since every published handle holds the parameter tree
 by reference, and a query pinned to an older version must keep its
 answers while training goes on.
@@ -13,9 +15,14 @@ answers while training goes on.
 ``torch.optim.AdamW`` is not a drop-in: this port keeps the JAX
 package's defaults (b2 = 0.95, eps 1e-8, global-norm clip at 1.0) and
 its decoupled decay ``p - lr * (step + wd * p)``.
+
+A schedule takes the host-side integer step (the optimizer states count
+steps on the host, so no update syncs with the device) and returns a
+float; its arithmetic is float32, as the JAX schedules compute it.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
@@ -62,6 +69,38 @@ def tree_unflatten(tree: Tree, leaves: List[torch.Tensor]) -> Tree:
 
 def constant_schedule(lr: float) -> Schedule:
     return lambda step: float(lr)
+
+
+def warmup_cosine_schedule(peak_lr: float, warmup_steps: int,
+                           total_steps: int, final_frac: float = 0.1
+                           ) -> Schedule:
+    """Linear warmup to ``peak_lr``, then a cosine decay to
+    ``final_frac * peak_lr`` at ``total_steps``."""
+    f32 = np.float32
+    peak, frac = f32(peak_lr), f32(final_frac)
+
+    def sched(step: int) -> float:
+        t = f32(step)
+        if t < warmup_steps:
+            return float(peak * t / f32(max(warmup_steps, 1)))
+        prog = np.clip((t - f32(warmup_steps))
+                       / f32(max(total_steps - warmup_steps, 1)),
+                       f32(0), f32(1))
+        # the JAX expression's order: ((1 - frac) * 0.5) * (1 + cos)
+        cos = f32((1 - final_frac) * 0.5) * (f32(1)
+                                             + np.cos(f32(math.pi) * prog))
+        return float(peak * (frac + cos))
+    return sched
+
+
+def linear_warmup_schedule(peak_lr: float, warmup_steps: int) -> Schedule:
+    """Linear warmup to ``peak_lr``, then constant."""
+    f32 = np.float32
+
+    def sched(step: int) -> float:
+        return float(f32(peak_lr) * np.minimum(
+            f32(1), f32(step) / f32(max(warmup_steps, 1))))
+    return sched
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
@@ -128,3 +167,99 @@ def adamw(lr: float | Schedule, *, b1: float = 0.9, b2: float = 0.95,
 
     return Optimizer(init=init, update=update)
 
+
+class SGDState(NamedTuple):
+    step: int            # host-side count
+    momentum: Tree
+
+
+def sgd(lr: float | Schedule, *, momentum: float = 0.9,
+        nesterov: bool = False, weight_decay: float = 0.0) -> Optimizer:
+    """SGD with heavy-ball (or Nesterov) momentum and L2 weight decay
+    folded into the gradient, as the JAX ``sgd``."""
+    sched = lr if callable(lr) else constant_schedule(lr)
+
+    def init(params):
+        return SGDState(step=0, momentum=tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params))
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state.step + 1
+        lr_t = sched(step)
+
+        def upd(p, g, m):
+            g = g.float()
+            if weight_decay:
+                g = g + weight_decay * p.float()
+            m = momentum * m + g
+            d = g + momentum * m if nesterov else m
+            return (p.float() - lr_t * d).to(p.dtype), m
+
+        new = [upd(*x) for x in zip(*map(tree_leaves, (
+            params, grads, state.momentum)))]
+        pick = lambda i: tree_unflatten(params, [n[i] for n in new])
+        return pick(0), SGDState(step=step, momentum=pick(1))
+
+    return Optimizer(init=init, update=update)
+
+
+def adafactor_lite(lr: float | Schedule, *, decay: float = 0.8,
+                   eps: float = 1e-30, weight_decay: float = 0.0
+                   ) -> Optimizer:
+    """Factored second moments (Adafactor without a first moment): a
+    leaf of rank >= 2 keeps a (row, col) pair of mean squared gradients
+    over its last axis and its second-last, any other leaf a full second
+    moment; each update is clipped to an RMS of at most 1.  The state is
+    an ``AdamWState`` with the factors in ``mu`` and ``nu`` None, as in
+    the JAX ``adafactor_lite``."""
+    sched = lr if callable(lr) else constant_schedule(lr)
+
+    def init(params):
+        def one(p):
+            z = lambda shape: torch.zeros(shape, dtype=torch.float32,
+                                          device=p.device)
+            if p.dim() >= 2:
+                return (z(p.shape[:-1]), z(p.shape[:-2] + p.shape[-1:]))
+            return z(p.shape)
+        return AdamWState(step=0, mu=tree_map(one, params), nu=None)
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state.step + 1
+        lr_t = sched(step)
+        # beta in float32, as the JAX update computes it
+        beta = float(np.float32(1) - np.power(np.float32(step),
+                                              np.float32(-decay)))
+
+        def upd(p, g, s):
+            g = g.float()
+            g2 = torch.square(g) + eps
+            if p.dim() >= 2:
+                row, col = s
+                row = beta * row + (1 - beta) * g2.mean(-1)
+                col = beta * col + (1 - beta) * g2.mean(-2)
+                rmean = row.mean(-1, keepdim=True)
+                v = row[..., :, None] * col[..., None, :] / (
+                    rmean[..., None] + eps)
+                s = (row, col)
+            else:
+                s = beta * s + (1 - beta) * g2
+                v = s
+            u = g / (torch.sqrt(v) + 1e-8)
+            rms = torch.sqrt(torch.square(u).mean() + 1e-12)
+            u = u / torch.clamp(rms, min=1.0)
+            p32 = p.float()
+            return (p32 - lr_t * (u + weight_decay * p32)).to(p.dtype), s
+
+        # walked in the parameters' structure, so a (row, col) state
+        # reaches ``upd`` whole
+        out = tree_map(upd, params, grads, state.mu)
+        pick = lambda i: tree_map(lambda _, o: o[i], params, out)
+        return pick(0), AdamWState(step=step, mu=pick(1), nu=None)
+
+    return Optimizer(init=init, update=update)
+
+
+OPTIMIZERS = {"adamw": adamw, "sgd": sgd, "adafactor": adafactor_lite}

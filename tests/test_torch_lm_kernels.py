@@ -248,23 +248,3 @@ def test_scan_wrapper_rejects(bad, match):
         ta[3] = ta[3][:, :4].contiguous()
     with pytest.raises((TypeError, ValueError), match=match):
         scan_ops._check(*ta)
-
-
-# ---------------------------------------------------------------------------
-# no silent loss of gradients on the card
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("kernel", ["flash_attention", "selective_scan"])
-def test_forward_only_kernels_refuse_grad(kernel):
-    """The guard each of these kernels' CUDA path calls before launching:
-    it raises when grad mode is on and an input requires grad (the kernel
-    has no backward yet, so its output would carry no gradient), and is
-    silent under torch.no_grad() and for inputs that need none."""
-    x = torch.ones(3, requires_grad=True)
-    y = torch.ones(3)
-    with pytest.raises(RuntimeError, match=f"{kernel}.*backward"):
-        runtime.forbid_grad(kernel, y, x)
-    with torch.no_grad():
-        runtime.forbid_grad(kernel, y, x)
-    runtime.forbid_grad(kernel, y, x.detach())
