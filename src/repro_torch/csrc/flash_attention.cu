@@ -204,9 +204,10 @@ __device__ __forceinline__ float softmax_tile(const float* s_row, P* p_row,
 }
 
 // out rows ty + 16a, columns d0 + tx + 16c (< d0 + dn):
-// acc / max(l, 1e-30)
+// acc / max(l, 1e-30); the same float32 values into o32 unless it is null
 template <int kCols, typename T>
 __device__ __forceinline__ void store_out(T* __restrict__ out,
+                                          float* __restrict__ o32,
                                           const float (&acc)[4][kCols],
                                           const float* lsum, int b, int q0,
                                           int Sq, int Hq, int h, int D,
@@ -217,11 +218,14 @@ __device__ __forceinline__ void store_out(T* __restrict__ out,
     const int s = q0 + r;
     if (s >= Sq) continue;
     const float l = lsum[r];
-    T* o = out + (((int64_t)b * Sq + s) * Hq + h) * D + d0;
+    const int64_t at = (((int64_t)b * Sq + s) * Hq + h) * D + d0;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int d = tx + 16 * c;
-      if (d < dn) put(o + d, acc[a][c] / l);
+      if (d >= dn) continue;
+      const float x = acc[a][c] / l;
+      put(out + at + d, x);
+      if (o32 != nullptr) o32[at + d] = x;
     }
   }
 }
@@ -270,7 +274,8 @@ __global__ void __launch_bounds__(kThreads)
                                const float* __restrict__ k,
                                const float* __restrict__ v,
                                float* __restrict__ out,
-                               float* __restrict__ lse, int Sq, int Skv,
+                               float* __restrict__ lse,
+                               float* __restrict__ o32, int Sq, int Skv,
                                int Hq, int Hkv, int D, int causal,
                                float scale, int Dc) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -373,8 +378,8 @@ __global__ void __launch_bounds__(kThreads)
   if (lse != nullptr && spart == 0)
     store_lse(lse, t, Sq, Hq, srow, m_run, l_run);
   __syncthreads();
-  store_out<kCols>(out, acc, lsum, t.b, t.q0, Sq, Hq, t.h, D, t.d0, t.dn,
-                   ty, tx);
+  store_out<kCols>(out, o32, acc, lsum, t.b, t.q0, Sq, Hq, t.h, D, t.d0,
+                   t.dn, ty, tx);
 }
 
 // --- bfloat16: tensor cores (WMMA) -------------------------------------
@@ -384,7 +389,8 @@ __global__ void __launch_bounds__(kThreads, kCols <= 8 ? 2 : 1)
                                 const bf16* __restrict__ k,
                                 const bf16* __restrict__ v,
                                 bf16* __restrict__ out,
-                                float* __restrict__ lse, int Sq, int Skv,
+                                float* __restrict__ lse,
+                                float* __restrict__ o32, int Sq, int Skv,
                                 int Hq, int Hkv, int D, int causal,
                                 float scale, int Dc) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -514,15 +520,14 @@ __global__ void __launch_bounds__(kThreads, kCols <= 8 ? 2 : 1)
   if (lse != nullptr && spart == 0)
     store_lse(lse, t, Sq, Hq, srow, m_run, l_run);
   __syncthreads();
-  store_out<kCols>(out, acc, lsum, t.b, t.q0, Sq, Hq, t.h, D, t.d0, t.dn,
-                   ty, tx);
+  store_out<kCols>(out, o32, acc, lsum, t.b, t.q0, Sq, Hq, t.h, D, t.d0,
+                   t.dn, ty, tx);
 }
 
 template <typename T, typename K>
 int launch(K kernel, size_t smem, const void* q, const void* k,
-           const void* v, void* out, float* lse, int B, int Sq, int Skv,
-           int Hq,
-           int Hkv, int D, int causal, float scale, int Dc,
+           const void* v, void* out, float* lse, float* o32, int B, int Sq,
+           int Skv, int Hq, int Hkv, int D, int causal, float scale, int Dc,
            cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -530,23 +535,26 @@ int launch(K kernel, size_t smem, const void* q, const void* k,
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B * ((D + Dc - 1) / Dc));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Skv, Hq,
-      Hkv, D, causal, scale, Dc);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, o32, Sq, Skv,
+      Hq, Hkv, D, causal, scale, Dc);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D) -> out (B, Sq, Hq, D), all
-// contiguous, of float32 (dtype 0) or bfloat16 (dtype 1), and, where lse
-// is not null, each row's float32 log-sum-exp into lse (B, Hq, Sq) for
-// the backward.  Requires Hq % Hkv == 0, D >= 1 and, if causal,
+// contiguous, of float32 (dtype 0) or bfloat16 (dtype 1), and, for the
+// backward, where lse is not null, each row's float32 log-sum-exp into lse
+// (B, Hq, Sq), and where o32 is not null, out's float32 values before
+// rounding into o32 (B, Sq, Hq, D) (a bfloat16 call's; a float32 call's
+// out is its own).  Requires Hq % Hkv == 0, D >= 1 and, if causal,
 // Sq <= Skv.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
-                                      int B, int Sq, int Skv, int Hq,
-                                      int Hkv, int D, int dtype, int causal,
-                                      float scale, void* stream) {
+                                      void* o32, int B, int Sq, int Skv,
+                                      int Hq, int Hkv, int D, int dtype,
+                                      int causal, float scale,
+                                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D < 1) return static_cast<int>(cudaErrorInvalidValue);
   // output chunk width: D itself up to kMaxD, else an even split of D
@@ -559,11 +567,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return launch<bf16>(wide ? flash_attention_bf16_kernel<16>
                              : flash_attention_bf16_kernel<8>,
                         smem_bf16(sw, Dc), q, k, v, out,
-                        static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, D,
-                        causal, scale, Dc, s);
+                        static_cast<float*>(lse), static_cast<float*>(o32),
+                        B, Sq, Skv, Hq, Hkv, D, causal, scale, Dc, s);
   return launch<float>(wide ? flash_attention_f32_kernel<16>
                             : flash_attention_f32_kernel<8>,
                        smem_f32(sw, Dc), q, k, v, out,
-                       static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, D,
-                       causal, scale, Dc, s);
+                       static_cast<float*>(lse), static_cast<float*>(o32),
+                       B, Sq, Skv, Hq, Hkv, D, causal, scale, Dc, s);
 }

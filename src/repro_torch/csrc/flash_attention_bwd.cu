@@ -12,7 +12,12 @@
 // forward's causal rule (key j visible where j <= i + Skv - Sq):
 //   P_ij  = exp(s_ij * scale - LSE_i),  s_ij = <q_i, k_j>, LSE_i the row's
 //           log-sum-exp the forward wrote (so P is the normalised softmax);
-//   D_i   = rowsum(dO_i * O_i);
+//   D_i   = rowsum(dO_i * O_i), O_i the forward's float32 output row
+//           before its rounding to the input dtype (the plain version's
+//           autograd takes D from that same float32 O; from the rounded
+//           bfloat16 O, D's error alone can be as large as dq itself in
+//           the first causal rows, where dq is a near-cancelling sum of a
+//           few keys' terms);
 //   dP_ij = <dO_i, v_j>,  dS_ij = P_ij (dP_ij - D_i);
 //   dv_j  = sum_i round(P_ij) dO_i     (P rounded to v's dtype, as the
 //           forward rounds p before P.V),
@@ -30,7 +35,7 @@
 // Design (FlashAttention-2's split into two passes, no atomics, so the
 // result is the same bit for bit on every run).  Three launches:
 //   1. D_i = rowsum(dO_i * O_i), a warp per row, into a float32 buffer
-//      (B, Hq, Sq);
+//      (B, Hq, Sq), from the float32 O the forward wrote beside its output;
 //   2. dk, dv: one CTA of 256 threads per (64-key tile, KV head, batch);
 //      it keeps its tile's dk and dv accumulators in registers while it
 //      walks the G query heads and, for each, the 64-row q tiles that see
@@ -234,7 +239,7 @@ __device__ __forceinline__ void store_tile(float* __restrict__ dst,
 // --- 1. D = rowsum(dO * O) ----------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dot_kernel(const T* __restrict__ out,
+    flash_bwd_dot_kernel(const float* __restrict__ out,
                          const T* __restrict__ dout, float* __restrict__ dd,
                          int B, int Sq, int Hq, int D) {
   const int lane = threadIdx.x & 31;
@@ -242,10 +247,10 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) +
                       threadIdx.x / 32;   // ((b * Sq + i) * Hq + h)
   if (row >= rows) return;
-  const T* o = out + row * D;
+  const float* o = out + row * D;
   const T* g = dout + row * D;
   float sum = 0.f;
-  for (int d = lane; d < D; d += 32) sum = fmaf(to_f(o[d]), to_f(g[d]), sum);
+  for (int d = lane; d < D; d += 32) sum = fmaf(o[d], to_f(g[d]), sum);
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) sum += __shfl_xor_sync(FULL_MASK, sum, w);
   if (lane == 0) {
@@ -777,8 +782,8 @@ int launch(KV kv_kernel, Q q_kernel, size_t smem, int& set_kv, int& set_q,
   const int64_t rows = (int64_t)s.B * s.Sq * s.Hq;
   const int per = kThreads / 32;
   flash_bwd_dot_kernel<T><<<(unsigned)((rows + per - 1) / per), kThreads,
-                            0, stream>>>(static_cast<const T*>(out), tdo,
-                                         dd, s.B, s.Sq, s.Hq, s.D);
+                            0, stream>>>(static_cast<const float*>(out),
+                                         tdo, dd, s.B, s.Sq, s.Hq, s.D);
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess)
     err = allow_smem(reinterpret_cast<const void*>(kv_kernel), (int)smem,
@@ -805,11 +810,12 @@ int launch(KV kv_kernel, Q q_kernel, size_t smem, int& set_kv, int& set_q,
 }  // namespace
 
 // The backward of flash_attention_launch / flash_attention_sm90_launch:
-// q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D), the forward's out and its
-// gradient dout (B, Sq, Hq, D), all contiguous of one dtype, float32
-// (dtype 0) or bfloat16 (dtype 1), and the forward's lse (B, Hq, Sq)
-// float32 -> dq, dk, dv of the inputs' shapes and dtype, using dd
-// (B, Hq, Sq) float32 as scratch.  Requires B, Sq >= 1, Hq % Hkv == 0,
+// q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D) and the gradient dout
+// (B, Sq, Hq, D) of the forward's output, all contiguous of one dtype,
+// float32 (dtype 0) or bfloat16 (dtype 1), the forward's output out
+// (B, Sq, Hq, D) in float32 (a bfloat16 call's values before rounding,
+// its o32), and its lse (B, Hq, Sq) float32 -> dq, dk, dv of the inputs'
+// shapes and dtype, using dd (B, Hq, Sq) float32 as scratch.  Requires B, Sq >= 1, Hq % Hkv == 0,
 // D >= 1 and, if causal, Sq <= Skv.  Returns the first launch error (0 on
 // success).
 extern "C" int flash_attention_bwd_launch(

@@ -293,7 +293,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv,
                                 bf16* __restrict__ out,
-                                float* __restrict__ lse, int B, int Sq,
+                                float* __restrict__ lse,
+                                float* __restrict__ o32, int B, int Sq,
                                 int Skv, int Hq, int Hkv, int causal,
                                 float scale_log2) {
   constexpr int kBoxes = D / kBox;
@@ -544,16 +545,27 @@ __global__ void __launch_bounds__(kThreads, 1)
         lrow[row0 + 8] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : CUDART_INF_F;
     }
     const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
-    bf16* o0 = out + (((int64_t)tile.b * Sq + row0) * Hq + tile.h) * D + cq;
-    bf16* o1 = o0 + (int64_t)8 * Hq * D;
+    const int64_t at =
+        (((int64_t)tile.b * Sq + row0) * Hq + tile.h) * D + cq;
+    const int64_t down = (int64_t)8 * Hq * D;     // row0 + 8
+    bf16* o0 = out + at;
+    // training: the same float32 values before rounding, for the
+    // backward's D = rowsum(dO * O)
+    float* of = o32 == nullptr ? nullptr : o32 + at;
 #pragma unroll
     for (int j = 0; j < kO / 4; ++j) {
-      if (row0 < Sq)
+      const float2 a = make_float2(o[4 * j] * i0, o[4 * j + 1] * i0);
+      const float2 c = make_float2(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
+      if (row0 < Sq) {
         *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
-            __floats2bfloat162_rn(o[4 * j] * i0, o[4 * j + 1] * i0);
-      if (row0 + 8 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) =
-            __floats2bfloat162_rn(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
+            __floats2bfloat162_rn(a.x, a.y);
+        if (of != nullptr) *reinterpret_cast<float2*>(of + 8 * j) = a;
+      }
+      if (row0 + 8 < Sq) {
+        *reinterpret_cast<__nv_bfloat162*>(o0 + down + 8 * j) =
+            __floats2bfloat162_rn(c.x, c.y);
+        if (of != nullptr) *reinterpret_cast<float2*>(of + down + 8 * j) = c;
+      }
     }
   }
 }
@@ -606,8 +618,8 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int B,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out,
-           float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
-           float scale, cudaStream_t stream) {
+           float* lse, float* o32, int B, int Sq, int Skv, int Hq, int Hkv,
+           int causal, float scale, cudaStream_t stream) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   // with no keys the kernel loads no K/V tile: its maps stay blank
@@ -629,32 +641,34 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const int tiles = (Sq + kBQ - 1) / kBQ * Hq * B;
   const int ctas = min(tiles, sms);                 // one CTA per SM
   flash_attention_sm90_kernel<D><<<ctas, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(out), lse, B, Sq, Skv, Hq, Hkv, causal,
-      scale * kLog2e);
+      tq, tk, tv, static_cast<bf16*>(out), lse, o32, B, Sq, Skv, Hq, Hkv,
+      causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D) -> out (B, Sq, Hq, D), all
-// contiguous bfloat16 with 16-byte aligned q, k, v, and, where lse is not
-// null, each row's float32 log-sum-exp into lse (B, Hq, Sq) for the
-// backward.  Requires D 64 or 128, Hq % Hkv == 0 and, if causal,
-// Sq <= Skv.  Returns cudaGetLastError() after the launch (0 on success),
-// or the error that kept it from launching.
+// contiguous bfloat16 with 16-byte aligned q, k, v, and, for the
+// backward, where lse is not null, each row's float32 log-sum-exp into lse
+// (B, Hq, Sq), and where o32 is not null, out's float32 values before
+// rounding into o32 (B, Sq, Hq, D).  Requires D 64 or 128, Hq % Hkv == 0
+// and, if causal, Sq <= Skv.  Returns cudaGetLastError() after the launch
+// (0 on success), or the error that kept it from launching.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* out,
-                                           void* lse, int B, int Sq, int Skv,
-                                           int Hq, int Hkv, int D,
-                                           int causal, float scale,
+                                           void* lse, void* o32, int B,
+                                           int Sq, int Skv, int Hq, int Hkv,
+                                           int D, int causal, float scale,
                                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  float* f = static_cast<float*>(o32);
   if (D == 128)
-    return launch<128>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, causal, scale,
-                       s);
+    return launch<128>(q, k, v, out, l, f, B, Sq, Skv, Hq, Hkv, causal,
+                       scale, s);
   if (D == 64)
-    return launch<64>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, causal, scale,
-                      s);
+    return launch<64>(q, k, v, out, l, f, B, Sq, Skv, Hq, Hkv, causal,
+                      scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -271,14 +271,17 @@ int launch(const float* dt, const float* x, const float* A, const float* Bt,
 // y (B, L, Din), h_last (B, Din, N); all contiguous float32, any N >= 1.
 // Where ckpt is not null (training), the state before every chunk of 64
 // steps goes to ckpt (B, ceil(L / 64), Din, N) for the backward
-// (csrc/selective_scan_bwd.cu).  Returns cudaGetLastError() after the
-// launch (0 on success).
+// (csrc/selective_scan_bwd.cu); the caller passes the chunk it sized ckpt
+// for as ckpt_every, and any other than 64 is refused.  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int selective_scan_launch(const float* dt, const float* x,
                                      const float* A, const float* Bt,
                                      const float* Ct, const float* h0, int B,
                                      int L, int Din, int N, float* y,
                                      float* h_last, float* ckpt,
-                                     void* stream) {
+                                     int ckpt_every, void* stream) {
+  if (ckpt != nullptr && ckpt_every != kChunk)
+    return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t addr = reinterpret_cast<uintptr_t>(dt) |
                          reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(Bt) |

@@ -326,18 +326,19 @@ extern "C" int selective_scan_bwd_blocks(int Din, int N) {
 
 // The backward of selective_scan_launch: the forward's inputs dt and x
 // (B, L, Din), A (Din, N), Bt and Ct (B, L, N), its stored states ckpt
-// (B, ceil(L / 64), Din, N), and the gradients of its outputs dy
+// (B, ceil(L / 64), Din, N; ckpt_every, the chunk they were stored at,
+// must be 64), and the gradients of its outputs dy
 // (B, L, Din) and dh_last (B, Din, N) -> ddt, dx (B, L, Din), dA (Din, N),
 // dB, dC (B, L, N), dh0 (B, Din, N), using part_bc (2, B, blocks, L, N)
 // and part_a (B, Din, N) as scratch; all contiguous float32, B, L >= 1.
 // Returns the first launch error (0 on success).
 extern "C" int selective_scan_bwd_launch(
     const float* dt, const float* x, const float* A, const float* Bt,
-    const float* Ct, const float* ckpt, const float* dy,
+    const float* Ct, const float* ckpt, int ckpt_every, const float* dy,
     const float* dh_last, int B, int L, int Din, int N, float* ddt,
     float* dx, float* dA, float* dB, float* dC, float* dh0, float* part_bc,
     float* part_a, void* stream) {
-  if (B < 1 || L < 1 || Din < 1 || N < 1)
+  if (B < 1 || L < 1 || Din < 1 || N < 1 || ckpt_every != kChunk)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N <= 16)

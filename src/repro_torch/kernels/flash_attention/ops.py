@@ -19,9 +19,11 @@ their tiles themselves.
 
 When grad mode is on and an input requires grad, the call goes through
 one ``torch.autograd.Function``: the forward kernel also writes each
-row's log-sum-exp, and autograd's backward launches the backward kernel
-once, counted as ``flash_attention_bwd``.  Otherwise (serving) no
-log-sum-exp is written and no autograd node is made.
+row's log-sum-exp and, for bfloat16, its output's float32 values before
+rounding (the backward's ``D = rowsum(dO * O)`` takes the float32 O, as
+the plain version's autograd does), and autograd's backward launches the
+backward kernel once, counted as ``flash_attention_bwd``.  Otherwise
+(serving) neither is written and no autograd node is made.
 """
 from __future__ import annotations
 
@@ -32,10 +34,10 @@ from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 P, I, F = rt.PTR, rt.INT, rt.FLOAT
-_SIG = {"flash_attention_launch": (P, P, P, P, P, I, I, I, I, I, I, I, I,
-                                   F, P)}
-_SIG_SM90 = {"flash_attention_sm90_launch": (P, P, P, P, P, I, I, I, I, I,
-                                             I, I, F, P)}
+_SIG = {"flash_attention_launch": (P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                   I, F, P)}
+_SIG_SM90 = {"flash_attention_sm90_launch": (P, P, P, P, P, P, I, I, I, I,
+                                             I, I, I, F, P)}
 _SIG_BWD = {"flash_attention_bwd_launch": (P, P, P, P, P, P, P, P, P, P, I,
                                            I, I, I, I, I, I, I, F, P)}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -62,9 +64,10 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     return _forward(q, k, v, causal, None)
 
 
-def _forward(q, k, v, causal, lse):
+def _forward(q, k, v, causal, lse, o32=None):
     """One forward launch; writes each row's log-sum-exp into ``lse``
-    (B, Hq, Sq) float32 unless it is None."""
+    (B, Hq, Sq) float32 and the output's float32 values before rounding
+    into ``o32`` (B, Sq, Hq, D) unless they are None."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -74,28 +77,33 @@ def _forward(q, k, v, causal, lse):
     if instance(q.dtype, D) == "sm90":
         lib = rt.load("flash_attention_sm90", _SIG_SM90)
         rc = lib.flash_attention_sm90_launch(
-            rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), rt.ptr(lse), B,
-            Sq, Skv, Hq, Hkv, D, int(causal), D ** -0.5, stream)
+            rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), rt.ptr(lse),
+            rt.ptr(o32), B, Sq, Skv, Hq, Hkv, D, int(causal), D ** -0.5,
+            stream)
     else:
         lib = rt.load("flash_attention", _SIG)
         rc = lib.flash_attention_launch(
-            rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), rt.ptr(lse), B,
-            Sq, Skv, Hq, Hkv, D, DTYPES[q.dtype], int(causal), D ** -0.5,
-            stream)
+            rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), rt.ptr(lse),
+            rt.ptr(o32), B, Sq, Skv, Hq, Hkv, D, DTYPES[q.dtype],
+            int(causal), D ** -0.5, stream)
     rt.count_launch("flash_attention")
     rt.check(lib, rc, "flash_attention")
     return out
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool):
+def flash_attention_bwd(q, k, v, o32, lse, dout, *, causal: bool):
     """The backward kernel: (dq, dk, dv) of the inputs' shapes and dtype
-    from the forward's inputs, its output ``out``, its row log-sum-exps
-    ``lse`` (B, Hq, Sq) and the output's gradient ``dout``."""
+    from the forward's inputs, its output in float32 ``o32`` (the output
+    itself for float32 inputs, else its values before rounding), its row
+    log-sum-exps ``lse`` (B, Hq, Sq) and the output's gradient
+    ``dout``."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     rt.require(dout, "dout", q.dtype, q.device, 4)
+    rt.require(o32, "o32", torch.float32, q.device, 4)
     rt.require(lse, "lse", torch.float32, q.device, 3)
-    if dout.shape != q.shape or lse.shape != (B, Hq, Sq):
+    if (dout.shape != q.shape or o32.shape != q.shape
+            or lse.shape != (B, Hq, Sq)):
         raise ValueError("flash_attention_bwd: shapes disagree")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
@@ -103,7 +111,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool):
     dd = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     lib = rt.load("flash_attention_bwd", _SIG_BWD)
     rc = lib.flash_attention_bwd_launch(
-        rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), rt.ptr(dout),
+        rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(o32), rt.ptr(dout),
         rt.ptr(lse), rt.ptr(dd), rt.ptr(dq), rt.ptr(dk), rt.ptr(dv), B, Sq,
         Skv, Hq, Hkv, D, DTYPES[q.dtype], int(causal), D ** -0.5,
         rt.stream_handle(q.device))
@@ -117,16 +125,18 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal):
         B, Sq, Hq, _ = q.shape
         lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-        out = _forward(q, k, v, causal, lse)
+        o32 = (None if q.dtype == torch.float32 else
+               torch.empty(q.shape, dtype=torch.float32, device=q.device))
+        out = _forward(q, k, v, causal, lse, o32)
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, out if o32 is None else o32, lse)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+        q, k, v, o32, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o32, lse,
                                          dout.contiguous(),
                                          causal=ctx.causal)
         return dq, dk, dv, None

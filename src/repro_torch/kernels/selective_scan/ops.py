@@ -25,11 +25,14 @@ from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 P, I = rt.PTR, rt.INT
-_SIG = {"selective_scan_launch": (P, P, P, P, P, P, I, I, I, I, P, P, P, P)}
-_SIG_BWD = {"selective_scan_bwd_launch": (P, P, P, P, P, P, P, P, I, I, I, I,
-                                          P, P, P, P, P, P, P, P, P),
+_SIG = {"selective_scan_launch": (P, P, P, P, P, P, I, I, I, I, P, P, P, I,
+                                  P)}
+_SIG_BWD = {"selective_scan_bwd_launch": (P, P, P, P, P, P, I, P, P, I, I, I,
+                                          I, P, P, P, P, P, P, P, P, P),
             "selective_scan_bwd_blocks": (I, I)}
-CHUNK = 64          # steps between the states the forward stores
+# steps between the states the forward stores; both launchers take it and
+# refuse any other than their own
+CHUNK = 64
 
 
 def selective_scan(dt, x, A, Bt, Ct, h0):
@@ -57,7 +60,7 @@ def _forward(dt, x, A, Bt, Ct, h0, ckpt):
     rc = lib.selective_scan_launch(
         rt.ptr(dt), rt.ptr(x), rt.ptr(A), rt.ptr(Bt), rt.ptr(Ct),
         rt.ptr(h0), B, L, Din, N, rt.ptr(y), rt.ptr(h_last), rt.ptr(ckpt),
-        rt.stream_handle(x.device))
+        CHUNK, rt.stream_handle(x.device))
     rt.count_launch("selective_scan")
     rt.check(lib, rc, "selective_scan")
     return y, h_last
@@ -88,9 +91,10 @@ def selective_scan_bwd(dt, x, A, Bt, Ct, ckpt, dy, dh_last):
     part_a = torch.empty((B, Din, N), dtype=torch.float32, device=x.device)
     rc = lib.selective_scan_bwd_launch(
         rt.ptr(dt), rt.ptr(x), rt.ptr(A), rt.ptr(Bt), rt.ptr(Ct),
-        rt.ptr(ckpt), rt.ptr(dy), rt.ptr(dh_last), B, L, Din, N, rt.ptr(ddt),
-        rt.ptr(dx), rt.ptr(dA), rt.ptr(dB), rt.ptr(dC), rt.ptr(dh0),
-        rt.ptr(part_bc), rt.ptr(part_a), rt.stream_handle(x.device))
+        rt.ptr(ckpt), CHUNK, rt.ptr(dy), rt.ptr(dh_last), B, L, Din, N,
+        rt.ptr(ddt), rt.ptr(dx), rt.ptr(dA), rt.ptr(dB), rt.ptr(dC),
+        rt.ptr(dh0), rt.ptr(part_bc), rt.ptr(part_a),
+        rt.stream_handle(x.device))
     rt.count_launch("selective_scan_bwd")
     rt.check(lib, rc, "selective_scan_bwd")
     return ddt, dx, dA, dB, dC, dh0

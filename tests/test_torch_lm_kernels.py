@@ -248,3 +248,88 @@ def test_scan_wrapper_rejects(bad, match):
         ta[3] = ta[3][:, :4].contiguous()
     with pytest.raises((TypeError, ValueError), match=match):
         scan_ops._check(*ta)
+
+
+# tests/test_torch_cuda.py's bar on the backward kernel's bf16 gradients:
+# each row's error beyond flash_attention_grad_budget, over its max |grad|
+GRAD_ROW_BF16 = 0.02
+
+
+def _kernel_arithmetic(q, k, v, dout, causal, dq_drop=0):
+    """The bf16 backward kernel's arithmetic (csrc/flash_attention_bwd.cu)
+    in plain PyTorch: P from the row log-sum-exp, D from the forward's
+    float32 output (whose P.V takes p rounded to bf16), dS and P rounded
+    to bf16 for the products, the gradients rounded to bf16.  With
+    ``dq_drop``, dq leaves out the terms of that many last keys (a fault:
+    a dq pass that misses the last KV tile)."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = D ** -0.5
+    qg = q.reshape(B, S, Hkv, G, D).float()
+    dog = dout.reshape(B, S, Hkv, G, D).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1),
+                          float("-inf"))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    o32 = torch.einsum("bhgqk,bkhd->bqhgd", e.to(torch.bfloat16).float(),
+                       vf) / e.sum(-1).permute(0, 3, 1, 2)[..., None]
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
+    dd = (dog * o32).sum(-1).permute(0, 2, 3, 1)[..., None]
+    ds = (p * (dp - dd)).to(torch.bfloat16).float()
+    ds_q = ds[..., :ds.shape[-1] - dq_drop]
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds_q, kf[:, :ds_q.shape[-1]])
+    dq = dq.reshape(q.shape) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(torch.bfloat16).float(),
+                      dog)
+    return [t.to(torch.bfloat16) for t in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", [
+    (2, 127, 8, 2, 80, True), (1, 300, 8, 1, 128, True),
+    (2, 127, 4, 4, 128, True), (2, 127, 8, 2, 80, False),
+    (1, 200, 4, 1, 64, False)])
+def test_flash_grad_budget_passes_roundings_and_fails_faults(B, S, Hq, Hkv,
+                                                            D, causal):
+    """The card's bar on bf16 attention gradients, on the CPU: the kernel's
+    arithmetic in plain PyTorch lies within GRAD_ROW_BF16 of the plain
+    version's autograd beyond flash_attention_grad_budget in every row of
+    dq and every key of dk and dv, and the same bar fails the gradients
+    with the last KV tile's (64 keys') terms left out of dq, or its dk
+    and dv zeroed, and, unmasked, against a plain version that hides the
+    last key."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_grad_budget, flash_attention_ref,
+        grad_rows_beyond_budget as _beyond_budget)
+
+    g = torch.Generator().manual_seed(S + D)
+    q, k, v = (torch.randn(sh, generator=g).to(torch.bfloat16)
+               for sh in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    dout = torch.randn((B, S, Hq, D), generator=g).to(torch.bfloat16)
+
+    def plain_grads(k_, v_):
+        ins = [t.clone().requires_grad_(True) for t in (q, k_, v_)]
+        out = flash_attention_ref(*ins, causal=causal)
+        return torch.autograd.grad(out, ins, dout)
+
+    want = plain_grads(k, v)
+    budget = flash_attention_grad_budget(q, k, v, dout, causal=causal)
+    got = _kernel_arithmetic(q, k, v, dout, causal)
+    for name, a, w, b in zip(("dq", "dk", "dv"), got, want, budget):
+        assert _beyond_budget(a, w, b) <= GRAD_ROW_BF16, name
+    for a, w, b in zip(got[1:], want[1:], budget[1:]):
+        a = a.clone()
+        a[:, -64:] = 0
+        assert _beyond_budget(a, w, b) > GRAD_ROW_BF16
+    dq_short = _kernel_arithmetic(q, k, v, dout, causal, dq_drop=64)[0]
+    assert _beyond_budget(dq_short, want[0], budget[0]) > GRAD_ROW_BF16
+    if not causal:
+        hidden = plain_grads(k[:, :-1], v[:, :-1])
+        fault = [hidden[0]] + [torch.cat([h, torch.zeros_like(h[:, :1])], 1)
+                               for h in hidden[1:]]
+        assert max(_beyond_budget(a, w, b) for a, w, b in zip(
+            got, fault, budget)) > GRAD_ROW_BF16
