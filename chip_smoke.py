@@ -99,16 +99,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    layers, take 3 steps of ``make_train_step`` (B 2 x S 4,096, block
    remat, AdamW from ``make_optimizer``) on one seeded batch: the loss
    falls at every step, each step launches the forward kernel twice a
-   layer and its backward kernel (``flash_attention_bwd`` or
-   ``selective_scan_bwd``) once, and the step time, peak memory, device
-   busy share and top device ops are printed.  Then both backward
-   kernels against the plain version's autograd (flash at Yi's train
-   shape in bf16, each query row of dq and each key of dk and dv within
-   0.02 of its max |grad| beyond each element's rounding budget, a bar
-   that must fail the last KV tile's dk and dv zeroed, and at a ragged
-   float32 shape within 1e-5 of max(1, max |grad|); the scan at
-   Falcon's with L cut to 1,024 for the oracle, within 1e-5), timed
-   beside the plain backward and, for flash, the backward of one
+   layer and its backward kernel (``flash_attention_bwd``, Yi's the
+   Hopper instance, or ``selective_scan_bwd``) once, and the step time,
+   peak memory, device busy share and top device ops are printed.  Then
+   both backward kernels against the plain version's autograd (flash at
+   Yi's train shape in bf16, the Hopper instance, each query row of dq
+   and each key of dk and dv within 0.02 of its max |grad| beyond each
+   element's rounding budget, a bar that must fail the last KV tile's dk
+   and dv zeroed, and timed in turns with the general instance, which
+   must agree with it within the same bar; at a ragged float32 shape
+   within 1e-5 of max(1, max |grad|); the scan at Falcon's with L cut to
+   1,024 for the oracle, within 1e-5, and with ``--ab`` in turns with
+   the other design at the full L), timed beside the plain backward
+   and, for flash, the backward of one
    ``scaled_dot_product_attention``; one train step's
    gradients of a 2-layer cut (B 2, S 256) on the card against the CPU
    (float32: loss within 1e-4, each gradient leaf within 1e-4 of its
@@ -293,21 +296,23 @@ def bound_ms(nbytes: float, ops: float,
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def in_turns(torch, lib, ab, kernel, flush, what) -> list:
+def in_turns(torch, lib, ab, kernel, flush, what, close=None) -> list:
     """``kernel`` against another design of its library ``lib``, built
     from the source in directory ``ab`` (same C interface): the two must
-    agree (ints and masks exactly, floats within the kernel bar), then
-    both are timed in turns, other, tree, tree, other."""
+    agree (ints and masks exactly, floats within the kernel bar, or by
+    ``close(other, tree, what)``), then both are timed in turns, other,
+    tree, tree, other."""
     from repro_torch.kernels import runtime
 
     with runtime.sources_from(lib, ab):
         other = kernel()
     tree = kernel()
     torch.cuda.synchronize()
-    for i, (o, t) in enumerate(zip(*(x if isinstance(x, tuple) else (x,)
-                                     for x in (other, tree)))):
+    for i, (o, t) in enumerate(zip(*(x if isinstance(x, (tuple, list))
+                                     else (x,) for x in (other, tree)))):
         if t.is_floating_point():
-            max_err(torch, o, t, f"{what} [{i}]: {ab} vs the tree")
+            (close or (lambda a, b, w: max_err(torch, a, b, w)))(
+                o, t, f"{what} [{i}]: {ab} vs the tree")
         else:
             assert_equal(torch, o, t, f"{what} [{i}]: {ab} vs the tree")
     turns = []
@@ -1200,13 +1205,13 @@ def backward_row(torch, tr, dev, ab=()):
     return row
 
 
-def ab_rows(torch, row, lib, ab, kernel, flush, what):
+def ab_rows(torch, row, lib, ab, kernel, flush, what, close=None):
     """``row`` timed in turns against the design of ``lib``'s source in
     each directory of ``ab`` that has it (see :func:`in_turns`)."""
     for other in ab:
         if (other / f"{lib}.cu").is_file():
             row.setdefault("ab", {})[str(other)] = in_turns(
-                torch, lib, other, kernel, flush, what)
+                torch, lib, other, kernel, flush, what, close)
 
 
 def own_launches(torch, name, fn) -> int:
@@ -1896,6 +1901,12 @@ def lm_train_steps(torch, dev, args, cfg) -> dict:
     cut = dataclasses.replace(cfg, n_layers=depth)
     kernel = "selective_scan" if cfg.family == "ssm" else "flash_attention"
     want = {kernel: 2 * depth, f"{kernel}_bwd": depth}
+    if cfg.family != "ssm":
+        from repro_torch.kernels.flash_attention.ops import instance
+        inst = instance(torch.bfloat16, cfg.head_dim_)
+        if inst != "sm90":
+            raise AssertionError(f"{cfg.name}: its attention takes the "
+                                 f"{inst} instances, forward and backward")
     t0 = time.perf_counter()
     opt = Z.make_optimizer(cut)
     state = Z.init_train_state(
@@ -1943,12 +1954,16 @@ def lm_train_steps(torch, dev, args, cfg) -> dict:
 def flash_bwd_rows(torch, dev, flush, launches):
     """The flash_attention backward against the plain version's autograd
     at Yi-6B's train shape (2, 4,096, 32/4 heads of 128) in bf16, causal
-    (after the Hopper forward instance), and at (2, 1,000, 8/2, 80) in
-    float32, not causal (after the general one), timed beside the plain
+    (the Hopper instances, forward and backward), and at (2, 1,000, 8/2,
+    80) in float32, not causal (the general ones), timed beside the plain
     autograd backward and the autograd backward of one
     ``scaled_dot_product_attention`` (a yardstick, never called by the
-    port).  The second row's shape is on no path: it counts its own
+    port).  At Yi's shape the Hopper backward is also timed in turns with
+    the general instance's (its WMMA route, taken through the ops
+    module's private ``_instance``), which must agree with it within the
+    same bar.  The second row's shape is on no path: it counts its own
     call's launches."""
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          instance)
     from repro_torch.kernels.flash_attention.ref import (
@@ -1971,7 +1986,12 @@ def flash_bwd_rows(torch, dev, flush, launches):
         torch.cuda.synchronize()
         names = [f"flash_attention_bwd {nm} D={D}" for nm in ("dq", "dk",
                                                               "dv")]
+        inst = instance(dtype, D)
+        turns = None
         if dtype == torch.bfloat16:
+            if inst != "sm90":
+                raise AssertionError(f"flash_attention_bwd D={D} bf16 takes "
+                                     f"the {inst} instance")
             tol = BF16_GRAD_ROW
             budgets = flash_attention_grad_budget(
                 *(t.detach() for t in ins), dout, causal=causal)
@@ -1998,6 +2018,10 @@ def flash_bwd_rows(torch, dev, flush, launches):
             held = (f"per row beyond the rounding budget {rel:.3g} (tol "
                     f"{tol}; the last KV tile's dk and dv zeroed: "
                     f"{fault:.3g})")
+            turns, agree = route_turns(torch, ops, ins, dout, causal, got,
+                                       budgets, flush)
+            held += (f"; the general instance against the Hopper one "
+                     f"{agree:.3g} (tol {tol})")
             del dropped, budgets
         else:
             tol = ATOL_KERNEL
@@ -2019,29 +2043,35 @@ def flash_bwd_rows(torch, dev, flush, launches):
         plain_ms = device_ms(torch, plain, flush, reps=3)
         lib_ms, lib_call = timings(torch, library, flush)
         pairs = B * Hq * ((S * S + S) / 2 if causal else S * S)
-        ops = 10.0 * D * pairs        # S, dP, dv, dk, dq: 2D FLOP a pair
+        ops_n = 10.0 * D * pairs      # S, dP, dv, dk, dq: 2D FLOP a pair
         esize = ins[0].element_size()
         nbytes = esize * 4 * (ins[0].numel() + ins[1].numel()) \
             + 4 * B * Hq * S          # q o dO dq, k v dk dv; the lse
-        b, by = bound_ms(nbytes, ops, BF16_OPS_PER_S if dtype ==
-                         torch.bfloat16 else FP32_OPS_PER_S, exps=pairs)
-        inst = instance(dtype, D)
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        b, by = bound_ms(nbytes, ops_n, peak, exps=pairs)
+        b7 = bound_ms(nbytes, 1.4 * ops_n, peak, exps=pairs)[0]
         shape = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
                  f"{str(dtype).split('.')[-1]} "
-                 f"{'causal' if causal else 'full'} (after {inst})")
+                 f"{'causal' if causal else 'full'} ({inst})")
         log(f"[kernel] flash_attention_bwd {shape} ok max|err| {err:.3g}, "
             f"{held} device ms: kernel {ms:.4f}  plain {plain_ms:.4f}  "
-            f"bound {b:.4f} ({by}: {ops:.3g} FLOP, {pairs:.3g} exp, "
-            f"{nbytes / 1e6:.1f} MB)  "
-            f"library (SDPA backward) {lib_ms:.4f}; ms per call: kernel "
-            f"{call:.4f}  library {lib_call:.4f}")
+            f"bound {b:.4f} ({by}: {ops_n:.3g} FLOP, {pairs:.3g} exp, "
+            f"{nbytes / 1e6:.1f} MB; with S and dP recomputed for dq, "
+            f"seven products: {b7:.4f})  library (SDPA backward) "
+            f"{lib_ms:.4f}; ms per call: kernel {call:.4f}  library "
+            f"{lib_call:.4f}")
+        src = ("flash_attention_bwd_sm90.cu" if inst == "sm90"
+               else "flash_attention_bwd.cu")
         row = dict(name="flash_attention_bwd", route="cuda", instance=inst,
-                   source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                   source=f"src/repro_torch/csrc/{src}",
                    replaces="src/repro/kernels/flash_attention/"
                             "flash_attention.py:82",
                    max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
                    bound_ms=b, bound_by=by, library_ms=lib_ms,
                    library_call_ms=lib_call, shape=shape)
+        if turns is not None:
+            row["ab"] = {"general instance (csrc/flash_attention_bwd.cu)":
+                         turns}
         if dtype == torch.bfloat16:
             row["launches"] = launches["flash_attention_bwd"]
         else:
@@ -2054,12 +2084,54 @@ def flash_bwd_rows(torch, dev, flush, launches):
     return rows
 
 
-def scan_bwd_row(torch, dev, flush, cfg, launches):
+def route_turns(torch, ops, ins, dout, causal, got, budgets, flush):
+    """The Hopper backward (``got``, its gradients) against the general
+    instance's on the same forward outputs: the general one's gradients
+    within BF16_GRAD_ROW of the Hopper one's per row beyond the rounding
+    budget, then both timed in turns, general, Hopper, Hopper, general
+    (one backward launch each, no autograd).  Returns (turns, the
+    agreement)."""
+    from repro_torch.kernels.flash_attention.ref import (
+        grad_rows_beyond_budget)
+
+    q, k, v = (t.detach() for t in ins)
+    B, S, Hq, _ = q.shape
+    lse = torch.empty((B, Hq, S), device=q.device)
+    o32 = torch.empty(q.shape, device=q.device)
+    ops._forward(q, k, v, causal, lse, o32)
+    run = {inst: (lambda inst=inst: ops.flash_attention_bwd(
+        q, k, v, o32, lse, dout, causal=causal, _instance=inst))
+        for inst in ("general", None)}
+    other = run["general"]()
+    torch.cuda.synchronize()
+    agree = max(grad_rows_beyond_budget(a, w, b)
+                for a, w, b in zip(other, got, budgets))
+    if not agree <= BF16_GRAD_ROW:
+        raise AssertionError(f"flash_attention_bwd: the general instance "
+                             f"against the Hopper one {agree} > "
+                             f"{BF16_GRAD_ROW}")
+    del other
+    turns = []
+    for design, inst in (("other", "general"), ("tree", None),
+                         ("tree", None), ("other", "general")):
+        ms, call = timings(torch, run[inst], flush)
+        turns.append(dict(design=design, ms=ms, call_ms=call))
+    log("[ab] flash_attention_bwd (Yi's train shape): the general "
+        "instance (other) and the Hopper one (tree) agree; device ms / ms "
+        "per call in turns: " + "  ".join(
+            f"{t['design']} {t['ms']:.4f}/{t['call_ms']:.4f}"
+            for t in turns))
+    return turns, agree
+
+
+def scan_bwd_row(torch, dev, flush, cfg, launches, ab=()):
     """The selective_scan backward at Falcon-Mamba-7B's train shape (2,
     4,096, 8,192, 16), with a gradient into h_last too: held against the
     plain loop's autograd with L cut to 1,024 (its graph keeps every
     step's tensors), timed at the full L; the plain time is at the cut
-    L.  No PyTorch call computes the scan."""
+    L.  No PyTorch call computes the scan.  With ``--ab``, timed in turns
+    with the design of each directory's ``selective_scan_bwd.cu``, the
+    two within 1e-5 of max(1, max |grad|) of each other at the full L."""
     from repro_torch.kernels.selective_scan.ops import selective_scan
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
@@ -2106,14 +2178,18 @@ def scan_bwd_row(torch, dev, flush, cfg, launches):
         f"plain (L {Lc}) {plain_ms:.4f}  bound {b:.4f} ({by}: "
         f"{nbytes / 1e6:.1f} MB, {elems:.3g} exp)  library none; ms per "
         f"call: kernel {call:.4f}")
-    return dict(name="selective_scan_bwd", route="cuda",
-                source="src/repro_torch/csrc/selective_scan_bwd.cu",
-                replaces="src/repro/kernels/selective_scan/"
-                         "selective_scan.py:57",
-                max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=None,
-                library_call_ms=None, shape=shape,
-                launches=launches["selective_scan_bwd"])
+    row = dict(name="selective_scan_bwd", route="cuda",
+               source="src/repro_torch/csrc/selective_scan_bwd.cu",
+               replaces="src/repro/kernels/selective_scan/"
+                        "selective_scan.py:57",
+               max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
+               bound_ms=b, bound_by=by, library_ms=None,
+               library_call_ms=None, shape=shape,
+               launches=launches["selective_scan_bwd"])
+    ab_rows(torch, row, "selective_scan_bwd", ab, kernel, flush,
+            f"selective_scan_bwd ({shape})",
+            lambda o, t, what: grad_err(torch, o, t, what, ATOL_KERNEL))
+    return row
 
 
 @contextlib.contextmanager
@@ -2306,7 +2382,8 @@ def lm_train_phase(torch, dev, args):
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     rows = flash_bwd_rows(torch, dev, flush, launches)
     rows.append(scan_bwd_row(torch, dev, flush,
-                             get_arch("falcon-mamba-7b"), launches))
+                             get_arch("falcon-mamba-7b"), launches,
+                             args.ab))
     del flush
     torch.cuda.empty_cache()
     for arch in LM_ARCHS:

@@ -1,7 +1,10 @@
-// Causal or non-causal GQA attention: the backward (dq, dk, dv).
+// Causal or non-causal GQA attention: the backward (dq, dk, dv), the
+// general instance, for every dtype and head dim that the Hopper one
+// (csrc/flash_attention_bwd_sm90.cu: bf16, head dim 64 or 128) does not
+// take.
 //
-// The backward of the forward kernels csrc/flash_attention_sm90.cu and
-// csrc/flash_attention.cu, which replace the Pallas TPU kernel
+// The backward of the forward kernels csrc/flash_attention.cu and
+// csrc/flash_attention_sm90.cu, which replace the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/flash_attention.py::
 //   flash_attention_kernel.
 // The JAX package has no backward Pallas kernel: its LM trains through
@@ -55,8 +58,7 @@
 //     ty + 16a, keys tx + 16j, read from rows of odd stride so a warp's 16
 //     keys hit 16 banks) and 4 x 8 accumulator entries (rows ty + 16a,
 //     columns tx + 16c).
-// wgmma, TMA and a pipelined K/V or q ring (the forward's Hopper design)
-// are later work.  Head dims past 128 (any D): output columns in chunks
+// Head dims past 128 (any D): output columns in chunks
 // of at most 128, one CTA per chunk, and S and dP over slices of 128
 // columns of D staged in turn, as the general forward does past 256.
 #include "common.cuh"

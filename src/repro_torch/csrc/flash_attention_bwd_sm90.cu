@@ -1,0 +1,632 @@
+// Causal or non-causal GQA attention, the backward (dq, dk, dv): the
+// Hopper instance, for bfloat16 with head dim 64 or 128.
+//
+// The backward of csrc/flash_attention_sm90.cu, which replaces the Pallas
+// TPU kernel src/repro/kernels/flash_attention/flash_attention.py::
+// flash_attention_kernel.  The JAX package has no backward Pallas kernel:
+// its LM trains through jax.grad of the plain
+// models/layers.py::blocked_attention.  This kernel computes what
+// csrc/flash_attention_bwd.cu computes (which keeps float32 and every
+// other head dim): for query row i of batch b and head h, against KV
+// head h / G (G = Hq / Hkv), with the causal rule j <= i + Skv - Sq,
+//   P_ij  = exp(s_ij * scale - LSE_i), LSE_i the forward's row log-sum-exp;
+//   D_i   = rowsum(dO_i * O_i) from the forward's float32 output O;
+//   dP_ij = <dO_i, v_j>,  dS_ij = P_ij (dP_ij - D_i);
+//   dv_j  = sum_i bf16(P_ij) dO_i,
+//   dk_j  = scale * sum_i bf16(dS_ij) q_i,  dq_i = scale * sum_j bf16(dS_ij) k_j,
+// every accumulator float32, dk and dv summed over the G query heads of
+// each KV head inside the kernel (no atomics: the same bits every call).
+//
+// What bounds it on the H100: operations.  At Yi-6B's train shape (B 2,
+// S 4096, 32/4 heads of 128, causal) the five products of the gradient
+// (S and dP, then dv, dk, dq) are 6.9e11 FLOP, 0.70 ms at the bf16
+// tensor-core peak, against about 250 MB of q, k, v, O, dO and the three
+// gradients (0.07 ms).  This design recomputes S and dP in its dq pass,
+// seven products (0.97 ms at peak), the price of a result without atomics.
+//
+// Design (FlashAttention-3's backward, kept deterministic).  Three
+// launches:
+//   1. D_i into a float32 buffer (B, Hq, Sq), a warp per row.
+//   2. dk, dv: a persistent grid over (128-key tile, KV head, batch)
+//      tiles, key tile 0 (the longest causal walk) first, dealt in a
+//      snake to as many CTAs as keep the rounds per CTA at their least,
+//      so each CTA's sum of walk lengths is about the same.  A CTA is two
+//      consumer warpgroups of 64 keys each and a producer warpgroup,
+//      which hands its registers to the consumers (setmaxnreg).  One
+//      producer thread loads the tile's K and V once and keeps the 64-row
+//      q and dO tiles of the G query heads in flight through a ring in
+//      shared memory, all by TMA (64-column boxes, the 128-byte swizzle;
+//      rows past S read as zeros); a second producer warp writes each q
+//      tile's LSE (in log2 units, +inf past Sq) and D beside it.  Per q
+//      tile each consumer warpgroup computes
+//        S^T = K Q^T and dP^T = V dO^T by wgmma.m64n64k16, both operands
+//          K-major from shared memory: keys are the accumulator's rows and
+//          q rows its columns, so a thread's columns' LSE and D are read
+//          from the stage's rows;
+//        P^T = ex2(S^T scale log2 e - LSE_2) and dS^T = P^T (dP^T - D) in
+//          registers, masked only on tiles that cross the diagonal;
+//        dV += P^T dO and dK += dS^T Q by wgmma with A from registers (the
+//          accumulator layout of S^T is wgmma's A-operand layout, as in
+//          the forward) and dO and Q as MN-major B operands.
+//      dK and dV stay in registers over the whole walk of the G heads and
+//      are stored as bfloat16 pairs straight from them.
+//   3. dq: a persistent grid over (128-row q tile, q head, batch) tiles,
+//      longest causal walk first, the forward's shape: Q and dO loaded
+//      once a tile, 64-key K and V tiles through a TMA ring; S = Q K^T
+//      and dP = dO V^T by wgmma, P and dS in registers with each row's
+//      LSE and D, dQ += dS K with dS from registers and K MN-major.
+#include "sm90.cuh"   // TMA, wgmma, descriptors, the tensor-map encoder
+
+namespace {
+
+using namespace sm90;
+
+constexpr int kRows = 64;            // rows a TMA box and a warpgroup
+constexpr int kRowBytes = kBox * 2;  // one 64-column row of a box
+constexpr int kConsumers = 256;      // two warpgroups
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+constexpr int kKeys = 128;           // keys a dk/dv tile
+constexpr int kQRows = 128;          // q rows a dq tile
+constexpr int kStagesQ = 2;          // the dk/dv kernel's q/dO ring
+constexpr int kStagesKV = 2;         // the dq kernel's K/V ring
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kDotThreads = 256;
+
+// A tile of R rows (a multiple of 64) and D columns: D / 64 column boxes,
+// each R rows of 128 bytes, 1024-byte aligned for the swizzle.
+template <int D, int R>
+__host__ __device__ constexpr int tile_bytes() {
+  return (D / kBox) * R * kRowBytes;
+}
+
+// Load rows [r0, r0 + R) of head h of batch b into the tile at dst: one
+// TMA box per 64 rows and 64 columns, completing on bar.
+template <int D, int R>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int h, int r0,
+                                          int b) {
+#pragma unroll
+  for (int c = 0; c < D / kBox; ++c)
+#pragma unroll
+    for (int r = 0; r < R / kRows; ++r)
+      tma_load_4d(dst + c * R * kRowBytes + r * kRows * kRowBytes, map, bar,
+                  c * kBox, h, r0 + r * kRows, b);
+}
+
+// Descriptor of k step kk of a K-major operand: rows [ro, ro + 64 or N)
+// of an R-row tile.
+template <int R>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ro, int kk) {
+  return smem_desc(tile + (kk / 4) * R * kRowBytes + ro * kRowBytes +
+                       (kk % 4) * 32,
+                   16, 1024);
+}
+
+// Descriptor of k step kk of an MN-major B operand whose K runs over the
+// 64 rows of a 64-row tile (16 rows a step), N over its columns.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return smem_desc(tile + kk * 16 * kRowBytes, kRows * kRowBytes, 1024);
+}
+
+// D (64 x D) += A (64 x 16, registers) * B (16 x D, MN-major).
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n64(d, a, db);
+}
+
+// Tile i of n, dealt in a snake: round r gives tile r * G + c to CTA c on
+// even rounds and r * G + G - 1 - c on odd ones.
+__device__ __forceinline__ int snake(int round, int n) {
+  const int G = gridDim.x;
+  const int c = (round & 1) ? G - 1 - blockIdx.x : blockIdx.x;
+  const int i = round * G + c;
+  return i < n ? i : -1;
+}
+
+// --- 1. D = rowsum(dO * O) ----------------------------------------------
+__global__ void __launch_bounds__(kDotThreads)
+    flash_bwd_dot_sm90_kernel(const float* __restrict__ out,
+                              const bf16* __restrict__ dout,
+                              float* __restrict__ dd, int B, int Sq, int Hq,
+                              int D) {
+  const int lane = threadIdx.x & 31;
+  const int64_t rows = (int64_t)B * Sq * Hq;
+  const int64_t row = (int64_t)blockIdx.x * (kDotThreads / 32) +
+                      threadIdx.x / 32;   // ((b * Sq + i) * Hq + h)
+  if (row >= rows) return;
+  const float* o = out + row * D;
+  const bf16* g = dout + row * D;
+  float sum = 0.f;
+  for (int d = lane; d < D; d += 32)
+    sum = fmaf(o[d], __bfloat162float(g[d]), sum);
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) sum += __shfl_xor_sync(FULL_MASK, sum, w);
+  if (lane == 0) {
+    const int h = row % Hq;
+    const int64_t bi = row / Hq;          // b * Sq + i
+    const int i = bi % Sq;
+    const int64_t b = bi / Sq;
+    dd[(b * Hq + h) * Sq + i] = sum;
+  }
+}
+
+// --- 2. dk, dv -----------------------------------------------------------
+template <int D>
+constexpr size_t dkdv_smem() {
+  // K and V (128 rows), the q and dO ring (64 rows a stage), each stage's
+  // 64 LSEs and Ds, 2 + 2 kStagesQ mbarriers, and slack to align the base
+  // to 1024 bytes
+  return 2 * (size_t)tile_bytes<D, kKeys>() +
+         2 * (size_t)kStagesQ * tile_bytes<D, kRows>() +
+         (size_t)kStagesQ * 2 * kRows * 4 + 8 * (2 + 2 * kStagesQ) + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ dd,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv,
+                               int B, int Sq, int Skv, int Hq, int Hkv,
+                               int causal, float scale, float scale_log2) {
+  constexpr int kQTile = tile_bytes<D, kRows>();
+  constexpr int kKTile = tile_bytes<D, kKeys>();
+  constexpr int kO = D / 2;          // dK, dV registers a thread (m64nD)
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t s_k = (raw + 1023) & ~1023u;
+  const uint32_t s_v = s_k + kKTile;
+  const uint32_t s_q = s_v + kKTile;                // kStagesQ tiles
+  const uint32_t s_do = s_q + kStagesQ * kQTile;    // kStagesQ tiles
+  const uint32_t s_rows = s_do + kStagesQ * kQTile;  // 64 LSE, 64 D a stage
+  float* rows = reinterpret_cast<float*>(smem_raw + (s_rows - raw));
+  const uint32_t bars = s_rows + kStagesQ * 2 * kRows * 4;
+  const uint32_t kv_full = bars, kv_empty = bars + 8;
+  auto full = [&](int s) { return bars + 8 * (2 + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 + kStagesQ + s); };
+  const int G = Hq / Hkv, off = Skv - Sq;
+  const int n_kt = (Skv + kKeys - 1) / kKeys;
+  const int n_qt = (Sq + kRows - 1) / kRows;
+  const int n_tiles = n_kt * Hkv * B;
+  // q tiles whose rows see key tile kt's first key
+  auto q_first = [&](int kt) {
+    return causal ? max(0, kt * kKeys - off) / kRows : 0;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, kConsumers);
+    for (int s = 0; s < kStagesQ; ++s) {
+      mbar_init(full(s), 1 + 32);    // the TMA thread and the rows' warp
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // --- producer: thread 0 of its first warp issues every TMA load; its
+    // second warp writes each stage's LSEs and Ds.  Both walk the same
+    // tiles and stages; the ring runs on across tiles.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    const int warp = (threadIdx.x - kConsumers) / 32, lane = threadIdx.x % 32;
+    if (warp > 1 || (warp == 0 && lane != 0)) return;
+    int it = 0;                                  // q tiles issued so far
+    for (int round = 0;; ++round) {
+      const int i = snake(round, n_tiles);
+      if (i < 0) break;
+      const int kt = i / (Hkv * B), hk = i % Hkv, b = (i / Hkv) % B;
+      if (warp == 0) {
+        mbar_wait(kv_empty, (round & 1) ^ 1);
+        mbar_expect_tx(kv_full, 2 * kKTile);
+        load_tile<D, kKeys>(s_k, &tk, kv_full, hk, kt * kKeys, b);
+        load_tile<D, kKeys>(s_v, &tv, kv_full, hk, kt * kKeys, b);
+      }
+      const int qf = q_first(kt);
+      for (int g = 0; g < G; ++g) {
+        const int h = hk * G + g;
+        for (int qt = qf; qt < n_qt; ++qt, ++it) {
+          const int s = it % kStagesQ;
+          mbar_wait(empty(s), ((it / kStagesQ) & 1) ^ 1);
+          if (warp == 0) {
+            mbar_expect_tx(full(s), 2 * kQTile);
+            load_tile<D, kRows>(s_q + s * kQTile, &tq, full(s), h,
+                                qt * kRows, b);
+            load_tile<D, kRows>(s_do + s * kQTile, &tdo, full(s), h,
+                                qt * kRows, b);
+          } else {
+            const int64_t at = ((int64_t)b * Hq + h) * Sq;
+#pragma unroll
+            for (int r = lane; r < kRows; r += 32) {
+              const int row = qt * kRows + r;
+              rows[s * 2 * kRows + r] =
+                  row < Sq ? lse[at + row] * kLog2e : CUDART_INF_F;
+              rows[s * 2 * kRows + kRows + r] = row < Sq ? dd[at + row] : 0.f;
+            }
+            mbar_arrive(full(s));
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // --- consumers: warpgroup wg owns keys 64 wg .. 64 wg + 63 of a tile ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int cq = wgmma_col(t), rq = wgmma_row(t);
+  const uint32_t k_wg = s_k + wg * kRows * kRowBytes;
+  const uint32_t v_wg = s_v + wg * kRows * kRowBytes;
+  float dka[kO], dva[kO];
+  int it = 0;                                    // q tiles consumed
+  for (int round = 0;; ++round) {
+    const int i = snake(round, n_tiles);
+    if (i < 0) break;
+    const int kt = i / (Hkv * B), hk = i % Hkv, b = (i / Hkv) % B;
+    const int k0 = kt * kKeys + wg * kRows;      // the warpgroup's first key
+    const int key0 = k0 + rq;                    // the thread's, and + 8
+    const int qf = q_first(kt), n_q = n_qt - qf;
+#pragma unroll
+    for (int j = 0; j < kO; ++j) dka[j] = dva[j] = 0.f;
+    mbar_wait(kv_full, round & 1);
+
+    for (int n = 0; n < G * n_q; ++n, ++it) {
+      const int qt = qf + n % n_q;
+      const int s = it % kStagesQ;
+      const uint32_t qs = s_q + s * kQTile, dos = s_do + s * kQTile;
+      mbar_wait(full(s), (it / kStagesQ) & 1);
+      // S^T = K Q^T, dP^T = V dO^T (64 keys x 64 q rows each)
+      float st[32], dpt[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(st, kmajor<kKeys>(k_wg, 0, kk),
+                     kmajor<kRows>(qs, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dpt, kmajor<kKeys>(v_wg, 0, kk),
+                     kmajor<kRows>(dos, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      // P^T and dS^T in place; a thread's columns are q rows 8j + cq + e
+      const float* l2 = rows + s * 2 * kRows;
+      const float* ds = l2 + kRows;
+      const int q0 = qt * kRows;
+      const bool edge = causal && k0 + kRows - 1 > q0 + off;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + cq + e;
+          const float lc = l2[col], dc = ds[col];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int x = 4 * j + 2 * r + e;
+            float p = ex2(fmaf(st[x], scale_log2, -lc));
+            if (edge && key0 + 8 * r > q0 + col + off) p = 0.f;
+            st[x] = p;
+            dpt[x] = p * (dpt[x] - dc);
+          }
+        }
+      uint32_t pa[4][4], sa[4][4];
+      pack_a<64>(st, pa);        // P rounded to bf16, as the forward's P.V
+      pack_a<64>(dpt, sa);       // dS rounded to bf16
+      // dV += P^T dO, dK += dS^T Q over the tile's 64 q rows
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk)
+        wgmma_rs<D>(dva, pa[kk], mnmajor(dos, kk));
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk)
+        wgmma_rs<D>(dka, sa[kk], mnmajor(qs, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      mbar_arrive(empty(s));
+    }
+    mbar_arrive(kv_empty);
+
+    // dk = scale dK, dv = dV, bf16 pairs straight from registers
+    const int64_t at = (((int64_t)b * Skv + key0) * Hkv + hk) * D + cq;
+    const int64_t down = (int64_t)8 * Hkv * D;        // key0 + 8
+#pragma unroll
+    for (int j = 0; j < kO / 4; ++j) {
+      if (key0 < Skv) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
+            __floats2bfloat162_rn(dka[4 * j] * scale, dka[4 * j + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+            __floats2bfloat162_rn(dva[4 * j], dva[4 * j + 1]);
+      }
+      if (key0 + 8 < Skv) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + down + 8 * j) =
+            __floats2bfloat162_rn(dka[4 * j + 2] * scale,
+                                  dka[4 * j + 3] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + down + 8 * j) =
+            __floats2bfloat162_rn(dva[4 * j + 2], dva[4 * j + 3]);
+      }
+    }
+  }
+}
+
+// --- 3. dq ---------------------------------------------------------------
+template <int D>
+constexpr size_t dq_smem() {
+  // Q and dO (128 rows), the K and V ring (64 keys a stage), 2 + 2
+  // kStagesKV mbarriers, and slack to align the base to 1024 bytes
+  return 2 * (size_t)tile_bytes<D, kQRows>() +
+         2 * (size_t)kStagesKV * tile_bytes<D, kRows>() +
+         8 * (2 + 2 * kStagesKV) + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ dd,
+                             bf16* __restrict__ dq, int B, int Sq, int Skv,
+                             int Hq, int Hkv, int causal, float scale,
+                             float scale_log2) {
+  constexpr int kQT = tile_bytes<D, kQRows>();
+  constexpr int kKT = tile_bytes<D, kRows>();
+  constexpr int kO = D / 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t s_q = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t s_do = s_q + kQT;
+  const uint32_t s_k = s_do + kQT;                 // kStagesKV tiles
+  const uint32_t s_v = s_k + kStagesKV * kKT;      // kStagesKV tiles
+  const uint32_t bars = s_v + kStagesKV * kKT;
+  const uint32_t full_q = bars, empty_q = bars + 8;
+  auto full_kv = [&](int s) { return bars + 8 * (2 + s); };
+  auto empty_kv = [&](int s) { return bars + 8 * (2 + kStagesKV + s); };
+  const int group = Hq / Hkv, off = Skv - Sq;
+  const int n_qt = (Sq + kQRows - 1) / kQRows;
+  const int n_tiles = n_qt * Hq * B;
+  // tile i: the last q tiles (the longest causal walks) first, neighbours
+  // sharing a KV head
+  auto tile_of = [&](int i, int& qt, int& h, int& b) {
+    qt = n_qt - 1 - i / (Hq * B);
+    h = i % Hq;
+    b = (i / Hq) % B;
+  };
+  // 64-key tiles q tile qt walks: all, or up to its last row's diagonal
+  auto kv_tiles = [&](int qt) {
+    const int last_row = min((qt + 1) * kQRows, Sq) - 1;
+    const int k_end = causal ? min(Skv, last_row + off + 1) : Skv;
+    return (k_end + kRows - 1) / kRows;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, kConsumers);
+    for (int s = 0; s < kStagesKV; ++s) {
+      mbar_init(full_kv(s), 1);
+      mbar_init(empty_kv(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // --- producer: one thread issues every TMA load ----------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers) {
+      int it = 0;                                // K/V tiles issued so far
+      for (int round = 0;; ++round) {
+        const int i = snake(round, n_tiles);
+        if (i < 0) break;
+        int qt, h, b;
+        tile_of(i, qt, h, b);
+        mbar_wait(empty_q, (round & 1) ^ 1);
+        mbar_expect_tx(full_q, 2 * kQT);
+        load_tile<D, kQRows>(s_q, &tq, full_q, h, qt * kQRows, b);
+        load_tile<D, kQRows>(s_do, &tdo, full_q, h, qt * kQRows, b);
+        const int n_kt = kv_tiles(qt);
+        for (int kt = 0; kt < n_kt; ++kt, ++it) {
+          const int s = it % kStagesKV;
+          mbar_wait(empty_kv(s), ((it / kStagesKV) & 1) ^ 1);
+          mbar_expect_tx(full_kv(s), 2 * kKT);
+          load_tile<D, kRows>(s_k + s * kKT, &tk, full_kv(s), h / group,
+                              kt * kRows, b);
+          load_tile<D, kRows>(s_v + s * kKT, &tv, full_kv(s), h / group,
+                              kt * kRows, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // --- consumers: warpgroup wg owns q rows 64 wg .. 64 wg + 63 of a tile --
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int cq = wgmma_col(t), rq = wgmma_row(t);
+  float dqa[kO];
+  int it = 0;                                    // K/V tiles consumed
+  for (int round = 0;; ++round) {
+    const int i = snake(round, n_tiles);
+    if (i < 0) break;
+    int qt, h, b;
+    tile_of(i, qt, h, b);
+    const int row0 = qt * kQRows + wg * kRows + rq;   // and row0 + 8
+    const int64_t at_r = ((int64_t)b * Hq + h) * Sq;
+    // the rows' LSE in log2 units (+inf past Sq: P = 0) and D
+    const float l0 = row0 < Sq ? lse[at_r + row0] * kLog2e : CUDART_INF_F;
+    const float l1 =
+        row0 + 8 < Sq ? lse[at_r + row0 + 8] * kLog2e : CUDART_INF_F;
+    const float d0 = row0 < Sq ? dd[at_r + row0] : 0.f;
+    const float d1 = row0 + 8 < Sq ? dd[at_r + row0 + 8] : 0.f;
+    // last key each of the thread's rows may see
+    const int lim0 = causal ? min(Skv - 1, row0 + off) : Skv - 1;
+    const int lim1 = causal ? min(Skv - 1, row0 + 8 + off) : Skv - 1;
+    const int wg_pos = qt * kQRows + wg * kRows + off;  // first row's key
+    const int n_kt = kv_tiles(qt);
+#pragma unroll
+    for (int j = 0; j < kO; ++j) dqa[j] = 0.f;
+    mbar_wait(full_q, round & 1);
+    if (n_kt == 0) mbar_arrive(empty_q);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = (it + kt) % kStagesKV;
+      const uint32_t ks = s_k + s * kKT, vs = s_v + s * kKT;
+      mbar_wait(full_kv(s), ((it + kt) / kStagesKV) & 1);
+      // S = Q K^T, dP = dO V^T (64 q rows x 64 keys each)
+      float sc[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, kmajor<kQRows>(s_q, wg * kRows, kk),
+                     kmajor<kRows>(ks, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dp, kmajor<kQRows>(s_do, wg * kRows, kk),
+                     kmajor<kRows>(vs, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      if (kt == n_kt - 1) mbar_arrive(empty_q);   // done with Q and dO
+      // dS in place of S; masked only on tiles that cross the ragged key
+      // edge or the diagonal
+      const int k0 = kt * kRows;
+      const bool edge = k0 + kRows > Skv || (causal && k0 + kRows - 1 > wg_pos);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * j + cq + e;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int x = 4 * j + 2 * r + e;
+            float p = ex2(fmaf(sc[x], scale_log2, -(r ? l1 : l0)));
+            if (edge && col > (r ? lim1 : lim0)) p = 0.f;
+            sc[x] = p * (dp[x] - (r ? d1 : d0));
+          }
+        }
+      uint32_t sa[4][4];
+      pack_a<64>(sc, sa);        // dS rounded to bf16
+      // dQ += dS K over the tile's 64 keys
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk)
+        wgmma_rs<D>(dqa, sa[kk], mnmajor(ks, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      mbar_arrive(empty_kv(s));
+    }
+    it += n_kt;
+
+    // dq = scale dQ, bf16 pairs straight from registers
+    const int64_t at = (((int64_t)b * Sq + row0) * Hq + h) * D + cq;
+    const int64_t down = (int64_t)8 * Hq * D;         // row0 + 8
+#pragma unroll
+    for (int j = 0; j < kO / 4; ++j) {
+      if (row0 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(dq + at + 8 * j) =
+            __floats2bfloat162_rn(dqa[4 * j] * scale, dqa[4 * j + 1] * scale);
+      if (row0 + 8 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(dq + at + down + 8 * j) =
+            __floats2bfloat162_rn(dqa[4 * j + 2] * scale,
+                                  dqa[4 * j + 3] * scale);
+    }
+  }
+}
+
+// --- host --------------------------------------------------------------
+// As few CTAs as keep each one's rounds at their least (ceil(tiles /
+// SMs)): with the snake, a CTA's tiles then pair long walks with short.
+inline int persistent_ctas(int tiles) {
+  const int sms = sm_count();
+  const int rounds = (tiles + sms - 1) / sms;
+  return (tiles + rounds - 1) / rounds;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const float* out,
+           const void* dout, const float* lse, float* dd, void* dq,
+           void* dk, void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
+           int causal, float scale, cudaStream_t stream) {
+  const int64_t rows = (int64_t)B * Sq * Hq;
+  const int per = kDotThreads / 32;
+  flash_bwd_dot_sm90_kernel<<<(unsigned)((rows + per - 1) / per),
+                              kDotThreads, 0, stream>>>(
+      out, static_cast<const bf16*>(dout), dd, B, Sq, Hq, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (Skv == 0)          // no key: dq is 0, dk and dv are empty
+    return static_cast<int>(cudaMemsetAsync(
+        dq, 0, (size_t)rows * D * sizeof(bf16), stream));
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap tq{}, tk{}, tv{}, tdo{};
+  if (!encode(fn, &tq, q, B, Sq, Hq, D, kRows) ||
+      !encode(fn, &tdo, dout, B, Sq, Hq, D, kRows) ||
+      !encode(fn, &tk, k, B, Skv, Hkv, D, kRows) ||
+      !encode(fn, &tv, v, B, Skv, Hkv, D, kRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int set_kv = 0, set_q = 0;
+  err = allow_smem(reinterpret_cast<const void*>(
+                       flash_bwd_dkdv_sm90_kernel<D>),
+                   (int)dkdv_smem<D>(), set_kv);
+  if (err == cudaSuccess)
+    err = allow_smem(reinterpret_cast<const void*>(
+                         flash_bwd_dq_sm90_kernel<D>),
+                     (int)dq_smem<D>(), set_q);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale_log2 = scale * kLog2e;
+  const int kv_tiles = (Skv + kKeys - 1) / kKeys * Hkv * B;
+  flash_bwd_dkdv_sm90_kernel<D>
+      <<<persistent_ctas(kv_tiles), kThreads, dkdv_smem<D>(), stream>>>(
+          tq, tk, tv, tdo, lse, dd, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), B, Sq, Skv, Hq, Hkv, causal, scale,
+          scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int q_tiles = (Sq + kQRows - 1) / kQRows * Hq * B;
+  flash_bwd_dq_sm90_kernel<D>
+      <<<persistent_ctas(q_tiles), kThreads, dq_smem<D>(), stream>>>(
+          tq, tk, tv, tdo, lse, dd, static_cast<bf16*>(dq), B, Sq, Skv, Hq,
+          Hkv, causal, scale, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The backward of flash_attention_sm90_launch, with the arguments of
+// flash_attention_bwd_launch: q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D)
+// and dout (B, Sq, Hq, D), contiguous bfloat16 (dtype 1) with 16-byte
+// aligned q, k, v and dout (read by TMA), the forward's float32 output
+// out (B, Sq, Hq, D) and its lse (B, Hq, Sq) -> dq, dk, dv of the inputs'
+// shapes in bfloat16, using dd (B, Hq, Sq) float32 as scratch.  Requires
+// D 64 or 128, B, Sq >= 1, Hq % Hkv == 0 and, if causal, Sq <= Skv.
+// Returns the first launch error (0 on success).
+extern "C" int flash_attention_bwd_sm90_launch(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, void* dd, void* dq, void* dk,
+    void* dv, int B, int Sq, int Skv, int Hq, int Hkv, int D, int dtype,
+    int causal, float scale, void* stream) {
+  if (dtype != 1 || B < 1 || Sq < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* o = static_cast<const float*>(out);
+  const float* l = static_cast<const float*>(lse);
+  float* d = static_cast<float*>(dd);
+  if (D == 128)
+    return launch<128>(q, k, v, o, dout, l, d, dq, dk, dv, B, Sq, Skv, Hq,
+                       Hkv, causal, scale, st);
+  if (D == 64)
+    return launch<64>(q, k, v, o, dout, l, d, dq, dk, dv, B, Sq, Skv, Hq,
+                      Hkv, causal, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -53,27 +53,20 @@
 // softmax of tile kt runs while the tensor cores do that P.V (and the
 // other warpgroup's products).
 // Training: when the caller gives an lse buffer, the epilogue also writes
-// each row's log-sum-exp for the backward (csrc/flash_attention_bwd.cu);
+// each row's log-sum-exp for the backward (csrc/flash_attention_bwd_sm90.cu);
 // serving passes none and skips the store.
-#include "common.cuh"
-
-#include <cuda.h>   // CUtensorMap and its enums; the encoder comes from the
-                    // runtime's driver entry point, so nothing links libcuda
-#include <cuda_bf16.h>
+#include "sm90.cuh"   // TMA, wgmma, descriptors, the tensor-map encoder
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace sm90;
 
 constexpr int kBQ = 128;             // q rows per tile
 constexpr int kBK = 128;             // keys per K/V tile
 constexpr int kStages = 2;           // K/V ring depth
 constexpr int kConsumers = 256;      // two warpgroups of 64 q rows
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
-constexpr int kBox = 64;             // bf16 columns per TMA box (128 bytes)
 constexpr int kHalfBytes = kBQ * kBox * 2;  // one 128-row x 64-column box
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // 128-row tile of a head of D columns: D / 64 boxes of 16 KB
 template <int D>
@@ -87,176 +80,6 @@ constexpr size_t smem_bytes() {
   // the base to 1024 bytes (the 128-byte swizzle's period)
   return (size_t)(1 + 2 * kStages) * tile_bytes<D>() + 8 * (2 + 4 * kStages)
          + 1024;
-}
-
-// --- PTX wrappers ------------------------------------------------------
-// (smem_u32 and the mbarrier wrappers are in common.cuh)
-
-// TMA: one box of a 4-D map at coordinates (c0, c1, c2, c3), innermost
-// first, into shared memory at dst, completing on bar.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Wait until at most n committed wgmma groups are still running.
-template <int n>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(n) : "memory");
-}
-// Keep the compiler from moving accesses of an accumulator across the
-// wgmma fence and wait around it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// wgmma shared-memory descriptor of a tile written by TMA with the
-// 128-byte swizzle: start address, leading and stride byte offsets (in
-// 16-byte units) and the swizzle mode (1 = 128 bytes) in bits 62-63.
-//   K-major operand (Q, K): rows of 128 bytes, 8-row groups 1024 bytes
-//     apart (SBO); LBO unused.  The k-th 16-column step starts 32 bytes
-//     further into the swizzle atom, or in the next 64-column box.
-//   MN-major operand (V as B of P.V): each key's 64 columns are one 128-
-//     byte row, 8-key groups 1024 bytes apart (SBO), the next 64 columns
-//     one box (16 KB) further (LBO).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// D (64 x 128, float32) += A (64 x 16, bf16, shared, K-major) *
-// B (16 x 128, bf16, shared, K-major), both by descriptor; scale_d 0
-// overwrites D.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 128, float32) += A (64 x 16, bf16, registers) * B (16 x 128,
-// bf16, shared, MN-major: the descriptor's transpose bit).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 64, float32) += A (64 x 16, bf16, registers) * B (16 x 64,
-// bf16, shared, MN-major: the descriptor's transpose bit).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The wgmma accumulator layout (m64nN, float32), from the PTX ISA's
-// fragment figure: thread t of a warpgroup holds, for each 8-column block
-// j, registers 4j..4j+3 at
-//   rows wgmma_row(t) (4j, 4j + 1) and wgmma_row(t) + 8 (4j + 2, 4j + 3),
-//   columns 8j + wgmma_col(t) (4j, 4j + 2) and 8j + wgmma_col(t) + 1.
-// Warp w of the warpgroup owns rows 16w..16w+15; a quad of lanes shares
-// its two rows.  The A-from-registers operand of a 16-deep k step kk is
-// registers 8kk..8kk+7 of such an accumulator, packed in pairs.
-__host__ __device__ __forceinline__ int wgmma_row(int t) {
-  return (t / 32) * 16 + (t % 32) / 4;
-}
-__host__ __device__ __forceinline__ int wgmma_col(int t) {
-  return 2 * (t % 4);
 }
 
 // The q tiles, longest first (the last causal tiles walk the most keys),
@@ -458,14 +281,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       o[4 * j + 3] *= f1;
     }
   };
-  // p (float) -> bf16 pairs in wgmma's A-operand layout
-  auto pack = [&](const float (&sc)[64], uint32_t (&pa)[8][4]) {
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
-  };
   Tile tile;
   int it = 0;                                    // K/V tiles consumed
   for (int round = 0; tile_at(round, n_qt, Hq, B, tile); ++round) {
@@ -499,7 +314,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(empty_k(s));
       if (n_kt == 1) mbar_arrive(empty_q);
       softmax(sc, 0, f0, f1);        // f = 0: O is still 0
-      pack(sc, pa);
+      pack_a<128>(sc, pa);
     }
     for (int kt = 1; kt < n_kt; ++kt) {
       const int s = (it + kt) % kStages, sp = (it + kt - 1) % kStages;
@@ -516,7 +331,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait<0>();               // P_{kt-1} V_{kt-1} is in
       fence_regs(o);
       mbar_arrive(empty_v(sp));
-      pack(sc, pa);
+      pack_a<128>(sc, pa);
     }
     if (n_kt > 0) {
       const int sp = (it + n_kt - 1) % kStages;
@@ -571,51 +386,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // --- host --------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so
-// the library needs no -lcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// 4-D map of a contiguous (B, S, H, D) bf16 tensor as (D, H, S, B), boxes
-// of 64 columns x 1 head x 128 rows x 1 batch, 128-byte swizzle, rows
-// past S read as zeros.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int B,
-            int S, int H, int D) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {kBox, 1, kBQ, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-            const_cast<void*>(base), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, float* o32, int B, int Sq, int Skv, int Hq, int Hkv,
@@ -624,22 +394,17 @@ int launch(const void* q, const void* k, const void* v, void* out,
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   // with no keys the kernel loads no K/V tile: its maps stay blank
   CUtensorMap tq{}, tk{}, tv{};
-  if (!encode(fn, &tq, q, B, Sq, Hq, D) ||
-      (Skv > 0 && (!encode(fn, &tk, k, B, Skv, Hkv, D) ||
-                   !encode(fn, &tv, v, B, Skv, Hkv, D))))
+  if (!encode(fn, &tq, q, B, Sq, Hq, D, kBQ) ||
+      (Skv > 0 && (!encode(fn, &tk, k, B, Skv, Hkv, D, kBK) ||
+                   !encode(fn, &tv, v, B, Skv, Hkv, D, kBK))))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_sm90_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (Sq + kBQ - 1) / kBQ * Hq * B;
-  const int ctas = min(tiles, sms);                 // one CTA per SM
+  const int ctas = min(tiles, sm_count());          // one CTA per SM
   flash_attention_sm90_kernel<D><<<ctas, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(out), lse, o32, B, Sq, Skv, Hq, Hkv,
       causal, scale * kLog2e);

@@ -1,8 +1,9 @@
-"""Wrapper of the flash_attention CUDA kernels, forward and backward: the
-Hopper forward instance (``csrc/flash_attention_sm90.cu``: wgmma, TMA, a
-K/V ring) for bfloat16 with head dim 64 or 128, the general forward
-instance (``csrc/flash_attention.cu``) for every other dtype and head
-dim, and the backward (``csrc/flash_attention_bwd.cu``) for all of them.
+"""Wrapper of the flash_attention CUDA kernels, forward and backward, each
+in two instances: the Hopper ones (``csrc/flash_attention_sm90.cu`` and
+``csrc/flash_attention_bwd_sm90.cu``: wgmma, TMA, rings in shared
+memory) for bfloat16 with head dim 64 or 128, and the general ones
+(``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``) for
+every other dtype and head dim.
 
 A CPU tensor takes the plain version (``ref.py``), whose gradient is
 PyTorch's autograd of the same expression.  A CUDA tensor launches one
@@ -13,17 +14,19 @@ contiguous float32 or bfloat16 tensors of one dtype, (B, S, H, D) with
 Hq % Hkv == 0 and any head dim D (the general instance takes D > 256 in
 chunks of output columns), and a causal call needs Sq <= Skv (every
 query row then has at least one key).  The Hopper instance reads q, k
-and v by TMA, which needs them 16-byte aligned.  Unlike the Pallas
-wrapper, any Sq and Skv are taken: the kernels mask the ragged edge of
-their tiles themselves.
+and v by TMA, which needs them 16-byte aligned; its backward reads q, k,
+v and the output's gradient so too, and raises if one is not.  Unlike
+the Pallas wrapper, any Sq and Skv are taken: the kernels mask the
+ragged edge of their tiles themselves.
 
 When grad mode is on and an input requires grad, the call goes through
 one ``torch.autograd.Function``: the forward kernel also writes each
 row's log-sum-exp and, for bfloat16, its output's float32 values before
 rounding (the backward's ``D = rowsum(dO * O)`` takes the float32 O, as
 the plain version's autograd does), and autograd's backward launches the
-backward kernel once, counted as ``flash_attention_bwd``.  Otherwise
-(serving) neither is written and no autograd node is made.
+backward kernel of the same instance once, counted as
+``flash_attention_bwd`` either way.  Otherwise (serving) neither is
+written and no autograd node is made.
 """
 from __future__ import annotations
 
@@ -38,16 +41,17 @@ _SIG = {"flash_attention_launch": (P, P, P, P, P, P, I, I, I, I, I, I, I,
                                    I, F, P)}
 _SIG_SM90 = {"flash_attention_sm90_launch": (P, P, P, P, P, P, I, I, I, I,
                                              I, I, I, F, P)}
-_SIG_BWD = {"flash_attention_bwd_launch": (P, P, P, P, P, P, P, P, P, P, I,
-                                           I, I, I, I, I, I, I, F, P)}
+_BWD_ARGS = (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P)
+_SIG_BWD = {"flash_attention_bwd_launch": _BWD_ARGS}
+_SIG_BWD_SM90 = {"flash_attention_bwd_sm90_launch": _BWD_ARGS}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SM90_HEAD_DIMS = (64, 128)
 
 
 def instance(dtype: torch.dtype, head_dim: int) -> str:
-    """The forward kernel a CUDA call launches: ``"sm90"`` (wgmma and
-    TMA) for bfloat16 with a head dim in :data:`SM90_HEAD_DIMS`, else
-    ``"general"``."""
+    """The kernels a CUDA call launches, forward and backward: ``"sm90"``
+    (wgmma and TMA) for bfloat16 with a head dim in
+    :data:`SM90_HEAD_DIMS`, else ``"general"``."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return "sm90"
     return "general"
@@ -91,12 +95,15 @@ def _forward(q, k, v, causal, lse, o32=None):
     return out
 
 
-def flash_attention_bwd(q, k, v, o32, lse, dout, *, causal: bool):
+def flash_attention_bwd(q, k, v, o32, lse, dout, *, causal: bool,
+                        _instance: str | None = None):
     """The backward kernel: (dq, dk, dv) of the inputs' shapes and dtype
     from the forward's inputs, its output in float32 ``o32`` (the output
     itself for float32 inputs, else its values before rounding), its row
     log-sum-exps ``lse`` (B, Hq, Sq) and the output's gradient
-    ``dout``."""
+    ``dout``.  The instance is :func:`instance`'s; ``_instance``
+    ("general") takes the general one instead, for timing the two
+    against each other."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     rt.require(dout, "dout", q.dtype, q.device, 4)
@@ -105,19 +112,39 @@ def flash_attention_bwd(q, k, v, o32, lse, dout, *, causal: bool):
     if (dout.shape != q.shape or o32.shape != q.shape
             or lse.shape != (B, Hq, Sq)):
         raise ValueError("flash_attention_bwd: shapes disagree")
+    inst = bwd_instance(q, k, v, dout, _instance)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     dd = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    lib = rt.load("flash_attention_bwd", _SIG_BWD)
-    rc = lib.flash_attention_bwd_launch(
-        rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(o32), rt.ptr(dout),
-        rt.ptr(lse), rt.ptr(dd), rt.ptr(dq), rt.ptr(dk), rt.ptr(dv), B, Sq,
-        Skv, Hq, Hkv, D, DTYPES[q.dtype], int(causal), D ** -0.5,
-        rt.stream_handle(q.device))
+    args = (rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(o32), rt.ptr(dout),
+            rt.ptr(lse), rt.ptr(dd), rt.ptr(dq), rt.ptr(dk), rt.ptr(dv), B,
+            Sq, Skv, Hq, Hkv, D, DTYPES[q.dtype], int(causal), D ** -0.5,
+            rt.stream_handle(q.device))
+    if inst == "sm90":
+        lib = rt.load("flash_attention_bwd_sm90", _SIG_BWD_SM90)
+        rc = lib.flash_attention_bwd_sm90_launch(*args)
+    else:
+        lib = rt.load("flash_attention_bwd", _SIG_BWD)
+        rc = lib.flash_attention_bwd_launch(*args)
     rt.count_launch("flash_attention_bwd")
     rt.check(lib, rc, "flash_attention_bwd")
     return dq, dk, dv
+
+
+def bwd_instance(q, k, v, dout, forced: str | None = None) -> str:
+    """The backward kernel a call launches: :func:`instance`'s, or the
+    general one where ``forced`` says so.  The Hopper instance reads q,
+    k, v and ``dout`` by TMA: raises if one is not 16-byte aligned."""
+    if forced not in (None, "general"):
+        raise ValueError(f"flash_attention_bwd: instance {forced!r}, "
+                         f"expected None or 'general'")
+    inst = forced or instance(q.dtype, q.shape[-1])
+    if inst == "sm90" and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+        raise ValueError("flash_attention_bwd: the Hopper instance reads q, "
+                         "k, v and dout by TMA and needs them 16-byte "
+                         "aligned")
+    return inst
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -35,7 +35,8 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 KERNELS = ("temporal_sample", "cache_gather", "temporal_attn",
            "flash_attention", "flash_attention_sm90", "flash_attention_bwd",
-           "selective_scan", "selective_scan_bwd")
+           "flash_attention_bwd_sm90", "selective_scan",
+           "selective_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

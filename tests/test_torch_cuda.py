@@ -610,24 +610,31 @@ def _flash_grads(fn, q, k, v, causal, w):
     (1, 1000, 8, 1, 128),    # G 8, Yi's head dim
     (2, 127, 8, 1, 300),     # G 8, D past 128: chunks and slices
     (1, 1000, 4, 1, 64),     # G 4
-    (2, 127, 4, 4, 128)])    # G 1
+    (2, 127, 4, 4, 128),     # G 1
+    # the Hopper instance (bf16, D 64 and 128): S no multiple of its 128-
+    # key and 128-row tiles, and Sq < Skv (row i at i + Skv - Sq)
+    (2, 200, 8, 2, 64),      # G 4
+    (1, 300, 16, 2, 128),    # G 8
+    (1, (100, 333), 8, 1, 128),  # G 8, Sq < Skv
+    (2, (77, 200), 4, 4, 64)])   # G 1, Sq < Skv
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_matches_plain_autograd(card, B, S, Hq,
                                                          Hkv, D, causal,
                                                          dtype):
-    """dq, dk, dv of the backward kernel (after either forward instance)
-    against the plain version's autograd on the same inputs: float32
-    within 1e-5 of max(1, max |grad|); bfloat16 each row within
-    BF16_GRAD_ROW beyond its rounding budget.  One
-    counted launch each way."""
+    """dq, dk, dv of the backward kernel (either instance, after the
+    forward of the same instance) against the plain version's autograd
+    on the same inputs: float32 within 1e-5 of max(1, max |grad|);
+    bfloat16 each row within BF16_GRAD_ROW beyond its rounding budget.
+    One counted launch each way.  ``S`` is Sq = Skv, or (Sq, Skv)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_grad_budget, flash_attention_ref,
         grad_rows_beyond_budget)
 
-    q, k, v = _attn_inputs(card, B, S, S, Hq, Hkv, D, dtype, S + D)
-    w = torch.randn((B, S, Hq, D), device=card,
+    Sq, Skv = S if isinstance(S, tuple) else (S, S)
+    q, k, v = _attn_inputs(card, B, Sq, Skv, Hq, Hkv, D, dtype, Sq + D)
+    w = torch.randn((B, Sq, Hq, D), device=card,
                     generator=torch.Generator(device=card).manual_seed(D))
     runtime.reset_launch_counts()
     _, got = _flash_grads(flash_attention, q, k, v, causal, w)
@@ -650,7 +657,8 @@ def test_flash_attention_backward_matches_plain_autograd(card, B, S, Hq,
                                      (torch.float32, 80)])
 def test_flash_attention_backward_is_deterministic(card, dtype, D):
     """Two backward calls on the same inputs give the same bits (no
-    atomics: dk and dv in one pass over the q tiles, dq in another)."""
+    atomics: dk and dv in one pass over the q tiles, dq in another), for
+    the Hopper instance (bf16, D 128) and the general one."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
     q, k, v = _attn_inputs(card, 2, 300, 300, 8, 2, D, dtype, 3)
@@ -659,6 +667,37 @@ def test_flash_attention_backward_is_deterministic(card, dtype, D):
     again = _flash_grads(flash_attention, q, k, v, True, w)[1]
     torch.cuda.synchronize()
     for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "dout"])
+def test_flash_attention_hopper_backward_refuses_misaligned(card, which):
+    """The Hopper backward reads q, k, v and dout by TMA: one that is not
+    16-byte aligned is refused before the launch, with no fallback; the
+    general instance, asked for, takes it."""
+    from repro_torch.kernels.flash_attention import ops
+
+    B, S, Hq, Hkv, D = 1, 96, 4, 2, 128
+    q, k, v = _attn_inputs(card, B, S, S, Hq, Hkv, D, torch.bfloat16, 4)
+    dout = torch.randn((B, S, Hq, D), device=card).to(torch.bfloat16)
+    lse = torch.empty((B, Hq, S), device=card)
+    o32 = torch.empty((B, S, Hq, D), device=card)
+    ops._forward(q, k, v, True, lse, o32)
+    ins = dict(q=q, k=k, v=v, dout=dout)
+    t = ins[which]
+    shifted = torch.empty(t.numel() + 8, dtype=t.dtype, device=card)[1:]
+    ins[which] = shifted[:t.numel()].view(t.shape).copy_(t)
+    assert ins[which].is_contiguous() and ins[which].data_ptr() % 16
+    args = (ins["q"], ins["k"], ins["v"], o32, lse, ins["dout"])
+    runtime.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention_bwd(*args, causal=True)
+    assert runtime.launch_counts() == {}
+    got = ops.flash_attention_bwd(*args, causal=True, _instance="general")
+    want = ops.flash_attention_bwd(q, k, v, o32, lse, dout, causal=True,
+                                   _instance="general")
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
 
 
@@ -729,7 +768,8 @@ def _scan_grads(fn, args, wy, wh):
 
 @pytest.mark.parametrize("B,L,Din,N", [
     (2, 130, 96, 16), (1, 64, 64, 16), (2, 201, 40, 24), (1, 77, 48, 64),
-    (2, 150, 30, 130), (2, 1, 16, 16), (1, 333, 8192, 16)])
+    (2, 150, 30, 130), (2, 1, 16, 16), (1, 333, 8192, 16),
+    (2, 520, 8192, 16)])   # Falcon's train width, B 2: 256 CTAs, one wave
 def test_selective_scan_backward_matches_plain_autograd(card, B, L, Din, N):
     """ddt, dx, dA, dB, dC and dh0 of the backward kernel against the
     plain loop's autograd, from a nonzero h0 with a gradient flowing in

@@ -150,6 +150,37 @@ def test_flash_dispatch_rule(dtype, head_dim, want):
     assert flash_ops.instance(dtype, head_dim) == want
 
 
+@pytest.mark.parametrize("dtype,head_dim,want", [
+    (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "sm90"),
+    (torch.bfloat16, 80, "general"), (torch.bfloat16, 192, "general"),
+    (torch.float32, 128, "general")])
+@pytest.mark.parametrize("forced", [None, "general"])
+def test_flash_backward_dispatch_rule(dtype, head_dim, want, forced):
+    """The backward launches the forward's instance, from dtype and head
+    dim alone; only the general one can be asked for instead."""
+    q = torch.zeros((1, 8, 4, head_dim), dtype=dtype)
+    k = torch.zeros((1, 8, 2, head_dim), dtype=dtype)
+    got = flash_ops.bwd_instance(q, k, k, q, forced)
+    assert got == (forced or want)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "dout"])
+def test_flash_backward_hopper_instance_rejects_misaligned(which):
+    """The Hopper backward reads q, k, v and dout by TMA: one that is not
+    16-byte aligned raises before any launch (no fallback); the general
+    instance takes it."""
+    ins = {n: torch.zeros((1, 16, 4 if n in ("q", "dout") else 2, 128),
+                          dtype=torch.bfloat16)
+           for n in ("q", "k", "v", "dout")}
+    ins[which] = _misaligned(tuple(ins[which].shape), torch.bfloat16)
+    args = [ins[n] for n in ("q", "k", "v", "dout")]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_ops.bwd_instance(*args)
+    assert flash_ops.bwd_instance(*args, "general") == "general"
+    with pytest.raises(ValueError, match="instance"):
+        flash_ops.bwd_instance(*args, "sm90")
+
+
 def _misaligned(shape, dtype):
     """A contiguous tensor whose data starts 2 bytes past a 16-byte
     boundary."""
@@ -256,8 +287,9 @@ GRAD_ROW_BF16 = 0.02
 
 
 def _kernel_arithmetic(q, k, v, dout, causal, dq_drop=0):
-    """The bf16 backward kernel's arithmetic (csrc/flash_attention_bwd.cu)
-    in plain PyTorch: P from the row log-sum-exp, D from the forward's
+    """The bf16 backward kernels' arithmetic (csrc/flash_attention_bwd.cu
+    and csrc/flash_attention_bwd_sm90.cu round at the same points) in
+    plain PyTorch: P from the row log-sum-exp, D from the forward's
     float32 output (whose P.V takes p rounded to bf16), dS and P rounded
     to bf16 for the products, the gradients rounded to bf16.  With
     ``dq_drop``, dq leaves out the terms of that many last keys (a fault:
