@@ -94,7 +94,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    within 1e-4, bf16 prefill and decode logits within 0.1) and the
    prefill against token-by-token decode on the card (0.15, the
    reference's bar; for Falcon also prefill(S) + one decode step against
-   prefill(S + 1));
+   prefill(S + 1)); then the same serving for Qwen3-MoE-235B-A22B and
+   Llama-4-Scout-17B-16E (moe: full width, cut to 8 layers) and
+   Zamba2-2.7B (hybrid: whole, 54 layers), one at a time, each
+   initialised straight in bf16: the prefill launches ``flash_attention``
+   exactly once a layer (8, 8) or a superlayer (9), the moe prefill's
+   ``moe_drop_frac`` is printed, 32 decode steps at B 8 against a fresh
+   4,096-deep cache; flash_attention against its plain version at each
+   one's prefill shape in bf16 (Hopper at GQA groups 16 and 5, the
+   general instance at zamba2's heads of 80), timed beside SDPA; and the
+   depth cut (the moe archs at 1 layer, B 1, S 128, which puts 15-17 GB
+   of float32 on the host; zamba2 at one superlayer, B 2, S 256): each
+   token's experts the same on the card and the CPU in float32,
+   ``forward_hidden`` within 1e-4, bf16 logits within 5e-2 (zamba2's
+   within 0.1, a bar that must fail a planted fault; in bf16 the CPU
+   replays the card's experts, and a token routed differently must be a
+   near-tie and is named beside the reading), the prefill
+   against token-by-token decode within 0.15 (the moe archs at 4 tokens,
+   where the prefill cannot drop a slot), and zamba2's prefill(S) + one
+   decode step against prefill(S + 1);
 8. LM training phase: Yi-6B and Falcon-Mamba-7B at full width, cut to 8
    layers, take 3 steps of ``make_train_step`` (B 2 x S 4,096, block
    remat, AdamW from ``make_optimizer``) on one seeded batch: the loss
@@ -1430,13 +1448,40 @@ def train_phase(torch, dev, args, stream):
 # ---------------------------------------------------------------------------
 
 LM_ARCHS = ("yi-6b", "falcon-mamba-7b")
+# served only (their training is later work): the moe archs cut in depth
+# (qwen3-moe's bf16 tree takes 5 GB a layer), zamba2 whole
+LM_SERVE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e",
+                  "zamba2-2.7b")
+LM_SERVE_DEPTH = {"qwen3-moe-235b-a22b": 8, "llama4-scout-17b-a16e": 8}
 LM_PREFILL = (2, 4096)        # prompts x tokens (prefill_32k: 32 x 32,768)
-LM_DECODE = {"yi-6b": 8, "falcon-mamba-7b": 2}   # sequences (decode_32k:
-LM_DECODE_STEPS = 32                             # 128 x 32,768)
+LM_DECODE = {"yi-6b": 8, "falcon-mamba-7b": 2, "qwen3-moe-235b-a22b": 8,
+             "llama4-scout-17b-a16e": 8, "zamba2-2.7b": 8}  # sequences
+LM_DECODE_STEPS = 32          # (decode_32k: 128 x 32,768)
 LM_CUT = (2, 2, 256)          # layers, B, S of the card-vs-CPU checks
+# the moe archs' cut holds a 15-17 GB float32 layer on the host; zamba2's
+# is one superlayer
+LM_CUT_OF = {"qwen3-moe-235b-a22b": (1, 1, 128),
+             "llama4-scout-17b-a16e": (1, 1, 128), "zamba2-2.7b": (6, 2, 256)}
+# the moe archs' prefill against token-by-token decode: a length at which
+# the prefill cannot drop a slot (a token's k experts are distinct, so an
+# expert gets at most S slots a row, and capacity is at least 4; asserted).
+# A random-init layer routes a short prompt's tokens alike, so 8 tokens
+# can already overflow a capacity of 4
+MOE_DECODE_S = 4
+# a token routed differently by two bf16 runs must be a near-tie: each
+# expert one run picked within 2^-5 of the other's k-th router log-prob
+# (the log-probs differ as the logits do: 4 bf16 ulps of a logit in
+# [1, 2), where the top-k boundary of N(0, 1) logits sits)
+NEAR_TIE = 2 ** -5
 # bf16 logits, card vs CPU: 1.6 bf16 ulps at the logits' magnitude of 4-5
 # (one ulp is 0.031 in [4, 8))
 ATOL_LOGITS = 5e-2
+# zamba2's cut (5 Mamba-2 blocks and the shared block) rounds more: on an
+# H100 (``python tests/test_torch_cuda.py logits``, 4 seeds) its sound
+# prefill and decode logits read 0.039-0.0625 card vs CPU, and 0.209-0.477
+# with the newest key hidden from the card's decode attention; the CPU
+# tests' port-vs-JAX bar of 0.1 sits between
+ATOL_LOGITS_OF = {"zamba2-2.7b": 0.1}
 ATOL_DECODE = 0.15            # prefill vs decode (tests/test_lm_smoke.py)
 
 
@@ -1454,11 +1499,16 @@ def lm_serve(torch, dev, args, cfg):
     from repro_torch.models import transformer_lm as T
 
     kernel = "selective_scan" if cfg.family == "ssm" else "flash_attention"
+    launches = T.attention_layers(cfg) or cfg.n_layers
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = Z.init_params(cfg, gen, device=dev)
-    cp = Z._cast_compute(params)          # cast once; drop the masters
-    del params
+    if cfg.name in LM_SERVE_ARCHS:
+        # straight to bf16; the router and Mamba-2's A_log, D, dt_bias f32
+        cp = Z.init_params(cfg, gen, torch.bfloat16, device=dev)
+    else:
+        params = Z.init_params(cfg, gen, device=dev)
+        cp = Z._cast_compute(params)      # cast once; drop the masters
+        del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
@@ -1471,6 +1521,14 @@ def lm_serve(torch, dev, args, cfg):
         np.int32)).to(dev)
     prefill, serve = Z.make_prefill_step(cfg), Z.make_serve_step(cfg)
     prefill(cp, {"tokens": toks})                      # warm-up
+    drops = ""
+    if cfg.moe is not None:      # the prefill's aux, from its forward_hidden
+        x = T.embed_input(cfg, cp, {"tokens": toks})
+        aux = T.forward_hidden(cfg, cp, x, torch.arange(S, device=dev)[
+            None].expand(B, S))[1]
+        drops = (f", moe_drop_frac {float(aux['moe_drop_frac']):.6f} "
+                 f"(moe_lb_loss {float(aux['moe_lb_loss']):.6f})")
+        del x, aux
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_launch_counts()
@@ -1479,9 +1537,9 @@ def lm_serve(torch, dev, args, cfg):
     torch.cuda.synchronize()
     pre_s = time.perf_counter() - t0
     counts = runtime.launch_counts()
-    if counts != {kernel: cfg.n_layers}:
+    if counts != {kernel: launches}:
         raise AssertionError(f"{cfg.name} prefill launched {counts}, "
-                             f"expected {{{kernel!r}: {cfg.n_layers}}}")
+                             f"expected {{{kernel!r}: {launches}}}")
     if tuple(logits.shape) != (B, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError(f"{cfg.name}: bad prefill logits")
@@ -1505,7 +1563,7 @@ def lm_serve(torch, dev, args, cfg):
         outs.append(out)
     dec_peak = torch.cuda.max_memory_allocated()
     counts = runtime.launch_counts()
-    if counts != {kernel: cfg.n_layers}:
+    if counts != {kernel: launches}:
         raise AssertionError(f"{cfg.name}: launches over prefill + decode "
                              f"{counts}")
     if not bool(torch.isfinite(torch.stack(outs)).all()):
@@ -1524,9 +1582,10 @@ def lm_serve(torch, dev, args, cfg):
     d_busy = profiled_busy(torch, steps)
     log(f"[lm] {cfg.name} prefill {B} x {S}: {pre_s * 1e3:.1f} ms "
         f"({B * S / pre_s:.0f} tokens/s), peak {pre_peak / 1e9:.2f} GB; "
-        f"{kernel} launches {counts[kernel]} (one per layer); profiled "
-        f"prefill: device busy {busy[0]:.4f} of {busy[1] * 1e3:.1f} ms, top "
-        f"device ops (ms) {busy[2]}")
+        f"{kernel} launches {counts[kernel]} (one per "
+        f"{'superlayer' if cfg.family == 'hybrid' else 'layer'}){drops}; "
+        f"profiled prefill: device busy {busy[0]:.4f} of "
+        f"{busy[1] * 1e3:.1f} ms, top device ops (ms) {busy[2]}")
     log(f"[lm] {cfg.name} decode {Bd} x {LM_DECODE_STEPS} steps "
         f"({'from the prefill state' if cfg.family == 'ssm' else f'cache {S} deep'}): "
         f"{med:.2f} ms per step median (first {step_ms[0]:.2f}, max "
@@ -1631,6 +1690,65 @@ def flash_row(torch, dev, cfg, flush, ab=()):
                 lambda: flash_attention(q, k, v, causal=True), flush,
                 f"flash_attention ({shape})")
     return row
+
+
+def arch_flash_row(torch, dev, cfg, flush, launches):
+    """flash_attention against its plain version at the prefill shape of
+    a served-only arch in bf16 (qwen3-moe's 64/4 heads of 128 and
+    llama4-scout's 40/8 take the Hopper instance, at GQA groups 16 and
+    5; zamba2's 32/32 heads of 80 the general one), timed beside one
+    scaled_dot_product_attention; ``launches`` is the arch's prefill
+    count."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         instance)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    B, S = LM_PREFILL
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    inst = instance(torch.bfloat16, D)
+    g = torch.Generator(device=dev).manual_seed(23)
+    q, k, v = [torch.randn(sh, generator=g, device=dev).to(torch.bfloat16)
+               for sh in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+    kern = lambda: flash_attention(q, k, v, causal=True)
+    plain = lambda: flash_attention_ref(q, k, v, causal=True)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    what = f"flash_attention {cfg.name}"
+    rel = row_rel_err(torch, got, want, what)
+    err = max_err(torch, got, want, what, ATOL_BF16)
+    del got, want
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    ms, lib_ms = device_ms(torch, kern, flush), device_ms(torch, library,
+                                                          flush)
+    turns = [call_ms(torch, fn, flush=flush)
+             for fn in (kern, library, library, kern)]
+    call, lib_call = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    plain_ms = device_ms(torch, plain, flush, reps=2)
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    pairs = B * Hq * (S * S + S) / 2          # (q, key) pairs in the window
+    ops = 4.0 * D * pairs
+    b, by = bound_ms(nbytes, ops, BF16_OPS_PER_S, exps=pairs)
+    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
+    log(f"[kernel] flash_attention ({inst}) {cfg.name} {shape} ok "
+        f"max|err|/max|ref| of a row {rel:.3g} (tol {ROW_REL_BF16}), "
+        f"max|err| {err:.3g} (tol {ATOL_BF16}) device ms: kernel {ms:.4f}  "
+        f"plain {plain_ms:.4f}  bound {b:.4f} ({by})  library {lib_ms:.4f}; "
+        f"ms per call, in turns (kernel, library, library, kernel): "
+        f"{' '.join(f'{t:.4f}' for t in turns)}; launches {launches} a "
+        f"prefill")
+    del q, k, v, qt, kt, vt
+    return dict(name="flash_attention", route="cuda", instance=inst,
+                source="src/repro_torch/csrc/" + (
+                    "flash_attention_sm90.cu" if inst == "sm90"
+                    else "flash_attention.cu"),
+                replaces="src/repro/kernels/flash_attention/"
+                         "flash_attention.py:82",
+                launches=launches, max_abs_err=err, ms=ms, call_ms=call,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=lib_ms, library_call_ms=lib_call, shape=shape)
 
 
 def wide_flash_rows(torch, dev, flush):
@@ -1749,15 +1867,99 @@ def scan_row(torch, dev, cfg, flush, ab=(), N=None, L=None):
     return row
 
 
+@contextlib.contextmanager
+def routing(replay=None):
+    """Record, for each ``moe._top_k`` call inside the block, the router's
+    probabilities and the experts it picks (on the host).  With
+    ``replay`` (an earlier record, call by call) the model gets that
+    record's experts instead, with this run's own probabilities at them:
+    a bf16 comparison then holds everything but the routing, which
+    :func:`routing_note` holds."""
+    from repro_torch.models import moe
+
+    real, picked = moe._top_k, []
+
+    def record(probs, k):
+        vals, idx = real(probs, k)
+        picked.append((probs.cpu(), idx.cpu()))
+        if replay is None:
+            return vals, idx
+        idx = replay[len(picked) - 1][1].to(probs.device)
+        return probs.gather(-1, idx), idx
+    moe._top_k = record
+    try:
+        yield picked
+    finally:
+        moe._top_k = real
+
+
+def routing_note(torch, ref, run, what, tol=None) -> str:
+    """Tokens whose set of experts differs between two records (``ref``'s
+    picks against ``run``'s own), and the largest amount by which an
+    expert ``ref`` picked falls below ``run``'s k-th router log-prob.
+    ``tol`` None: any difference raises; else a gap past ``tol`` (a
+    routing that is no near-tie) raises."""
+    moved = tot = 0
+    gap = 0.0
+    for (_, i_ref), (p_run, i_run) in zip(ref, run):
+        bad = (i_ref.sort(-1).values != i_run.sort(-1).values).any(-1)
+        moved, tot = moved + int(bad.sum()), tot + bad.numel()
+        if bool(bad.any()):
+            lp = p_run.log()
+            kth = lp.gather(-1, i_run).amin(-1, keepdim=True)
+            gap = max(gap, float((kth - lp.gather(-1, i_ref))
+                                 .clamp_min(0).amax(-1)[bad].max()))
+    if not moved:
+        return ""
+    note = (f"{what}: {moved} of {tot} tokens routed differently, each "
+            f"choice within {gap:.3g} of the k-th router log-prob")
+    if tol is None or gap > tol:
+        raise AssertionError(f"{note} (tol {tol})")
+    return f"; {note} (a near-tie, tol {tol}; compared with the same routing)"
+def newest_key_hidden(torch, cfg, cp, B, S, dev, steps) -> float:
+    """The largest |card - CPU| over the decode ``steps`` ((token, CPU
+    logits) pairs, from a fresh state) with a fault planted on the card:
+    decode attention hides each row's newest key (the one just written)."""
+    from repro_torch.models import lm_zoo as Z
+    from repro_torch.models import transformer_lm as T
+
+    real, serve = T.decode_attention, Z.make_serve_step(cfg)
+    T.decode_attention = lambda q, k, v, valid_len: real(
+        q, k, v, (valid_len - 1).clamp_min(1))
+    try:
+        d, worst = T.init_decode_state(cfg, B, S, device=dev), 0.0
+        for tok, o_c in steps:
+            o, d = serve(cp, d, tok.to(dev))
+            worst = max(worst, float((o.cpu() - o_c).abs().max()))
+    finally:
+        T.decode_attention = real
+    return worst
+
+
+def one_longer(torch, state):
+    """A prefill state with room for one more token: its K/V stacks (L,
+    B, S, Hkv, Dh) padded to S + 1 (a prefill's are exactly S long)."""
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 1))
+    return dict(state, k=pad(state["k"]), v=pad(state["v"]))
+
+
 def lm_cut_checks(torch, dev, args, cfg):
     """Full width, depth cut: the card against the CPU, and the prefill
-    against token-by-token decode on the card."""
+    against token-by-token decode on the card.  For a moe arch each
+    token's experts must be the same on the card and the CPU in float32;
+    in bf16, where the router's logits are rounded and near-ties are
+    common, a token routed differently must be a near-tie (its experts
+    within NEAR_TIE of the k-th router log-prob) and the logits are held
+    with the first run's routing replayed.  For the hybrid its prefill
+    state, continued by one decode step, must give prefill(S + 1)'s last
+    logits."""
     import dataclasses
+    import resource
 
     from repro_torch.models import lm_zoo as Z
     from repro_torch.models import transformer_lm as T
 
-    depth, B, S = LM_CUT
+    depth, B, S = LM_CUT_OF.get(cfg.name, LM_CUT)
     cut = dataclasses.replace(cfg, n_layers=depth)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     params = Z.init_params(cut, gen, device=dev)
@@ -1767,59 +1969,107 @@ def lm_cut_checks(torch, dev, args, cfg):
         np.float32))
     pos = torch.arange(S)[None].expand(B, S)
     t0 = time.perf_counter()
-    h_g = T.forward_hidden(cut, params, x.to(dev), pos.to(dev))[0]
-    h_c = T.forward_hidden(cut, cpu, x, pos)[0]
+    with routing() as r_g:
+        h_g = T.forward_hidden(cut, params, x.to(dev), pos.to(dev))[0]
+    with routing() as r_c:
+        h_c = T.forward_hidden(cut, cpu, x, pos)[0]
+    routing_note(torch, r_g, r_c, f"{cfg.name} float32 forward_hidden")
     err_f = max_err(torch, h_g.cpu(), h_c, f"{cfg.name} forward_hidden f32",
                     ATOL_SERVED)
+    routed = (f", the same experts for all {B * S} tokens"
+              if cut.moe is not None else "")
     cp_g, cp_c = Z._cast_compute(params), Z._cast_compute(cpu)
     del params, cpu, h_g
     toks = torch.from_numpy(rng.integers(0, cut.vocab, (B, S + 1)).astype(
         np.int32))
     prefill, serve = Z.make_prefill_step(cut), Z.make_serve_step(cut)
-    l_g, st_g = prefill(cp_g, {"tokens": toks[:, :S].to(dev)})
-    l_c, st_c = prefill(cp_c, {"tokens": toks[:, :S]})
+    with routing() as r_g:
+        l_g, st_g = prefill(cp_g, {"tokens": toks[:, :S].to(dev)})
+    with routing(r_g) as r_c:
+        l_c, st_c = prefill(cp_c, {"tokens": toks[:, :S]})
+    notes = [routing_note(torch, r_g, r_c, "bf16 prefill", NEAR_TIE)]
+    atol = ATOL_LOGITS_OF.get(cfg.name, ATOL_LOGITS)
     err_p = max_err(torch, l_g.cpu(), l_c, f"{cfg.name} bf16 prefill "
-                    f"logits", ATOL_LOGITS)
+                    f"logits", atol)
     if cfg.family == "ssm":          # continue both prefill states
         d_g, d_c = st_g, st_c
     else:
         d_g = T.init_decode_state(cut, B, S, device=dev)
         d_c = T.init_decode_state(cut, B, S, device="cpu")
-    err_d, tok = 0.0, toks[:, S:]
-    for _ in range(4):
-        o_g, d_g = serve(cp_g, d_g, tok.to(dev))
-        o_c, d_c = serve(cp_c, d_c, tok)
+    err_d, tok, steps = 0.0, toks[:, S:], []
+    for i in range(4):
+        with routing() as r_g:
+            o_g, d_g = serve(cp_g, d_g, tok.to(dev))
+        with routing(r_g) as r_c:
+            o_c, d_c = serve(cp_c, d_c, tok)
+        notes.append(routing_note(torch, r_g, r_c, f"bf16 decode step {i}",
+                                  NEAR_TIE))
         err_d = max(err_d, max_err(torch, o_g.cpu(), o_c, f"{cfg.name} "
-                                   f"bf16 decode logits", ATOL_LOGITS))
+                                   f"bf16 decode logits", atol))
+        steps.append((tok, o_c))
         tok = o_c.argmax(-1, keepdim=True).to(torch.int32)
+    if cfg.name in ATOL_LOGITS_OF:   # its own bar must fail a planted fault
+        worst = newest_key_hidden(torch, cut, cp_g, B, S, dev, steps)
+        if not worst > atol:
+            raise AssertionError(f"{cfg.name}: the bf16 decode bar {atol} "
+                                 f"passes the newest key hidden ({worst})")
+        notes.append(f"; with the newest key hidden from the card's decode "
+                     f"attention {worst:.3g} (must exceed {atol})")
     cpu_s = time.perf_counter() - t0
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
     del cp_c, d_c, st_c
 
-    # prefill against token-by-token decode, on the card
-    d = T.init_decode_state(cut, B, S, device=dev)
-    for i in range(S):
-        o, d = serve(cp_g, d, toks[:, i:i + 1].to(dev))
-    err_t = max_err(torch, o.cpu(), l_g.cpu(), f"{cfg.name} prefill vs "
+    # prefill against token-by-token decode, on the card; a moe prefill
+    # that dropped slots would differ by design, so its length is one at
+    # which it drops none (checked), and each decode step replays the
+    # prefill's routing of its token
+    St, l_t, r_p, drops = S, l_g, None, ""
+    if cut.moe is not None:
+        St = MOE_DECODE_S
+        with routing() as r_p:
+            l_t, _ = prefill(cp_g, {"tokens": toks[:, :St].to(dev)})
+        xt = T.embed_input(cut, cp_g, {"tokens": toks[:, :St].to(dev)})
+        aux = T.forward_hidden(cut, cp_g, xt, torch.arange(
+            St, device=dev)[None].expand(B, St))[1]
+        if float(aux["moe_drop_frac"]) != 0.0:
+            raise AssertionError(f"{cfg.name}: the {St}-token prefill "
+                                 f"dropped {float(aux['moe_drop_frac'])}")
+        drops = f" (the {St}-token prefill drops no slot)"
+    d = T.init_decode_state(cut, B, St, device=dev)
+    for i in range(St):
+        rp = r_p and [(p[:, i:i + 1], ix[:, i:i + 1]) for p, ix in r_p]
+        with routing(rp) as r_d:
+            o, d = serve(cp_g, d, toks[:, i:i + 1].to(dev))
+        if rp:
+            notes.append(routing_note(torch, rp, r_d, f"decode step {i} vs "
+                                      f"the prefill", NEAR_TIE))
+    err_t = max_err(torch, o.cpu(), l_t.cpu(), f"{cfg.name} prefill vs "
                     f"token-by-token decode", ATOL_DECODE)
     extra = ""
-    if cfg.family == "ssm":
-        o, _ = serve(cp_g, st_g, toks[:, S:].to(dev))
+    if cfg.family in ("ssm", "hybrid"):
+        st = st_g if cfg.family == "ssm" else one_longer(torch, st_g)
+        o, _ = serve(cp_g, st, toks[:, S:].to(dev))
         l_n, _ = prefill(cp_g, {"tokens": toks.to(dev)})
         err_n = max_err(torch, o.cpu(), l_n.cpu(), f"{cfg.name} prefill(S) "
                         f"+ decode vs prefill(S+1)", ATOL_DECODE)
         extra = f"; prefill(S) + 1 decode step vs prefill(S+1) {err_n:.3g}"
     log(f"[lm] {cfg.name} cut to {depth} layers, B {B} S {S}: card vs CPU "
-        f"forward_hidden f32 {err_f:.3g} (tol {ATOL_SERVED}), bf16 prefill "
-        f"logits {err_p:.3g}, 4 decode steps {err_d:.3g} (tol "
-        f"{ATOL_LOGITS}) in {cpu_s:.1f} s; prefill vs {S} decode steps "
-        f"{err_t:.3g}{extra} (tol {ATOL_DECODE})")
+        f"forward_hidden f32 {err_f:.3g} (tol {ATOL_SERVED}){routed}, bf16 "
+        f"prefill logits {err_p:.3g}, 4 decode steps {err_d:.3g} (tol "
+        f"{atol}) in {cpu_s:.1f} s, host peak RSS {rss:.1f} GB; "
+        f"prefill vs {St} decode steps {err_t:.3g}{drops}{extra} (tol "
+        f"{ATOL_DECODE}){''.join(notes)}")
 
 
 def lm_phase(torch, dev, args):
     """Yi-6B, then Falcon-Mamba-7B: serve at full size, hold the kernel
     against its plain version (and at the shapes past its old limits),
-    check the depth cut.  Returns the rows of flash_attention and
+    check the depth cut; then the same for Qwen3-MoE and Llama-4-Scout
+    (cut to 8 layers) and Zamba2 (whole), with a flash_attention row at
+    each one's prefill shape.  Returns the rows of flash_attention and
     selective_scan."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
 
     t0 = time.perf_counter()
@@ -1840,6 +2090,18 @@ def lm_phase(torch, dev, args):
         torch.cuda.empty_cache()
         lm_cut_checks(torch, dev, args, cfg)
         torch.cuda.empty_cache()
+    for arch in LM_SERVE_ARCHS:
+        t1 = time.perf_counter()
+        cfg = get_arch(arch)
+        if arch in LM_SERVE_DEPTH:
+            cfg = dataclasses.replace(cfg, n_layers=LM_SERVE_DEPTH[arch])
+        launches = lm_serve(torch, dev, args, cfg)
+        torch.cuda.empty_cache()
+        rows.append(arch_flash_row(torch, dev, cfg, flush, launches))
+        torch.cuda.empty_cache()
+        lm_cut_checks(torch, dev, args, cfg)
+        torch.cuda.empty_cache()
+        log(f"[lm] {arch} done in {time.perf_counter() - t1:.1f} s")
     log(f"[lm] LM serving phase done in {time.perf_counter() - t0:.1f} s")
     return rows
 

@@ -49,7 +49,8 @@ def run_lm(args) -> None:
 
     cfg = get_arch(args.arch).reduced()
     tcfg = TrainerConfig(ckpt_dir=f"{args.ckpt}/{args.arch}",
-                         ckpt_every=20, log_every=10, max_steps=args.steps)
+                         ckpt_every=20, log_every=min(10, args.steps),
+                         max_steps=args.steps)
     tr = LMTrainer(cfg, tcfg, seed=0, device=args.device)
     tr.init_or_restore()
     print(f"[{args.arch}] starting at step {tr.step} "

@@ -221,11 +221,18 @@ def dense_init(generator: torch.Generator, shape: Tuple[int, ...], *,
                scale: Optional[float] = None) -> torch.Tensor:
     """Normal(0, fan_in^-1/2) weights (``fan_in`` = ``shape[0]``, or
     ``scale`` as given), drawn on the generator's device and then moved
-    to ``device`` (default: the generator's)."""
+    to ``device`` (default: the generator's).  A dtype other than
+    float32 is drawn in that dtype, so a full-size bf16 tree never
+    holds a float32 copy of its largest leaf."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     s = scale if scale is not None else fan_in ** -0.5
-    w = torch.randn(tuple(shape), generator=generator,
-                    dtype=torch.float32, device=generator.device).mul_(s)
+    if dtype == torch.float32:
+        w = torch.randn(tuple(shape), generator=generator,
+                        dtype=torch.float32, device=generator.device).mul_(s)
+    else:
+        w = torch.empty(tuple(shape), dtype=dtype,
+                        device=generator.device).normal_(0.0, s,
+                                                         generator=generator)
     return w.to(device=device or generator.device, dtype=dtype)
 
 

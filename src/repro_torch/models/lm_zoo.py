@@ -107,7 +107,9 @@ def make_optimizer(cfg: ArchConfig, *, peak_lr: float = 3e-4,
 def make_loss_fn(cfg: ArchConfig):
     """(params, batch) -> (loss, metrics): next-token cross-entropy for a
     ``tokens`` input (``valid`` optional), masked-frame prediction
-    (``frames``, ``labels``, ``mask``) for a ``frames`` input."""
+    (``frames``, ``labels``, ``mask``) for a ``frames`` input; a moe
+    config adds ``router_aux_weight`` times the layers' mean load-balance
+    loss and reports ``moe_lb_loss`` and ``moe_drop_frac``."""
     check_family(cfg)
 
     def loss_fn(params: PyTree, batch: Dict[str, torch.Tensor]):
@@ -115,7 +117,7 @@ def make_loss_fn(cfg: ArchConfig):
         x = embed_input(cfg, cp, batch)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-        h, _, _ = forward_hidden(cfg, cp, x, positions)
+        h, aux, _ = forward_hidden(cfg, cp, x, positions)
         h = rms_norm(h, cp["final_norm"], cfg.norm_eps)
         w_out = unembed_weight(cfg, cp)
         if cfg.input_kind == "tokens":
@@ -127,9 +129,13 @@ def make_loss_fn(cfg: ArchConfig):
         else:  # masked-frame prediction (HuBERT-style)
             loss, cnt = chunked_softmax_xent(h, w_out, batch["labels"],
                                              batch["mask"])
-        # the moe families' router term comes with their port
-        metrics = {"ce_loss": loss, "tokens": cnt, "loss": loss}
-        return loss, metrics
+        metrics = {"ce_loss": loss, "tokens": cnt}
+        total = loss
+        if cfg.moe is not None:
+            total = total + cfg.moe.router_aux_weight * aux["moe_lb_loss"]
+            metrics.update(aux)
+        metrics["loss"] = total
+        return total, metrics
     return loss_fn
 
 

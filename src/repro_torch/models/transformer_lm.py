@@ -1,5 +1,5 @@
-"""LM backbones of the ``dense``, ``vlm``, ``audio`` and ``ssm`` families
-(counterpart of ``repro.models.transformer_lm``).
+"""LM backbones of every family (counterpart of
+``repro.models.transformer_lm``).
 
 One parameter tree + entry points per config:
   * ``forward_hidden``  — full-sequence forward (prefill), optionally
@@ -8,18 +8,25 @@ One parameter tree + entry points per config:
   * ``init_lm`` / ``init_decode_state``.
 
 Families:
-  dense/vlm/audio — (attn + mlp) blocks; attention is the hand-written
-    ``flash_attention`` kernel on the card (``layers.blocked_attention``).
+  dense/moe/vlm/audio — (attn + mlp|moe) blocks; attention is the
+    hand-written ``flash_attention`` kernel on the card
+    (``layers.blocked_attention``); the moe layer is ``moe.moe_apply``.
   ssm (falcon-mamba) — pure mamba1 blocks; the scan is the hand-written
     ``selective_scan`` kernel on the card.
-The ``moe`` and ``hybrid`` families raise ``NotImplementedError``.
+  hybrid (zamba2) — "superlayers" of ``attn_every - 1`` Mamba-2 blocks
+    followed by ONE weight-tied shared attention+MLP block; the shared
+    block's KV cache is per application (``n_super`` entries), its
+    weights a single set.  Mamba-2's SSD is plain PyTorch (the JAX
+    package has no kernel for it); the shared attention is
+    ``flash_attention``, one launch a superlayer.
 
 Training: unless ``cfg.remat`` is ``"none"``, each block of
-``forward_hidden`` runs under ``torch.utils.checkpoint`` (non-reentrant)
-when autograd records it, the counterpart of the JAX package's
-``jax.checkpoint`` of the scanned block: only the blocks' inputs stay
-alive, and each block's forward (its kernel launch included) runs again
-in the backward.  Serving (no grad) calls the blocks directly.
+``forward_hidden`` (each superlayer of the hybrid family) runs under
+``torch.utils.checkpoint`` (non-reentrant) when autograd records it,
+the counterpart of the JAX package's ``jax.checkpoint`` of the scanned
+block: only the blocks' inputs stay alive, and each block's forward
+(its kernel launch included) runs again in the backward.  Serving (no
+grad) calls the blocks directly.
 
 Per-layer leaves are stacked on a leading ``L`` axis, the layout
 ``jax.vmap`` of the JAX init gives, so a JAX tree maps across one to one
@@ -49,18 +56,26 @@ from repro_torch.models.layers import (apply_rope, blocked_attention,
                                        decode_attention, dense_init,
                                        embed_init, mlp_apply,
                                        mlp_param_shapes, rms_norm)
+from repro_torch.models.moe import moe_apply, moe_init
 
 PyTree = Any
-FAMILIES = ("dense", "vlm", "audio", "ssm")
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise for a family the port does not run yet."""
-    if cfg.family not in FAMILIES or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
-            f"moe and hybrid families come in a later slice of the port, "
-            f"after LM training (ROADMAP.md)")
+    """Raise ``ValueError`` for a family no backbone here builds."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
+
+
+def attention_layers(cfg: ArchConfig) -> int:
+    """Full-sequence attention calls of one forward: a block's each
+    layer, the hybrid's shared block once a superlayer, none in ssm."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -68,40 +83,59 @@ def check_family(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _dense(gen, L: int, shape, dtype, scale: Optional[float] = None):
-    """L stacked (fan_in = shape[0]) dense weights."""
+def _dense(gen, lead: tuple, shape, dtype, scale: Optional[float] = None):
+    """Dense weights (fan_in = shape[0]) stacked on ``lead`` axes."""
     s = scale if scale is not None else shape[0] ** -0.5
-    return dense_init(gen, (L,) + tuple(shape), dtype=dtype, scale=s)
+    return dense_init(gen, lead + tuple(shape), dtype=dtype, scale=s)
 
 
 def _ones(gen, shape, dtype):
     return torch.ones(shape, dtype=dtype, device=gen.device)
 
 
-def _init_attn(gen, cfg: ArchConfig, dtype, L: int) -> dict:
+def _init_attn(gen, cfg: ArchConfig, dtype, lead: tuple) -> dict:
     d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     p = {
-        "wq": _dense(gen, L, (d, Hq * Dh), dtype),
-        "wk": _dense(gen, L, (d, Hkv * Dh), dtype),
-        "wv": _dense(gen, L, (d, Hkv * Dh), dtype),
-        "wo": _dense(gen, L, (Hq * Dh, d), dtype,
+        "wq": _dense(gen, lead, (d, Hq * Dh), dtype),
+        "wk": _dense(gen, lead, (d, Hkv * Dh), dtype),
+        "wv": _dense(gen, lead, (d, Hkv * Dh), dtype),
+        "wo": _dense(gen, lead, (Hq * Dh, d), dtype,
                      scale=(Hq * Dh) ** -0.5 / math.sqrt(2 * cfg.n_layers)),
     }
     if cfg.qk_norm:
-        p["q_norm"] = _ones(gen, (L, Dh), dtype)
-        p["k_norm"] = _ones(gen, (L, Dh), dtype)
+        p["q_norm"] = _ones(gen, lead + (Dh,), dtype)
+        p["k_norm"] = _ones(gen, lead + (Dh,), dtype)
     return p
 
 
-def _init_block(gen, cfg: ArchConfig, dtype, L: int) -> dict:
+def _init_mlp(gen, cfg: ArchConfig, dtype, lead: tuple) -> dict:
     shapes = mlp_param_shapes(cfg.d_model, cfg.d_ff, cfg.act)
-    return {
-        "ln1": _ones(gen, (L, cfg.d_model), dtype),
-        "ln2": _ones(gen, (L, cfg.d_model), dtype),
-        "attn": _init_attn(gen, cfg, dtype, L),
-        "mlp": {n: _dense(gen, L, s, dtype)
-                for n, s in sorted(shapes.items())},
+    return {n: _dense(gen, lead, s, dtype) for n, s in sorted(shapes.items())}
+
+
+def _init_block(gen, cfg: ArchConfig, dtype, lead: tuple) -> dict:
+    p = {
+        "ln1": _ones(gen, lead + (cfg.d_model,), dtype),
+        "ln2": _ones(gen, lead + (cfg.d_model,), dtype),
+        "attn": _init_attn(gen, cfg, dtype, lead),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe_init(gen, cfg.moe, cfg.d_model, cfg.act, dtype,
+                            lead=lead)
+    else:
+        p["mlp"] = _init_mlp(gen, cfg, dtype, lead)
+    return p
+
+
+def _init_mamba_layer(gen, cfg: ArchConfig, dtype, lead: tuple) -> dict:
+    version = cfg.ssm.version
+    if version == 1:
+        block = M.mamba1_init(gen, cfg.ssm, cfg.d_model, dtype,
+                              layers=lead[0])
+    else:
+        block = M.mamba2_init(gen, cfg.ssm, cfg.d_model, dtype, lead=lead)
+    return {"ln": _ones(gen, lead + (cfg.d_model,), dtype),
+            f"mamba{version}": block}
 
 
 def init_lm(cfg: ArchConfig, generator: torch.Generator,
@@ -116,11 +150,14 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
         params["in_proj"] = dense_init(gen, (d, d), dtype=dtype)
         params["mask_emb"] = embed_init(gen, (d,), dtype=dtype)
     if cfg.family == "ssm":
-        params["layers"] = {
-            "ln": _ones(gen, (L, d), dtype),
-            "mamba1": M.mamba1_init(gen, cfg.ssm, d, dtype, layers=L)}
+        params["layers"] = _init_mamba_layer(gen, cfg, dtype, (L,))
+    elif cfg.family == "hybrid":
+        n_super = cfg.n_layers // cfg.attn_every
+        params["superlayers"] = _init_mamba_layer(
+            gen, cfg, dtype, (n_super, cfg.attn_every - 1))
+        params["shared"] = _init_block(gen, cfg, dtype, ())
     else:
-        params["layers"] = _init_block(gen, cfg, dtype, L)
+        params["layers"] = _init_block(gen, cfg, dtype, (L,))
     params["final_norm"] = _ones(gen, (d,), dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, cfg.vocab), dtype=dtype,
@@ -193,8 +230,11 @@ def _block_apply(cfg: ArchConfig, p: dict, x: torch.Tensor,
                       positions)
     x = x + h
     hn = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp_apply(hn, p["mlp"], cfg.act)
-    return x, {}, kv
+    if cfg.moe is not None:
+        ff, aux = moe_apply(p["moe"], hn, cfg.moe, cfg.act)
+    else:
+        ff, aux = mlp_apply(hn, p["mlp"], cfg.act), {}
+    return x + ff, aux, kv
 
 
 def _ssm_block(cfg: ArchConfig, lp: dict, x: torch.Tensor,
@@ -203,6 +243,29 @@ def _ssm_block(cfg: ArchConfig, lp: dict, x: torch.Tensor,
                            cfg.ssm, return_state=collect_state)
     y, st = out if collect_state else (out, None)
     return x + y, st
+
+
+def _super_block(cfg: ArchConfig, slp: dict, shared: dict, x: torch.Tensor,
+                 positions: torch.Tensor, collect_state: bool):
+    """One hybrid superlayer: its Mamba-2 blocks, then the shared
+    attention and MLP.  Returns (x, stacked mamba states|None, (k, v))."""
+    sts = []
+    for j in range(cfg.attn_every - 1):
+        lp = layer(slp, j)
+        out = M.mamba2_forward(lp["mamba2"],
+                               rms_norm(x, lp["ln"], cfg.norm_eps), cfg.ssm,
+                               return_state=collect_state)
+        y, st = out if collect_state else (out, None)
+        x = x + y
+        sts.append(st)
+    h, kv = attn_full(shared["attn"], rms_norm(x, shared["ln1"], cfg.norm_eps),
+                      cfg, positions)
+    x = x + h
+    x = x + mlp_apply(rms_norm(x, shared["ln2"], cfg.norm_eps), shared["mlp"],
+                      cfg.act)
+    st = ({key: torch.stack([s[key] for s in sts]) for key in ("conv", "h")}
+          if collect_state else None)
+    return x, st, kv
 
 
 def _remat(cfg: ArchConfig, block):
@@ -226,27 +289,43 @@ def forward_hidden(cfg: ArchConfig, params: dict, x: torch.Tensor,
     """
     check_family(cfg)
     L = cfg.n_layers
+    stack = lambda sts: {key: torch.stack([st[key] for st in sts])
+                         for key in ("conv", "h")}
     if cfg.family == "ssm":
         block = _remat(cfg, _ssm_block)
         states = []
         for i in range(L):
             x, st = block(cfg, layer(params["layers"], i), x, collect_state)
             states.append(st)
-        if not collect_state:
-            return x, {}, None
-        return x, {}, {"mamba": {
-            key: torch.stack([st[key] for st in states])
-            for key in ("conv", "h")}}
+        return x, {}, ({"mamba": stack(states)} if collect_state else None)
+
+    ks, vs = [], []
+    if cfg.family == "hybrid":
+        block = _remat(cfg, _super_block)
+        states = []
+        for i in range(L // cfg.attn_every):
+            x, st, (k, v) = block(cfg, layer(params["superlayers"], i),
+                                  params["shared"], x, positions,
+                                  collect_state)
+            if collect_state:
+                states.append(st)
+                ks.append(k)
+                vs.append(v)
+        state = ({"mamba": stack(states), "k": torch.stack(ks),
+                  "v": torch.stack(vs)} if collect_state else None)
+        return x, {}, state
 
     block = _remat(cfg, _block_apply)
-    ks, vs = [], []
+    lb = dr = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(L):
-        x, _, (k, v) = block(cfg, layer(params["layers"], i), x, positions)
+        x, aux, (k, v) = block(cfg, layer(params["layers"], i), x, positions)
+        if aux:
+            lb = lb + aux["moe_lb_loss"]
+            dr = dr + aux["moe_drop_frac"]
         if collect_state:
             ks.append(k)
             vs.append(v)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"moe_lb_loss": zero, "moe_drop_frac": zero}
+    aux = {"moe_lb_loss": lb / L, "moe_drop_frac": dr / L}
     state = ({"k": torch.stack(ks), "v": torch.stack(vs)}
              if collect_state else None)
     return x, aux, state
@@ -286,13 +365,16 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
     L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim_
     state: Dict[str, Any] = {
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
-    if cfg.family == "ssm":
-        one = M.mamba1_init_state(cfg.ssm, cfg.d_model, batch, dtype,
-                                  device=device)
-        state["mamba"] = {k: v[None].repeat((L,) + (1,) * v.dim())
+    if cfg.family in ("ssm", "hybrid"):
+        lead = ((L,) if cfg.family == "ssm"
+                else (L // cfg.attn_every, cfg.attn_every - 1))
+        init = (M.mamba1_init_state if cfg.ssm.version == 1
+                else M.mamba2_init_state)
+        one = init(cfg.ssm, cfg.d_model, batch, dtype, device=device)
+        state["mamba"] = {k: v.expand(lead + v.shape).clone()
                           for k, v in one.items()}
-    else:
-        shape = (L, batch, max_seq, Hkv, Dh)
+    if cfg.family != "ssm":
+        shape = (attention_layers(cfg), batch, max_seq, Hkv, Dh)
         state["k"] = torch.zeros(shape, dtype=dtype, device=device)
         state["v"] = torch.zeros(shape, dtype=dtype, device=device)
     return state
@@ -318,14 +400,44 @@ def decode_forward(cfg: ArchConfig, params: dict, x: torch.Tensor,
             hs.append(st["h"])
         new_state["mamba"] = {"conv": torch.stack(convs),
                               "h": torch.stack(hs)}
+    elif cfg.family == "hybrid":
+        shared = params["shared"]
+        convs, hs = [], []
+        for i in range(cfg.n_layers // cfg.attn_every):
+            slp = layer(params["superlayers"], i)
+            for j in range(cfg.attn_every - 1):
+                lp = layer(slp, j)
+                st = {k: v[i, j] for k, v in state["mamba"].items()}
+                y, st = M.mamba2_decode_step(
+                    lp["mamba2"], rms_norm(x[:, 0], lp["ln"], cfg.norm_eps),
+                    st, cfg.ssm)
+                x = x + y[:, None]
+                convs.append(st["conv"])
+                hs.append(st["h"])
+            x = _decode_block(cfg, shared, x, state["k"][i], state["v"][i],
+                              pos)
+        lead = state["mamba"]["h"].shape[:2]
+        new_state["mamba"] = {
+            "conv": torch.stack(convs).reshape(
+                lead + state["mamba"]["conv"].shape[2:]),
+            "h": torch.stack(hs).reshape(lead + state["mamba"]["h"].shape[2:])}
     else:
         for i in range(cfg.n_layers):
-            lp = layer(params["layers"], i)
-            h, _, _ = attn_decode(
-                lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-                state["k"][i], state["v"][i], pos, cfg)
-            x = x + h
-            x = x + mlp_apply(rms_norm(x, lp["ln2"], cfg.norm_eps),
-                              lp["mlp"], cfg.act)
+            x = _decode_block(cfg, layer(params["layers"], i), x,
+                              state["k"][i], state["v"][i], pos)
     new_state["pos"] = pos + 1
     return x, new_state
+
+
+def _decode_block(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                  k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """One attention + mlp|moe block of a decode step; the caches are
+    written in place."""
+    h, _, _ = attn_decode(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                          k_cache, v_cache, pos, cfg)
+    x = x + h
+    hn = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.moe is not None:
+        return x + moe_apply(p["moe"], hn, cfg.moe, cfg.act)[0]
+    return x + mlp_apply(hn, p["mlp"], cfg.act)

@@ -11,8 +11,12 @@ backward kernels' gradients: within 1e-5 of max(1, max |grad|) in
 float32; in bfloat16, each query row of dq and each key of dk and dv
 within 0.02 of that row's max |grad| beyond each element's rounding
 budget (``flash_attention_grad_budget``), set from the readings that
-``python tests/test_torch_cuda.py`` prints on the card.
+``python tests/test_torch_cuda.py`` prints on the card;
+``python tests/test_torch_cuda.py logits`` prints the readings behind
+``chip_smoke.py``'s bf16 logits bar for zamba2's depth cut.
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -463,7 +467,8 @@ def _assert_bf16_rows_close(got, want):
     (1, 40, 72, 4, 2, 136), (2, 65, 65, 2, 2, 256),
     # D > 256: chunks of output columns, scores over slices of D
     (1, 70, 70, 4, 2, 320), (2, 65, 90, 4, 1, 512),
-    (1, 40, 40, 2, 2, 300)])   # D % 8 != 0, a ragged last slice
+    (1, 40, 40, 2, 2, 300),    # D % 8 != 0, a ragged last slice
+    (1, 200, 200, 32, 32, 80)])  # zamba2's shared attention: MHA, D 80
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(card, B, Sq, Skv, Hq, Hkv, D,
@@ -494,7 +499,9 @@ def test_flash_attention_kernel_matches_plain(card, B, Sq, Skv, Hq, Hkv, D,
     (2, 100, 333, 4, 2, 128),    # Sq < Skv: row i at i + 233
     (1, 5, 70, 2, 1, 64),        # Sq < Skv inside one tile
     (1, 2048, 2048, 4, 2, 128),  # 16 K/V tiles: many ring wraps
-    (4, 384, 384, 32, 4, 128)])  # 384 CTAs, more than the card's SMs
+    (4, 384, 384, 32, 4, 128),   # 384 CTAs, more than the card's SMs
+    (2, 300, 300, 40, 8, 128),   # llama4-scout's heads: G 5
+    (1, 500, 500, 64, 4, 128)])  # qwen3-moe's heads: G 16
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_hopper_instance_matches_plain(card, B, Sq, Skv, Hq,
                                                        Hkv, D, causal):
@@ -874,11 +881,13 @@ def test_lm_gradients_on_the_card_match_the_plain_path(card, arch):
 
 
 @pytest.mark.parametrize("arch", ["yi-6b", "hubert-xlarge",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "qwen3-moe-235b-a22b",
+                                  "llama4-scout-17b-a16e", "zamba2-2.7b"])
 def test_lm_serving_on_the_card_matches_the_cpu(card, arch):
     """The reduced model's float32 forward within 1e-4 and its bf16
     prefill and decode logits within 5e-2 (chip_smoke.py's bar) of the
-    same weights on the CPU; one kernel launch per layer of a prefill."""
+    same weights on the CPU; one kernel launch per attention layer (the
+    hybrid's: per superlayer), or per Mamba-1 layer, of a prefill."""
     from repro_torch.configs import get_arch
     from repro_torch.models import lm_zoo as Z
     from repro_torch.models import transformer_lm as T
@@ -904,7 +913,8 @@ def test_lm_serving_on_the_card_matches_the_cpu(card, arch):
     runtime.reset_launch_counts()
     l_g, st_g = Z.make_prefill_step(cfg)(
         params, {k: v.to(card) for k, v in batch.items()})
-    assert runtime.launch_counts() == {kernel: cfg.n_layers}
+    assert runtime.launch_counts() == {
+        kernel: T.attention_layers(cfg) or cfg.n_layers}
     l_c, st_c = Z.make_prefill_step(cfg)(cpu, batch)
     torch.testing.assert_close(l_g.cpu(), l_c, atol=5e-2, rtol=0)
     if cfg.is_encoder:
@@ -919,6 +929,45 @@ def test_lm_serving_on_the_card_matches_the_cpu(card, arch):
         l_c, st_c = serve(cpu, st_c, tok)
         torch.testing.assert_close(l_g.cpu(), l_c, atol=5e-2, rtol=0)
         tok = l_c.argmax(-1, keepdim=True).to(torch.int32)
+
+
+@pytest.mark.parametrize("shared,cf", [(False, 2.0), (True, 0.5)])
+def test_moe_apply_on_the_card_matches_the_cpu(card, shared, cf):
+    """The MoE layer at a small width (d 256, 16 experts of 128, top 4)
+    in float32 on the card against the CPU: each token's experts equal,
+    the output within 1e-4 of its max |value|, the load-balance loss
+    within 1e-6 and the drop fraction equal; with the shared expert and
+    a capacity that drops slots, and without either."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as M
+
+    cfg = MoEConfig(num_experts=16, top_k=4, expert_d_ff=128,
+                    capacity_factor=cf, shared_expert_d_ff=192 * shared)
+    params = M.moe_init(torch.Generator().manual_seed(3), cfg, 256,
+                        "swiglu")
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(2, 96, 256)).astype(np.float32))
+    picked = []
+    real = M._top_k
+
+    def record(probs, k):
+        out = real(probs, k)
+        picked.append(out[1].cpu())
+        return out
+    M._top_k = record
+    try:
+        y_c, aux_c = M.moe_apply(params, x, cfg, "swiglu")
+        y_g, aux_g = M.moe_apply(_to(params, card), x.to(card), cfg,
+                                 "swiglu")
+    finally:
+        M._top_k = real
+    assert torch.equal(picked[0], picked[1])
+    err = float((y_g.cpu() - y_c).abs().max())
+    assert err <= 1e-4 * float(y_c.abs().max()), err
+    assert abs(float(aux_g["moe_lb_loss"]) - float(aux_c["moe_lb_loss"])) \
+        <= 1e-6
+    assert float(aux_g["moe_drop_frac"]) == float(aux_c["moe_drop_frac"])
+    assert (float(aux_c["moe_drop_frac"]) > 0) == (cf < 1)
 
 
 def _ref_without_the_diagonal(q, k, v, *, causal):
@@ -951,7 +1000,61 @@ def _ref_without_the_last_key(q, k, v, *, causal):
     return flash_attention_ref(q, k[:, :-1], v[:, :-1], causal=causal)
 
 
-if __name__ == "__main__":
+def _bf16_logit_readings():
+    """Zamba2-2.7B at full width cut to one superlayer (6 layers, B 2, S
+    256) and Falcon-Mamba-7B cut to 2 layers, over 4 seeds: max |card -
+    CPU| of the bf16 prefill logits and of 4 decode steps from a fresh
+    state, sound and with each row's newest key hidden from the card's
+    decode attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm_zoo as Z
+    from repro_torch.models import transformer_lm as T
+
+    dev, real = torch.device("cuda"), T.decode_attention
+
+    def hide_newest(q, k, v, valid_len):
+        return real(q, k, v, (valid_len - 1).clamp_min(1))
+
+    for arch, depth in (("zamba2-2.7b", 6), ("falcon-mamba-7b", 2)):
+        B, S = 2, 256
+        cut = dataclasses.replace(get_arch(arch), n_layers=depth)
+        for seed in range(4):
+            params = Z.init_params(
+                cut, torch.Generator(device=dev).manual_seed(seed + 1),
+                device=dev)
+            cp_g, cp_c = Z._cast_compute(params), Z._cast_compute(
+                _to(params, "cpu"))
+            del params
+            toks = torch.from_numpy(np.random.default_rng(seed).integers(
+                0, cut.vocab, (B, S + 1)).astype(np.int32))
+            pre, serve = Z.make_prefill_step(cut), Z.make_serve_step(cut)
+            l_g, _ = pre(cp_g, {"tokens": toks[:, :S].to(dev)})
+            l_c, _ = pre(cp_c, {"tokens": toks[:, :S]})
+            out = {"prefill": round(float((l_g.cpu() - l_c).abs().max()), 4)}
+            for fault in (False, True):
+                d_g = T.init_decode_state(cut, B, S, device=dev)
+                d_c = T.init_decode_state(cut, B, S, device="cpu")
+                tok, errs = toks[:, S:], []
+                for _ in range(4):
+                    T.decode_attention = hide_newest if fault else real
+                    o_g, d_g = serve(cp_g, d_g, tok.to(dev))
+                    T.decode_attention = real
+                    o_c, d_c = serve(cp_c, d_c, tok)
+                    errs.append(round(float((o_g.cpu() - o_c).abs().max()),
+                                      4))
+                    tok = o_c.argmax(-1, keepdim=True).to(torch.int32)
+                out["newest key hidden" if fault else "sound"] = errs
+            print(f"{arch} cut to {depth} layers, seed {seed}: card vs CPU "
+                  f"bf16 logits {out}", flush=True)
+            del cp_g, cp_c
+            torch.cuda.empty_cache()
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["logits"]:
+    _bf16_logit_readings()
+elif __name__ == "__main__":
     # The readings behind BF16_GRAD_ROW, on the card: for each bfloat16
     # case of test_flash_attention_backward_matches_plain_autograd (and
     # Yi-6B's train shape) over six seeds, grad_rows_beyond_budget of dq,

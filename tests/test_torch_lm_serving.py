@@ -3,7 +3,8 @@ CPU, through the public entry points ``make_prefill_step`` and
 ``make_serve_step`` of both (bfloat16 compute, the served step):
 
 * prefill logits, and four decode steps against a fresh decode state,
-  of the seven dense/vlm/audio/ssm archs at their ``reduced()`` size
+  of the ten archs (dense, vlm, audio, ssm, moe, hybrid) at their
+  ``reduced()`` size
   with the JAX weights (``params_from_jax``), within 0.1: the two
   frameworks round bf16 at other places.  The bar is set from readings
   (``python tests/test_torch_lm_serving.py`` prints them): above the
@@ -12,7 +13,8 @@ CPU, through the public entry points ``make_prefill_step`` and
   A bf16 rounding fault moves the logits no more than the two
   frameworks' own rounding does; the float32 parity tests hold those;
 * the port's own prefill against its token-by-token decode, within the
-  reference's 0.15 (tests/test_lm_smoke.py), and a Mamba prefill state
+  reference's 0.15 (tests/test_lm_smoke.py), and a Mamba (Falcon's
+  Mamba-1, zamba2's Mamba-2 with its shared block's K/V) prefill state
   that continues into decode;
 * ``_cast_compute`` is the identity on a cast tree, and the entry points
   put their state on the card unless asked for the CPU.
@@ -36,7 +38,8 @@ from repro_torch.models.convert import params_from_jax
 BF16_TOL = 0.1
 DECODE_TOL = 0.15          # the reference's prefill-vs-decode bar
 ARCHS = ["qwen3-14b", "yi-6b", "granite-3-8b", "nemotron-4-340b",
-         "chameleon-34b", "hubert-xlarge", "falcon-mamba-7b"]
+         "chameleon-34b", "hubert-xlarge", "falcon-mamba-7b",
+         "qwen3-moe-235b-a22b", "llama4-scout-17b-a16e", "zamba2-2.7b"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,12 +148,22 @@ def test_bf16_bar_catches_a_causal_mask_fault(arch, monkeypatch):
     assert _served_diff(arch) > BF16_TOL
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "falcon-mamba-7b",
+                                  "qwen3-moe-235b-a22b",
+                                  "llama4-scout-17b-a16e", "zamba2-2.7b"])
 def test_prefill_matches_token_by_token_decode(arch):
+    """A moe prefill that dropped slots would differ by design: the
+    length is one at which it drops none, and that is checked (top 1 of
+    4 experts has capacity 4 a row: at S 8 it drops, at S 4 it cannot)."""
     _, cfg, _, tp = _params(arch)
-    B, S = 2, 8
+    B, S = 2, 4 if arch == "llama4-scout-17b-a16e" else 8
     toks = torch.from_numpy(_batch(cfg, B, S, seed=0)["tokens"])
     logits_p, _ = TZ.make_prefill_step(cfg)(tp, {"tokens": toks})
+    if cfg.moe is not None:
+        x = TZ._cast_compute(tp)["embed"][toks.long()]
+        _, aux, _ = TT.forward_hidden(cfg, TZ._cast_compute(tp), x,
+                                      torch.arange(S)[None].expand(B, S))
+        assert float(aux["moe_drop_frac"]) == 0.0
     ds = TT.init_decode_state(cfg, B, S, device="cpu")
     serve = TZ.make_serve_step(cfg)
     for i in range(S):
@@ -158,21 +171,42 @@ def test_prefill_matches_token_by_token_decode(arch):
     assert float((logits_p - logits_d).abs().max()) <= DECODE_TOL
 
 
+def _one_longer(state, jnp_pad=False):
+    """A prefill state with room for one more token: its K/V stacks (L,
+    B, S, Hkv, Dh) padded to S + 1 (a prefill's are exactly S long)."""
+    if "k" not in state:
+        return state
+    if jnp_pad:
+        pad = lambda a: jnp.pad(a, ((0, 0), (0, 0), (0, 1), (0, 0), (0, 0)))
+    else:
+        pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, 1))
+    return dict(state, k=pad(state["k"]), v=pad(state["v"]))
+
+
 def test_mamba_prefill_state_continues_into_decode():
+    _state_continues("falcon-mamba-7b")
+
+
+def test_hybrid_prefill_state_continues_into_decode():
+    _state_continues("zamba2-2.7b")
+
+
+def _state_continues(arch):
     """prefill(S) then one decode step of token S == the last logits of
     prefill(S + 1), in the port and against JAX's continuation."""
-    jcfg, cfg, jp, tp = _params("falcon-mamba-7b")
+    jcfg, cfg, jp, tp = _params(arch)
     B, S = 2, 9
     toks = _batch(cfg, B, S + 1, seed=3)["tokens"]
     prefill, serve = TZ.make_prefill_step(cfg), TZ.make_serve_step(cfg)
     _, st = prefill(tp, {"tokens": torch.from_numpy(toks[:, :S])})
-    l_next, st = serve(tp, st, torch.from_numpy(toks[:, S:]))
+    l_next, st = serve(tp, _one_longer(st), torch.from_numpy(toks[:, S:]))
     l_full, _ = prefill(tp, {"tokens": torch.from_numpy(toks)})
     assert float((l_next - l_full).abs().max()) <= DECODE_TOL
     assert st["pos"].tolist() == [S + 1] * B
     _, st_j = JZ.make_prefill_step(jcfg)(jp, {"tokens": jnp.asarray(
         toks[:, :S])})
-    l_j, _ = JZ.make_serve_step(jcfg)(jp, st_j, jnp.asarray(toks[:, S:]))
+    l_j, _ = JZ.make_serve_step(jcfg)(jp, _one_longer(st_j, True),
+                                      jnp.asarray(toks[:, S:]))
     assert _diff(l_next, l_j) <= BF16_TOL
 
 

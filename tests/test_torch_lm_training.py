@@ -11,7 +11,11 @@ from numpy seeds:
   float32 (both packages' ``_cast_compute`` and the embedding's bf16
   output set aside): the loss and every gradient leaf of one step
   within 1e-5, the loss per step within 1e-4 over 4 steps of
-  ``make_train_step``; with block remat too;
+  ``make_train_step``; with block remat too; the moe archs (with their
+  ``router_aux_weight * moe_lb_loss`` term and aux metrics) and the
+  hybrid (with its superlayer remat too): loss and gradients of one
+  step within 1e-5 of max(1, the largest value), since JAX's init of
+  the reduced experts (E^-1/2 = 0.5) gives values of 100 and more;
 * ``train_state_specs`` on ``meta`` against ``jax.eval_shape``, leaf by
   leaf;
 * ``CheckpointManager``: roundtrip, keep-k, no partial dir after a crash
@@ -19,7 +23,8 @@ from numpy seeds:
   by the JAX manager restored by the port's;
 * ``LMTrainer``: save -> restore -> continue equals an uninterrupted run
   exactly; the elastic policy's decisions equal JAX's; the launcher's
-  ``lm`` mode on the CPU.
+  ``lm`` mode on the CPU, for a dense arch and, in a subprocess, a moe
+  one.
 """
 import dataclasses
 import functools
@@ -62,6 +67,13 @@ def _close(got, want, tol=TOL):
         got.detach().float().numpy() if isinstance(got, torch.Tensor)
         else np.asarray(got, np.float32),
         np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
+def _close_to_scale(got, want, tol=TOL, what=""):
+    """max |got - want| within ``tol`` of max(1, max |want|)."""
+    want = np.asarray(want, np.float32)
+    err = float(np.abs(got.detach().float().numpy() - want).max())
+    assert err <= tol * max(1.0, float(np.abs(want).max())), (what, err)
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +260,36 @@ def test_loss_and_gradients_match_jax(float32_compute, family, remat):
     for name, a, b in zip(names, gt, jax.tree.leaves(gj)):
         assert tuple(a.shape) == b.shape, name
         _close(a, b)
+
+
+@pytest.mark.parametrize("arch,remat", [
+    ("qwen3-moe-235b-a22b", "none"), ("llama4-scout-17b-a16e", "none"),
+    ("zamba2-2.7b", "none"), ("zamba2-2.7b", "block")])
+def test_moe_and_hybrid_loss_and_gradients_match_jax(float32_compute, arch,
+                                                     remat):
+    jcfg, tcfg, jp = _model(arch, remat)
+    batch = _batches(jcfg, 1, seed=len(arch))[0]
+    (lj, mj), gj = jax.value_and_grad(JZ.make_loss_fn(jcfg), has_aux=True)(
+        jax.tree.map(jnp.asarray, jp), _jb(batch))
+    tp = params_from_jax(jp, device="cpu")
+    leaves = [p.requires_grad_() for p in TO.tree_leaves(tp)]
+    lt, mt = TZ.make_loss_fn(tcfg)(tp, _tb(batch))
+    gt = torch.autograd.grad(lt, leaves, allow_unused=True,
+                             materialize_grads=True)
+    assert set(mt) == set(mj)
+    for k in mj:
+        if k == "moe_drop_frac":
+            assert float(mt[k]) == float(mj[k])
+        else:
+            _close_to_scale(mt[k], mj[k], what=k)
+    if jcfg.moe is not None:     # the router term is in the loss
+        assert float(mj["loss"]) != float(mj["ce_loss"])
+    names = [jax.tree_util.keystr(p)
+             for p, _ in jax.tree_util.tree_leaves_with_path(gj)]
+    assert len(names) == len(gt)
+    for name, a, b in zip(names, gt, jax.tree.leaves(gj)):
+        assert tuple(a.shape) == b.shape, name
+        _close_to_scale(a, b, what=name)
 
 
 @pytest.mark.parametrize("family", list(FAMILY_ARCHS))
@@ -475,3 +517,19 @@ def test_launcher_lm_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "starting at step 0" in out and "step 2" in out
     assert TC.CheckpointManager(tmp_path / "yi-6b").all_steps() == [2]
+
+
+def test_launcher_lm_moe_in_a_subprocess(tmp_path, subprocess_env):
+    """``python -m repro_torch.launch.train lm`` for a moe arch: two
+    steps whose metrics carry the router's terms."""
+    import subprocess
+    import sys
+
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "lm", "--arch",
+         "qwen3-moe-235b-a22b", "--steps", "2", "--batch", "2", "--seq",
+         "16", "--device", "cpu", "--ckpt", str(tmp_path)],
+        env=subprocess_env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "family=moe" in out.stdout and "step 2:" in out.stdout
+    assert "moe_lb_loss=" in out.stdout and "moe_drop_frac=" in out.stdout
