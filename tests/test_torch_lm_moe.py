@@ -180,8 +180,8 @@ def test_mamba2_forward_and_state_match_jax():
     cfg, jp, tp = _mamba2()
     x = np.random.default_rng(8).normal(size=(2, 19, cfg.d_model)).astype(
         np.float32)
-    y_j, st_j = JM.mamba2_forward(jp, jnp.asarray(x), cfg.ssm,
-                                  return_state=True)
+    y_j, st_j = jax.jit(JM.mamba2_forward, static_argnums=(2, 3))(
+        jp, jnp.asarray(x), cfg.ssm, True)
     y_t, st_t = TM.mamba2_forward(tp, _t(x), cfg.ssm, return_state=True)
     _close(y_t, y_j)
     _close(st_t["conv"], st_j["conv"])

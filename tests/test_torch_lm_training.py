@@ -269,7 +269,8 @@ def test_moe_and_hybrid_loss_and_gradients_match_jax(float32_compute, arch,
                                                      remat):
     jcfg, tcfg, jp = _model(arch, remat)
     batch = _batches(jcfg, 1, seed=len(arch))[0]
-    (lj, mj), gj = jax.value_and_grad(JZ.make_loss_fn(jcfg), has_aux=True)(
+    (lj, mj), gj = jax.jit(jax.value_and_grad(JZ.make_loss_fn(jcfg),
+                                              has_aux=True))(
         jax.tree.map(jnp.asarray, jp), _jb(batch))
     tp = params_from_jax(jp, device="cpu")
     leaves = [p.requires_grad_() for p in TO.tree_leaves(tp)]
