@@ -101,8 +101,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    exactly once a layer (8, 8) or a superlayer (9), the moe prefill's
    ``moe_drop_frac`` is printed, 32 decode steps at B 8 against a fresh
    4,096-deep cache; flash_attention against its plain version at each
-   one's prefill shape in bf16 (Hopper at GQA groups 16 and 5, the
-   general instance at zamba2's heads of 80), timed beside SDPA; and the
+   one's prefill shape in bf16 (Hopper at GQA groups 16 and 5, and at
+   zamba2's heads of 80 with a 16-column tail box, also timed in turns
+   with the general instance, which must agree with it), timed beside
+   SDPA; and the
    depth cut (the moe archs at 1 layer, B 1, S 128, which puts 15-17 GB
    of float32 on the host; zamba2 at one superlayer, B 2, S 256): each
    token's experts the same on the card and the CPU in float32,
@@ -125,7 +127,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and each key of dk and dv within 0.02 of its max |grad| beyond each
    element's rounding budget, a bar that must fail the last KV tile's dk
    and dv zeroed, and timed in turns with the general instance, which
-   must agree with it within the same bar; at a ragged float32 shape
+   must agree with it within the same bar; the same at Zamba2's
+   attention (2, 4,096, 32/32 heads of 80, causal: the Hopper instance
+   with its tail box; no card path trains Zamba2 yet, so the row counts
+   its own call's launches); at a ragged float32 shape
    within 1e-5 of max(1, max |grad|); the scan at Falcon's with L cut to
    1,024 for the oracle, within 1e-5, and with ``--ab`` in turns with
    the other design at the full L), timed beside the plain backward
@@ -935,7 +940,7 @@ def main() -> int:
             "library_ms", "call_ms", "library_call_ms", "shape")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys}
-        | {k: r[k] for k in ("instance", "ab") if k in r}
+        | {k: r[k] for k in ("instance", "ab", "launches_of") if k in r}
         | ({"launches_of": "own call"} if r.get("path") == "widened"
            else {})
         for r in rows]}), flush=True)
@@ -1483,6 +1488,10 @@ ATOL_LOGITS = 5e-2
 # tests' port-vs-JAX bar of 0.1 sits between
 ATOL_LOGITS_OF = {"zamba2-2.7b": 0.1}
 ATOL_DECODE = 0.15            # prefill vs decode (tests/test_lm_smoke.py)
+# head dims whose arch row is also timed in turns with the general
+# flash_attention instance: 80, which the Hopper instance takes through
+# its 16-column tail box
+FLASH_TURNS_HEAD_DIMS = (80,)
 
 
 def tree_bytes(tree) -> int:
@@ -1692,13 +1701,19 @@ def flash_row(torch, dev, cfg, flush, ab=()):
     return row
 
 
-def arch_flash_row(torch, dev, cfg, flush, launches):
+def arch_flash_row(torch, dev, cfg, flush, launches, ab=()):
     """flash_attention against its plain version at the prefill shape of
-    a served-only arch in bf16 (qwen3-moe's 64/4 heads of 128 and
-    llama4-scout's 40/8 take the Hopper instance, at GQA groups 16 and
-    5; zamba2's 32/32 heads of 80 the general one), timed beside one
-    scaled_dot_product_attention; ``launches`` is the arch's prefill
-    count."""
+    a served-only arch in bf16, on the Hopper instance (qwen3-moe's 64/4
+    heads of 128 and llama4-scout's 40/8, at GQA groups 16 and 5;
+    zamba2's 32/32 heads of 80, a 64-column box and a 16-column tail
+    box), timed beside one scaled_dot_product_attention.  At a head dim
+    in FLASH_TURNS_HEAD_DIMS it is also timed in turns with the general
+    instance (the route such heads took before the tail box, through
+    the ops module's private ``_instance``: general, Hopper, Hopper,
+    general), which must hold the same bars against the plain version
+    and agree with the Hopper one within them.  ``launches`` is the
+    arch's prefill count; with ``--ab``, the Hopper instance is also
+    timed in turns with each directory's design of it."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          instance)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -1706,6 +1721,9 @@ def arch_flash_row(torch, dev, cfg, flush, launches):
     B, S = LM_PREFILL
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     inst = instance(torch.bfloat16, D)
+    if inst != "sm90":
+        raise AssertionError(f"{cfg.name}: flash_attention takes the "
+                             f"{inst} instance at head dim {D}")
     g = torch.Generator(device=dev).manual_seed(23)
     q, k, v = [torch.randn(sh, generator=g, device=dev).to(torch.bfloat16)
                for sh in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
@@ -1716,6 +1734,22 @@ def arch_flash_row(torch, dev, cfg, flush, launches):
     what = f"flash_attention {cfg.name}"
     rel = row_rel_err(torch, got, want, what)
     err = max_err(torch, got, want, what, ATOL_BF16)
+    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
+    g_turns, held = None, ""
+    if D in FLASH_TURNS_HEAD_DIMS:
+        general = lambda: flash_attention(q, k, v, causal=True,
+                                          _instance="general")
+        other = general()
+        torch.cuda.synchronize()
+        g_what = f"{what} (the general instance)"
+        g_rel = row_rel_err(torch, other, want, g_what)
+        max_err(torch, other, want, g_what, ATOL_BF16)
+        agree = row_rel_err(torch, other, got, f"{g_what} vs the Hopper one")
+        del other
+        g_turns = general_turns(torch, general, kern, flush,
+                                f"flash_attention {cfg.name} ({shape})")
+        held = (f"; the general instance {g_rel:.3g} against the plain "
+                f"version, {agree:.3g} against the Hopper one (same bar)")
     del got, want
     F = torch.nn.functional
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1731,24 +1765,43 @@ def arch_flash_row(torch, dev, cfg, flush, launches):
     pairs = B * Hq * (S * S + S) / 2          # (q, key) pairs in the window
     ops = 4.0 * D * pairs
     b, by = bound_ms(nbytes, ops, BF16_OPS_PER_S, exps=pairs)
-    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
     log(f"[kernel] flash_attention ({inst}) {cfg.name} {shape} ok "
         f"max|err|/max|ref| of a row {rel:.3g} (tol {ROW_REL_BF16}), "
-        f"max|err| {err:.3g} (tol {ATOL_BF16}) device ms: kernel {ms:.4f}  "
+        f"max|err| {err:.3g} (tol {ATOL_BF16}){held} device ms: kernel "
+        f"{ms:.4f}  "
         f"plain {plain_ms:.4f}  bound {b:.4f} ({by})  library {lib_ms:.4f}; "
         f"ms per call, in turns (kernel, library, library, kernel): "
         f"{' '.join(f'{t:.4f}' for t in turns)}; launches {launches} a "
         f"prefill")
+    row = dict(name="flash_attention", route="cuda", instance=inst,
+               source="src/repro_torch/csrc/flash_attention_sm90.cu",
+               replaces="src/repro/kernels/flash_attention/"
+                        "flash_attention.py:82",
+               launches=launches, max_abs_err=err, ms=ms, call_ms=call,
+               plain_ms=plain_ms, bound_ms=b, bound_by=by,
+               library_ms=lib_ms, library_call_ms=lib_call, shape=shape)
+    if g_turns is not None:
+        row["ab"] = {"general instance (csrc/flash_attention.cu)": g_turns}
+    ab_rows(torch, row, "flash_attention_sm90", ab, kern, flush,
+            f"flash_attention {cfg.name} ({shape})")
     del q, k, v, qt, kt, vt
-    return dict(name="flash_attention", route="cuda", instance=inst,
-                source="src/repro_torch/csrc/" + (
-                    "flash_attention_sm90.cu" if inst == "sm90"
-                    else "flash_attention.cu"),
-                replaces="src/repro/kernels/flash_attention/"
-                         "flash_attention.py:82",
-                launches=launches, max_abs_err=err, ms=ms, call_ms=call,
-                plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                library_ms=lib_ms, library_call_ms=lib_call, shape=shape)
+    return row
+
+
+def general_turns(torch, general, tree, flush, what) -> list:
+    """The general instance (``general``, other) and the Hopper one
+    (``tree``) on the same inputs, timed in turns: general, Hopper,
+    Hopper, general.  The caller has held the two against each other."""
+    turns = []
+    for design, fn in (("other", general), ("tree", tree), ("tree", tree),
+                       ("other", general)):
+        ms, call = timings(torch, fn, flush)
+        turns.append(dict(design=design, ms=ms, call_ms=call))
+    log(f"[ab] {what}: the general instance (other) and the Hopper one "
+        f"(tree) agree; device ms / ms per call in turns: " + "  ".join(
+            f"{t['design']} {t['ms']:.4f}/{t['call_ms']:.4f}"
+            for t in turns))
+    return turns
 
 
 def wide_flash_rows(torch, dev, flush):
@@ -2097,7 +2150,8 @@ def lm_phase(torch, dev, args):
             cfg = dataclasses.replace(cfg, n_layers=LM_SERVE_DEPTH[arch])
         launches = lm_serve(torch, dev, args, cfg)
         torch.cuda.empty_cache()
-        rows.append(arch_flash_row(torch, dev, cfg, flush, launches))
+        rows.append(arch_flash_row(torch, dev, cfg, flush, launches,
+                                   args.ab))
         torch.cuda.empty_cache()
         lm_cut_checks(torch, dev, args, cfg)
         torch.cuda.empty_cache()
@@ -2113,9 +2167,14 @@ def lm_phase(torch, dev, args):
 LM_TRAIN = (8, 2, 4096)   # layers (cut from 32 and 64), B, S (train_4k's S;
 LM_TRAIN_STEPS = 3        # its global batch of 256 cut to 2)
 SCAN_ORACLE_L = 1024      # the plain scan's autograd graph, L cut from 4,096
-# the flash_attention backward rows (B, S, Hq, Hkv, D, causal): Yi-6B's
-# train shape in bf16, then a ragged float32 one
-FLASH_BWD_SHAPES = ((2, 4096, 32, 4, 128, True), (2, 1000, 8, 2, 80, False))
+# the flash_attention backward rows (B, S, Hq, Hkv, D, causal, dtype,
+# whose launches): Yi-6B's train shape in bf16 (the train steps'
+# launches), Zamba2-2.7B's attention in bf16 (the Hopper instance at
+# head dim 80; no card path trains Zamba2 yet, so the row counts its own
+# call), then a ragged float32 one (a shape no path takes)
+FLASH_BWD_SHAPES = ((2, 4096, 32, 4, 128, True, "bfloat16", "path"),
+                    (2, 4096, 32, 32, 80, True, "bfloat16", "own call"),
+                    (2, 1000, 8, 2, 80, False, "float32", "own call"))
 # float32 train step, card vs CPU: the loss within the reference's
 # per-round bar, each gradient leaf within 1e-4 of its max |value|
 ATOL_LOSS = 1e-4
@@ -2215,16 +2274,17 @@ def lm_train_steps(torch, dev, args, cfg) -> dict:
 
 def flash_bwd_rows(torch, dev, flush, launches):
     """The flash_attention backward against the plain version's autograd
-    at Yi-6B's train shape (2, 4,096, 32/4 heads of 128) in bf16, causal
-    (the Hopper instances, forward and backward), and at (2, 1,000, 8/2,
-    80) in float32, not causal (the general ones), timed beside the plain
-    autograd backward and the autograd backward of one
+    at Yi-6B's train shape (2, 4,096, 32/4 heads of 128) and at
+    Zamba2-2.7B's attention (2, 4,096, 32/32 heads of 80, the tail box)
+    in bf16, causal (the Hopper instances, forward and backward), and at
+    (2, 1,000, 8/2, 80) in float32, not causal (the general ones), timed
+    beside the plain autograd backward and the autograd backward of one
     ``scaled_dot_product_attention`` (a yardstick, never called by the
-    port).  At Yi's shape the Hopper backward is also timed in turns with
+    port).  Each bf16 row's Hopper backward is also timed in turns with
     the general instance's (its WMMA route, taken through the ops
     module's private ``_instance``), which must agree with it within the
-    same bar.  The second row's shape is on no path: it counts its own
-    call's launches."""
+    same bar.  Yi's row counts the train steps' launches; the others'
+    shapes are on no card path, so they count their own call's."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          instance)
@@ -2234,8 +2294,8 @@ def flash_bwd_rows(torch, dev, flush, launches):
 
     F = torch.nn.functional
     rows = []
-    for (B, S, Hq, Hkv, D, causal), dtype in zip(
-            FLASH_BWD_SHAPES, (torch.bfloat16, torch.float32)):
+    for B, S, Hq, Hkv, D, causal, dname, launches_of in FLASH_BWD_SHAPES:
+        dtype = getattr(torch, dname)
         g = torch.Generator(device=dev).manual_seed(23)
         ins = [torch.randn(sh, generator=g, device=dev).to(dtype)
                .requires_grad_()
@@ -2281,7 +2341,7 @@ def flash_bwd_rows(torch, dev, flush, launches):
                     f"{tol}; the last KV tile's dk and dv zeroed: "
                     f"{fault:.3g})")
             turns, agree = route_turns(torch, ops, ins, dout, causal, got,
-                                       budgets, flush)
+                                       budgets, flush, f"D={D} Hkv={Hkv}")
             held += (f"; the general instance against the Hopper one "
                      f"{agree:.3g} (tol {tol})")
             del dropped, budgets
@@ -2334,19 +2394,22 @@ def flash_bwd_rows(torch, dev, flush, launches):
         if turns is not None:
             row["ab"] = {"general instance (csrc/flash_attention_bwd.cu)":
                          turns}
-        if dtype == torch.bfloat16:
+        if launches_of == "path":
             row["launches"] = launches["flash_attention_bwd"]
         else:
-            row["path"] = "widened"
             row["launches"] = own_launches(torch, "flash_attention_bwd",
                                            kernel)
+            if dtype == torch.float32:
+                row["path"] = "widened"
+            else:
+                row["launches_of"] = launches_of
         rows.append(row)
         del ins, dout, out_k, out_p, lib_in, out_l
         torch.cuda.empty_cache()
     return rows
 
 
-def route_turns(torch, ops, ins, dout, causal, got, budgets, flush):
+def route_turns(torch, ops, ins, dout, causal, got, budgets, flush, what):
     """The Hopper backward (``got``, its gradients) against the general
     instance's on the same forward outputs: the general one's gradients
     within BF16_GRAD_ROW of the Hopper one's per row beyond the rounding
@@ -2373,17 +2436,8 @@ def route_turns(torch, ops, ins, dout, causal, got, budgets, flush):
                              f"against the Hopper one {agree} > "
                              f"{BF16_GRAD_ROW}")
     del other
-    turns = []
-    for design, inst in (("other", "general"), ("tree", None),
-                         ("tree", None), ("other", "general")):
-        ms, call = timings(torch, run[inst], flush)
-        turns.append(dict(design=design, ms=ms, call_ms=call))
-    log("[ab] flash_attention_bwd (Yi's train shape): the general "
-        "instance (other) and the Hopper one (tree) agree; device ms / ms "
-        "per call in turns: " + "  ".join(
-            f"{t['design']} {t['ms']:.4f}/{t['call_ms']:.4f}"
-            for t in turns))
-    return turns, agree
+    return general_turns(torch, run["general"], run[None], flush,
+                         f"flash_attention_bwd ({what})"), agree
 
 
 def scan_bwd_row(torch, dev, flush, cfg, launches, ab=()):

@@ -1,5 +1,5 @@
 // Causal or non-causal GQA attention, the backward (dq, dk, dv): the
-// Hopper instance, for bfloat16 with head dim 64 or 128.
+// Hopper instance, for bfloat16 with head dim 64, 80 or 128.
 //
 // The backward of csrc/flash_attention_sm90.cu, which replaces the Pallas
 // TPU kernel src/repro/kernels/flash_attention/flash_attention.py::
@@ -36,7 +36,9 @@
 //      producer thread loads the tile's K and V once and keeps the 64-row
 //      q and dO tiles of the G query heads in flight through a ring in
 //      shared memory, all by TMA (64-column boxes, the 128-byte swizzle;
-//      rows past S read as zeros); a second producer warp writes each q
+//      at D 80 a 16-column tail box with the 32-byte swizzle beside the
+//      64-column one, as in the forward; rows past S read as zeros); a
+//      second producer warp writes each q
 //      tile's LSE (in log2 units, +inf past Sq) and D beside it.  Per q
 //      tile each consumer warpgroup computes
 //        S^T = K Q^T and dP^T = V dO^T by wgmma.m64n64k16, both operands
@@ -48,6 +50,11 @@
 //        dV += P^T dO and dK += dS^T Q by wgmma with A from registers (the
 //          accumulator layout of S^T is wgmma's A-operand layout, as in
 //          the forward) and dO and Q as MN-major B operands.
+//      At D 80 the products whose K is D (S^T, dP^T, and the dq pass's S
+//      and dP) take four k steps over the 128-byte boxes and one over the
+//      tail box; those whose N is D (dV, dK, dQ) an n64 over the
+//      64-column box and an n16 over the tail into the accumulator's last
+//      8 registers, which keeps the m64nD layout for the epilogue.
 //      dK and dV stay in registers over the whole walk of the G heads and
 //      are stored as bfloat16 pairs straight from them.
 //   3. dq: a persistent grid over (128-row q tile, q head, batch) tiles,
@@ -62,7 +69,6 @@ namespace {
 using namespace sm90;
 
 constexpr int kRows = 64;            // rows a TMA box and a warpgroup
-constexpr int kRowBytes = kBox * 2;  // one 64-column row of a box
 constexpr int kConsumers = 256;      // two warpgroups
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
 constexpr int kKeys = 128;           // keys a dk/dv tile
@@ -72,51 +78,6 @@ constexpr int kStagesKV = 2;         // the dq kernel's K/V ring
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kDotThreads = 256;
-
-// A tile of R rows (a multiple of 64) and D columns: D / 64 column boxes,
-// each R rows of 128 bytes, 1024-byte aligned for the swizzle.
-template <int D, int R>
-__host__ __device__ constexpr int tile_bytes() {
-  return (D / kBox) * R * kRowBytes;
-}
-
-// Load rows [r0, r0 + R) of head h of batch b into the tile at dst: one
-// TMA box per 64 rows and 64 columns, completing on bar.
-template <int D, int R>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
-                                          uint32_t bar, int h, int r0,
-                                          int b) {
-#pragma unroll
-  for (int c = 0; c < D / kBox; ++c)
-#pragma unroll
-    for (int r = 0; r < R / kRows; ++r)
-      tma_load_4d(dst + c * R * kRowBytes + r * kRows * kRowBytes, map, bar,
-                  c * kBox, h, r0 + r * kRows, b);
-}
-
-// Descriptor of k step kk of a K-major operand: rows [ro, ro + 64 or N)
-// of an R-row tile.
-template <int R>
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ro, int kk) {
-  return smem_desc(tile + (kk / 4) * R * kRowBytes + ro * kRowBytes +
-                       (kk % 4) * 32,
-                   16, 1024);
-}
-
-// Descriptor of k step kk of an MN-major B operand whose K runs over the
-// 64 rows of a 64-row tile (16 rows a step), N over its columns.
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return smem_desc(tile + kk * 16 * kRowBytes, kRows * kRowBytes, 1024);
-}
-
-// D (64 x D) += A (64 x 16, registers) * B (16 x D, MN-major).
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 128) wgmma_rs_n128(d, a, db);
-  else wgmma_rs_n64(d, a, db);
-}
 
 // Tile i of n, dealt in a snake: round r gives tile r * G + c to CTA c on
 // even rounds and r * G + G - 1 - c on odd ones.
@@ -167,10 +128,10 @@ constexpr size_t dkdv_smem() {
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                               const __grid_constant__ CUtensorMap tk,
-                               const __grid_constant__ CUtensorMap tv,
-                               const __grid_constant__ CUtensorMap tdo,
+    flash_bwd_dkdv_sm90_kernel(const __grid_constant__ HeadMaps tq,
+                               const __grid_constant__ HeadMaps tk,
+                               const __grid_constant__ HeadMaps tv,
+                               const __grid_constant__ HeadMaps tdo,
                                const float* __restrict__ lse,
                                const float* __restrict__ dd,
                                bf16* __restrict__ dk, bf16* __restrict__ dv,
@@ -226,8 +187,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (warp == 0) {
         mbar_wait(kv_empty, (round & 1) ^ 1);
         mbar_expect_tx(kv_full, 2 * kKTile);
-        load_tile<D, kKeys>(s_k, &tk, kv_full, hk, kt * kKeys, b);
-        load_tile<D, kKeys>(s_v, &tv, kv_full, hk, kt * kKeys, b);
+        load_tile<D, kKeys, kRows>(s_k, tk, kv_full, hk, kt * kKeys, b);
+        load_tile<D, kKeys, kRows>(s_v, tv, kv_full, hk, kt * kKeys, b);
       }
       const int qf = q_first(kt);
       for (int g = 0; g < G; ++g) {
@@ -237,10 +198,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_wait(empty(s), ((it / kStagesQ) & 1) ^ 1);
           if (warp == 0) {
             mbar_expect_tx(full(s), 2 * kQTile);
-            load_tile<D, kRows>(s_q + s * kQTile, &tq, full(s), h,
-                                qt * kRows, b);
-            load_tile<D, kRows>(s_do + s * kQTile, &tdo, full(s), h,
-                                qt * kRows, b);
+            load_tile<D, kRows, kRows>(s_q + s * kQTile, tq, full(s), h,
+                                       qt * kRows, b);
+            load_tile<D, kRows, kRows>(s_do + s * kQTile, tdo, full(s), h,
+                                       qt * kRows, b);
           } else {
             const int64_t at = ((int64_t)b * Hq + h) * Sq;
 #pragma unroll
@@ -262,8 +223,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   const int cq = wgmma_col(t), rq = wgmma_row(t);
-  const uint32_t k_wg = s_k + wg * kRows * kRowBytes;
-  const uint32_t v_wg = s_v + wg * kRows * kRowBytes;
   float dka[kO], dva[kO];
   int it = 0;                                    // q tiles consumed
   for (int round = 0;; ++round) {
@@ -287,12 +246,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(st, kmajor<kKeys>(k_wg, 0, kk),
-                     kmajor<kRows>(qs, 0, kk), kk > 0);
+        wgmma_ss_n64(st, kmajor<D, kKeys>(s_k, wg * kRows, kk),
+                     kmajor<D, kRows>(qs, 0, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(dpt, kmajor<kKeys>(v_wg, 0, kk),
-                     kmajor<kRows>(dos, 0, kk), kk > 0);
+        wgmma_ss_n64(dpt, kmajor<D, kKeys>(s_v, wg * kRows, kk),
+                     kmajor<D, kRows>(dos, 0, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(st);
@@ -324,10 +283,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kRows / 16; ++kk)
-        wgmma_rs<D>(dva, pa[kk], mnmajor(dos, kk));
+        wgmma_rs_tile<D, kRows>(dva, pa[kk], dos, kk * 16);
 #pragma unroll
       for (int kk = 0; kk < kRows / 16; ++kk)
-        wgmma_rs<D>(dka, sa[kk], mnmajor(qs, kk));
+        wgmma_rs_tile<D, kRows>(dka, sa[kk], qs, kk * 16);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dva);
@@ -370,10 +329,10 @@ constexpr size_t dq_smem() {
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                             const __grid_constant__ CUtensorMap tk,
-                             const __grid_constant__ CUtensorMap tv,
-                             const __grid_constant__ CUtensorMap tdo,
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ HeadMaps tq,
+                             const __grid_constant__ HeadMaps tk,
+                             const __grid_constant__ HeadMaps tv,
+                             const __grid_constant__ HeadMaps tdo,
                              const float* __restrict__ lse,
                              const float* __restrict__ dd,
                              bf16* __restrict__ dq, int B, int Sq, int Skv,
@@ -431,17 +390,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         tile_of(i, qt, h, b);
         mbar_wait(empty_q, (round & 1) ^ 1);
         mbar_expect_tx(full_q, 2 * kQT);
-        load_tile<D, kQRows>(s_q, &tq, full_q, h, qt * kQRows, b);
-        load_tile<D, kQRows>(s_do, &tdo, full_q, h, qt * kQRows, b);
+        load_tile<D, kQRows, kRows>(s_q, tq, full_q, h, qt * kQRows, b);
+        load_tile<D, kQRows, kRows>(s_do, tdo, full_q, h, qt * kQRows, b);
         const int n_kt = kv_tiles(qt);
         for (int kt = 0; kt < n_kt; ++kt, ++it) {
           const int s = it % kStagesKV;
           mbar_wait(empty_kv(s), ((it / kStagesKV) & 1) ^ 1);
           mbar_expect_tx(full_kv(s), 2 * kKT);
-          load_tile<D, kRows>(s_k + s * kKT, &tk, full_kv(s), h / group,
-                              kt * kRows, b);
-          load_tile<D, kRows>(s_v + s * kKT, &tv, full_kv(s), h / group,
-                              kt * kRows, b);
+          load_tile<D, kRows, kRows>(s_k + s * kKT, tk, full_kv(s),
+                                     h / group, kt * kRows, b);
+          load_tile<D, kRows, kRows>(s_v + s * kKT, tv, full_kv(s),
+                                     h / group, kt * kRows, b);
         }
       }
     }
@@ -485,12 +444,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(sc, kmajor<kQRows>(s_q, wg * kRows, kk),
-                     kmajor<kRows>(ks, 0, kk), kk > 0);
+        wgmma_ss_n64(sc, kmajor<D, kQRows>(s_q, wg * kRows, kk),
+                     kmajor<D, kRows>(ks, 0, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(dp, kmajor<kQRows>(s_do, wg * kRows, kk),
-                     kmajor<kRows>(vs, 0, kk), kk > 0);
+        wgmma_ss_n64(dp, kmajor<D, kQRows>(s_do, wg * kRows, kk),
+                     kmajor<D, kRows>(vs, 0, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -519,7 +478,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kRows / 16; ++kk)
-        wgmma_rs<D>(dqa, sa[kk], mnmajor(ks, kk));
+        wgmma_rs_tile<D, kRows>(dqa, sa[kk], ks, kk * 16);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dqa);
@@ -569,11 +528,11 @@ int launch(const void* q, const void* k, const void* v, const float* out,
         dq, 0, (size_t)rows * D * sizeof(bf16), stream));
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  CUtensorMap tq{}, tk{}, tv{}, tdo{};
-  if (!encode(fn, &tq, q, B, Sq, Hq, D, kRows) ||
-      !encode(fn, &tdo, dout, B, Sq, Hq, D, kRows) ||
-      !encode(fn, &tk, k, B, Skv, Hkv, D, kRows) ||
-      !encode(fn, &tv, v, B, Skv, Hkv, D, kRows))
+  HeadMaps tq{}, tk{}, tv{}, tdo{};
+  if (!encode_head<D>(fn, &tq, q, B, Sq, Hq, kRows) ||
+      !encode_head<D>(fn, &tdo, dout, B, Sq, Hq, kRows) ||
+      !encode_head<D>(fn, &tk, k, B, Skv, Hkv, kRows) ||
+      !encode_head<D>(fn, &tv, v, B, Skv, Hkv, kRows))
     return static_cast<int>(cudaErrorInvalidValue);
   static int set_kv = 0, set_q = 0;
   err = allow_smem(reinterpret_cast<const void*>(
@@ -609,7 +568,7 @@ int launch(const void* q, const void* k, const void* v, const float* out,
 // aligned q, k, v and dout (read by TMA), the forward's float32 output
 // out (B, Sq, Hq, D) and its lse (B, Hq, Sq) -> dq, dk, dv of the inputs'
 // shapes in bfloat16, using dd (B, Hq, Sq) float32 as scratch.  Requires
-// D 64 or 128, B, Sq >= 1, Hq % Hkv == 0 and, if causal, Sq <= Skv.
+// D 64, 80 or 128, B, Sq >= 1, Hq % Hkv == 0 and, if causal, Sq <= Skv.
 // Returns the first launch error (0 on success).
 extern "C" int flash_attention_bwd_sm90_launch(
     const void* q, const void* k, const void* v, const void* out,
@@ -625,6 +584,9 @@ extern "C" int flash_attention_bwd_sm90_launch(
   if (D == 128)
     return launch<128>(q, k, v, o, dout, l, d, dq, dk, dv, B, Sq, Skv, Hq,
                        Hkv, causal, scale, st);
+  if (D == 80)
+    return launch<80>(q, k, v, o, dout, l, d, dq, dk, dv, B, Sq, Skv, Hq,
+                      Hkv, causal, scale, st);
   if (D == 64)
     return launch<64>(q, k, v, o, dout, l, d, dq, dk, dv, B, Sq, Skv, Hq,
                       Hkv, causal, scale, st);

@@ -1,5 +1,5 @@
 // Causal or non-causal GQA attention with an online softmax (forward):
-// the Hopper instance, for bfloat16 with head dim 64 or 128.
+// the Hopper instance, for bfloat16 with head dim 64, 80 or 128.
 //
 // Replaces, beside csrc/flash_attention.cu (which keeps every other dtype
 // and head dim), the Pallas TPU kernel
@@ -21,7 +21,8 @@
 // (B 2, S 4096, 32/4 heads of 128, causal) the work is about 2.75e11 FLOP
 // on the tensor cores (0.278 ms at the bf16 peak) against 151 MB of q, k,
 // v and output (0.045 ms) and 5.4e8 exps (0.128 ms on the
-// special-function units).
+// special-function units).  At Zamba2-2.7B's (32/32 heads of 80) the
+// products shrink to 1.72e11 FLOP (0.174 ms) and the exps stay.
 //
 // Design (FlashAttention-3's shape).  A persistent grid, one CTA of 384
 // threads per SM, walks the (128-row q tile, q head, batch) tiles,
@@ -29,15 +30,21 @@
 // rows each and a producer warpgroup, which hands its registers to the
 // consumers (setmaxnreg: 24 against 240 a thread).  One producer thread
 // loads each tile's q once and keeps 128-key K and V tiles in flight
-// through a 2-stage ring in shared memory (160 KB with q), all by TMA:
-// 4-D maps over (D, H, S, B), one head per box, 64 columns a box with the
-// 128-byte swizzle, so a 128-wide head is two boxes; rows past S come
-// back as zeros.  Full and empty mbarriers guard q and each K and V
+// through a ring in shared memory, all by TMA: 4-D maps over (D, H, S,
+// B), one head per box, 64 columns a box with the 128-byte swizzle, so a
+// 128-wide head is two boxes; rows past S come back as zeros.  A head of
+// 80 (Zamba2, HuBERT) is one 64-column box and a 16-column tail box with
+// the 32-byte swizzle, whose atom is exactly one 16-deep k step: a
+// 128-row tile is 16 + 4 KB (sm90.cuh, tile_bytes), and the ring takes 3
+// stages in 140 KB with q; D 64 and 128 keep 2 (160 KB with q at D
+// 128).  Full and empty mbarriers guard q and each K and V
 // stage; the ring runs on across tiles, so the next tile's loads overlap
 // this one's last products and epilogue.  Each consumer warpgroup, per
 // K/V tile:
-//   S = Q K^T by wgmma.m64n128k16, both operands from shared memory by
-//     descriptor, float32 accumulator in registers.  The accumulator's
+//   S = Q K^T by wgmma.m64n128k16 over D / 16 k steps, both operands
+//     from shared memory by descriptor (at D 80 four steps over the
+//     128-byte boxes and one over the tail's 32-byte ones), float32
+//     accumulator in registers.  The accumulator's
 //     layout gives each thread two rows (wgmma_row/wgmma_col), so the
 //     row max and sum are quad shuffles and no score touches shared
 //     memory;
@@ -47,7 +54,10 @@
 //   P is packed to bfloat16 pairs in registers: the accumulator layout of
 //     S is the register layout of wgmma's A operand, so O += P V is
 //     wgmma.m64nDk16 with A from registers and V (keys, D) from shared
-//     memory as the MN-major B operand (the descriptor's transpose bit).
+//     memory as the MN-major B operand (the descriptor's transpose bit);
+//     at D 80 each k step is an n64 over the 64-column box and an n16
+//     over the tail box into O's last 8 registers (columns 64-79), so O
+//     keeps the m64nD layout and the epilogue stores it as one.
 //     O stays in registers and is rescaled there.
 // Overlap: S of tile kt is issued with P.V of tile kt - 1, and the
 // softmax of tile kt runs while the tensor cores do that P.V (and the
@@ -63,23 +73,21 @@ using namespace sm90;
 
 constexpr int kBQ = 128;             // q rows per tile
 constexpr int kBK = 128;             // keys per K/V tile
-constexpr int kStages = 2;           // K/V ring depth
 constexpr int kConsumers = 256;      // two warpgroups of 64 q rows
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
-constexpr int kHalfBytes = kBQ * kBox * 2;  // one 128-row x 64-column box
 
-// 128-row tile of a head of D columns: D / 64 boxes of 16 KB
+// K/V ring depth: the tail's smaller tiles leave room for a third stage
 template <int D>
-__host__ __device__ constexpr int tile_bytes() {
-  return (D / kBox) * kHalfBytes;
+__host__ __device__ constexpr int stages() {
+  return has_tail<D>() ? 3 : 2;
 }
 
 template <int D>
 constexpr size_t smem_bytes() {
-  // q, the K and V rings, 2 + 4 * kStages mbarriers, and slack to align
-  // the base to 1024 bytes (the 128-byte swizzle's period)
-  return (size_t)(1 + 2 * kStages) * tile_bytes<D>() + 8 * (2 + 4 * kStages)
-         + 1024;
+  // q, the K and V rings, 2 + 4 stages mbarriers, and slack to align the
+  // base to 1024 bytes (the 128-byte swizzle's period)
+  return (size_t)(1 + 2 * stages<D>()) * tile_bytes<D, kBQ>() +
+         8 * (2 + 4 * stages<D>()) + 1024;
 }
 
 // The q tiles, longest first (the last causal tiles walk the most keys),
@@ -112,16 +120,16 @@ __device__ __forceinline__ int kv_tiles(int qt, int Sq, int Skv,
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                                const __grid_constant__ CUtensorMap tk,
-                                const __grid_constant__ CUtensorMap tv,
+    flash_attention_sm90_kernel(const __grid_constant__ HeadMaps tq,
+                                const __grid_constant__ HeadMaps tk,
+                                const __grid_constant__ HeadMaps tv,
                                 bf16* __restrict__ out,
                                 float* __restrict__ lse,
                                 float* __restrict__ o32, int B, int Sq,
                                 int Skv, int Hq, int Hkv, int causal,
                                 float scale_log2) {
-  constexpr int kBoxes = D / kBox;
-  constexpr int kTile = tile_bytes<D>();
+  constexpr int kStages = stages<D>();
+  constexpr int kTile = tile_bytes<D, kBQ>();   // kBQ == kBK
   constexpr int kO = D / 2;          // O registers a thread (m64nD)
   extern __shared__ unsigned char smem_raw[];
   const uint32_t s_q = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -162,26 +170,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int round = 0; tile_at(round, n_qt, Hq, B, t); ++round) {
         mbar_wait(empty_q, (round & 1) ^ 1);
         mbar_expect_tx(full_q, kTile);
-#pragma unroll
-        for (int c = 0; c < kBoxes; ++c)
-          tma_load_4d(s_q + c * kHalfBytes, &tq, full_q, c * kBox, t.h,
-                      t.qt * kBQ, t.b);
+        load_tile<D, kBQ, kBQ>(s_q, tq, full_q, t.h, t.qt * kBQ, t.b);
         const int n_kt = kv_tiles(t.qt, Sq, Skv, causal);
         for (int kt = 0; kt < n_kt; ++kt, ++it) {
           const int s = it % kStages;
           const uint32_t parity = ((it / kStages) & 1) ^ 1;
           mbar_wait(empty_k(s), parity);
           mbar_expect_tx(full_k(s), kTile);
-#pragma unroll
-          for (int c = 0; c < kBoxes; ++c)
-            tma_load_4d(s_k + s * kTile + c * kHalfBytes, &tk, full_k(s),
-                        c * kBox, t.h / group, kt * kBK, t.b);
+          load_tile<D, kBK, kBK>(s_k + s * kTile, tk, full_k(s),
+                                 t.h / group, kt * kBK, t.b);
           mbar_wait(empty_v(s), parity);
           mbar_expect_tx(full_v(s), kTile);
-#pragma unroll
-          for (int c = 0; c < kBoxes; ++c)
-            tma_load_4d(s_v + s * kTile + c * kHalfBytes, &tv, full_v(s),
-                        c * kBox, t.h / group, kt * kBK, t.b);
+          load_tile<D, kBK, kBK>(s_v + s * kTile, tv, full_v(s),
+                                 t.h / group, kt * kBK, t.b);
         }
       }
     }
@@ -192,7 +193,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   const int cq = wgmma_col(t);
-  const uint32_t q_wg = s_q + wg * 64 * kBox * 2;  // 64 rows of 128 bytes
 
   // state of the tile in hand
   float o[kO];
@@ -203,23 +203,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto issue_s = [&](float (&sc)[64], int s) {
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t step = (kk / 4) * kHalfBytes + (kk % 4) * 32;
-      wgmma_ss_n128(sc, smem_desc(q_wg + step, 16, 1024),
-                    smem_desc(s_k + s * kTile + step, 16, 1024), kk > 0);
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n128(sc, kmajor<D, kBQ>(s_q, wg * 64, kk),
+                    kmajor<D, kBK>(s_k + s * kTile, 0, kk), kk > 0);
     wgmma_commit();
   };
   // O += P V of stage s, committed
   auto issue_pv = [&](const uint32_t (&pa)[8][4], int s) {
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint64_t dv = smem_desc(s_v + s * kTile + kk * 16 * kBox * 2,
-                                    kHalfBytes, 1024);
-      if constexpr (D == 128) wgmma_rs_n128(o, pa[kk], dv);
-      else wgmma_rs_n64(o, pa[kk], dv);
-    }
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_rs_tile<D, kBK>(o, pa[kk], s_v + s * kTile, kk * 16);
     wgmma_commit();
   };
   // Online softmax of K/V tile kt's scores, in place (sc becomes p), in
@@ -393,10 +387,10 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   // with no keys the kernel loads no K/V tile: its maps stay blank
-  CUtensorMap tq{}, tk{}, tv{};
-  if (!encode(fn, &tq, q, B, Sq, Hq, D, kBQ) ||
-      (Skv > 0 && (!encode(fn, &tk, k, B, Skv, Hkv, D, kBK) ||
-                   !encode(fn, &tv, v, B, Skv, Hkv, D, kBK))))
+  HeadMaps tq{}, tk{}, tv{};
+  if (!encode_head<D>(fn, &tq, q, B, Sq, Hq, kBQ) ||
+      (Skv > 0 && (!encode_head<D>(fn, &tk, k, B, Skv, Hkv, kBK) ||
+                   !encode_head<D>(fn, &tv, v, B, Skv, Hkv, kBK))))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -417,7 +411,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // contiguous bfloat16 with 16-byte aligned q, k, v, and, for the
 // backward, where lse is not null, each row's float32 log-sum-exp into lse
 // (B, Hq, Sq), and where o32 is not null, out's float32 values before
-// rounding into o32 (B, Sq, Hq, D).  Requires D 64 or 128, Hq % Hkv == 0
+// rounding into o32 (B, Sq, Hq, D).  Requires D 64, 80 or 128, Hq % Hkv == 0
 // and, if causal, Sq <= Skv.  Returns cudaGetLastError() after the launch
 // (0 on success), or the error that kept it from launching.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
@@ -432,6 +426,9 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
   if (D == 128)
     return launch<128>(q, k, v, out, l, f, B, Sq, Skv, Hq, Hkv, causal,
                        scale, s);
+  if (D == 80)
+    return launch<80>(q, k, v, out, l, f, B, Sq, Skv, Hq, Hkv, causal,
+                      scale, s);
   if (D == 64)
     return launch<64>(q, k, v, out, l, f, B, Sq, Skv, Hq, Hkv, causal,
                       scale, s);

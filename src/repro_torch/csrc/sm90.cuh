@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the attention kernels written for the
 // H100 (csrc/flash_attention_sm90.cu, csrc/flash_attention_bwd_sm90.cu):
-// TMA loads through 4-D tensor maps, wgmma with its shared-memory
-// descriptors and fences, the accumulator layout, and the tensor-map
-// encoder, looked up by cudaGetDriverEntryPoint so that no library links
-// libcuda.  Inline PTX for sm_90a.
+// TMA loads through 4-D tensor maps, the layout of a head's columns in
+// shared memory, wgmma with its shared-memory descriptors and fences, the
+// accumulator layout, and the tensor-map encoder, looked up by
+// cudaGetDriverEntryPoint so that no library links libcuda.  Inline PTX
+// for sm_90a.
 #pragma once
 #include "common.cuh"
 
@@ -15,6 +16,7 @@ namespace sm90 {
 using bf16 = __nv_bfloat16;
 
 constexpr int kBox = 64;             // bf16 columns per TMA box (128 bytes)
+constexpr int kTail = 16;            // bf16 columns of a tail box (32 bytes)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -50,6 +52,51 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// A tile of R rows of a head of D bf16 columns (D 64, 80 or 128) in
+// shared memory, as TMA writes it: first D / 64 boxes of 64 columns, each
+// R rows of 128 bytes with the 128-byte swizzle, then, where D % 64 is 16
+// (D 80), one box of the last 16 columns, R rows of 32 bytes with the
+// 32-byte swizzle.  R * D * 2 bytes in all; with the tile 1024-byte
+// aligned and R a multiple of 64, every box is aligned to its swizzle's
+// period (1024 and 256 bytes).
+template <int D>
+__host__ __device__ constexpr bool has_tail() {
+  static_assert(D % kBox == 0 || D % kBox == kTail,
+                "head dim: a multiple of 64, plus 16 at most");
+  return D % kBox != 0;
+}
+template <int D, int R>
+__host__ __device__ constexpr int tile_bytes() {
+  return R * D * 2;
+}
+template <int D, int R>
+__host__ __device__ constexpr int tail_at() {
+  return (D / kBox) * R * kBox * 2;  // the tail box's offset in the tile
+}
+
+// The maps of one operand: its 64-column boxes and, for D 80, its tail.
+struct HeadMaps {
+  CUtensorMap box, tail;
+};
+
+// Load rows [r0, r0 + R) of head h of batch b into the R-row tile at dst
+// (tile_bytes<D, R>() in all, on bar), in boxes of BoxRows rows.
+template <int D, int R, int BoxRows>
+__device__ __forceinline__ void load_tile(uint32_t dst, const HeadMaps& m,
+                                          uint32_t bar, int h, int r0,
+                                          int b) {
+#pragma unroll
+  for (int r = 0; r < R / BoxRows; ++r) {
+#pragma unroll
+    for (int c = 0; c < D / kBox; ++c)
+      tma_load_4d(dst + c * R * kBox * 2 + r * BoxRows * kBox * 2, &m.box,
+                  bar, c * kBox, h, r0 + r * BoxRows, b);
+    if constexpr (has_tail<D>())
+      tma_load_4d(dst + tail_at<D, R>() + r * BoxRows * kTail * 2, &m.tail,
+                  bar, D - kTail, h, r0 + r * BoxRows, b);
+  }
+}
+
 // wgmma shared-memory descriptor of a tile written by TMA with the
 // 128-byte swizzle: start address, leading and stride byte offsets (in
 // 16-byte units) and the swizzle mode (1 = 128 bytes) in bits 62-63.
@@ -64,6 +111,30 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// The same for a 16-column tail box, written with the 32-byte swizzle
+// (mode 3): rows of 32 bytes, 8-row groups 256 bytes apart (SBO), for
+// either use.  K-major, one 16-deep k step is the whole 32-byte row;
+// MN-major (K over the box's rows), its 16 columns are the whole row.  So
+// neither use steps to a next 32-byte atom across, which is what LBO
+// would give: it is set to the same 256 bytes.
+__device__ __forceinline__ uint64_t smem_desc32(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(256 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32) | (3ull << 62);
+}
+
+// Descriptor of k step kk (columns 16 kk .. 16 kk + 15) of a K-major
+// operand whose rows start at row ro of an R-row tile of D columns.
+// Steps in a 64-column box start 32 bytes further into its swizzle atom;
+// the tail's single step is its own box.
+template <int D, int R>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ro, int kk) {
+  if (has_tail<D>() && kk == D / 16 - 1)
+    return smem_desc32(tile + tail_at<D, R>() + ro * kTail * 2);
+  return smem_desc(tile + (kk / 4) * R * kBox * 2 + ro * kBox * 2 +
+                       (kk % 4) * 32,
+                   16, 1024);
 }
 
 // D (64 x 128, float32) += A (64 x 16, bf16, shared, K-major) *
@@ -182,6 +253,49 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 16, float32) += A (64 x 16, bf16, registers) * B (16 x 16,
+// bf16, shared, MN-major: the descriptor's transpose bit).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Registers [At, At + N) of an accumulator, as an accumulator of N.
+template <int N, int At, int M>
+__device__ __forceinline__ auto part(float (&r)[M]) -> float (&)[N] {
+  static_assert(At + N <= M, "part past the accumulator");
+  return *reinterpret_cast<float(*)[N]>(r + At);
+}
+
+// acc (64 x D, float32, the m64nD accumulator layout) += A (64 x 16,
+// registers) * B (16 x D, MN-major): rows [r, r + 16) of an R-row tile of
+// D columns.  A 64-column box is one wgmma, both of D 128 one n128 (LBO
+// steps to the second box); the tail box an n16 into the accumulator's
+// last 8 registers, its columns 64-79.
+template <int D, int R>
+__device__ __forceinline__ void wgmma_rs_tile(float (&acc)[D / 2],
+                                              const uint32_t (&a)[4],
+                                              uint32_t tile, int r) {
+  const uint64_t db = smem_desc(tile + r * kBox * 2, R * kBox * 2, 1024);
+  if constexpr (D == 128) {
+    wgmma_rs_n128(acc, a, db);
+  } else {
+    wgmma_rs_n64(part<32, 0>(acc), a, db);
+    if constexpr (has_tail<D>())
+      wgmma_rs_n16(part<8, 32>(acc), a,
+                   smem_desc32(tile + tail_at<D, R>() + r * kTail * 2));
+  }
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -249,21 +363,33 @@ inline EncodeTiled encoder() {
 }
 
 // 4-D map of a contiguous (B, S, H, D) bf16 tensor as (D, H, S, B), boxes
-// of 64 columns x 1 head x `rows` rows x 1 batch, 128-byte swizzle, rows
-// past S read as zeros.
+// of `cols` columns x 1 head x `rows` rows x 1 batch with the given
+// swizzle, rows past S read as zeros.
 inline bool encode(EncodeTiled fn, CUtensorMap* map, const void* base,
-                   int B, int S, int H, int D, int rows) {
+                   int B, int S, int H, int D, int rows, int cols,
+                   CUtensorMapSwizzle swizzle) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                  (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
             const_cast<void*>(base), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The maps load_tile reads, boxes of `rows` rows: 64 columns with the
+// 128-byte swizzle and, for D 80, the last 16 with the 32-byte one.
+template <int D>
+inline bool encode_head(EncodeTiled fn, HeadMaps* m, const void* base,
+                        int B, int S, int H, int rows) {
+  return encode(fn, &m->box, base, B, S, H, D, rows, kBox,
+                CU_TENSOR_MAP_SWIZZLE_128B) &&
+         (!has_tail<D>() || encode(fn, &m->tail, base, B, S, H, D, rows,
+                                   kTail, CU_TENSOR_MAP_SWIZZLE_32B));
 }
 
 // The device's SM count, read once.

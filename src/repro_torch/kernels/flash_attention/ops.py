@@ -1,7 +1,8 @@
 """Wrapper of the flash_attention CUDA kernels, forward and backward, each
 in two instances: the Hopper ones (``csrc/flash_attention_sm90.cu`` and
 ``csrc/flash_attention_bwd_sm90.cu``: wgmma, TMA, rings in shared
-memory) for bfloat16 with head dim 64 or 128, and the general ones
+memory) for bfloat16 with head dim 64, 80 or 128 (80 as a 64-column box
+and a 16-column tail box), and the general ones
 (``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``) for
 every other dtype and head dim.
 
@@ -15,7 +16,11 @@ Hq % Hkv == 0 and any head dim D (the general instance takes D > 256 in
 chunks of output columns), and a causal call needs Sq <= Skv (every
 query row then has at least one key).  The Hopper instance reads q, k
 and v by TMA, which needs them 16-byte aligned; its backward reads q, k,
-v and the output's gradient so too, and raises if one is not.  Unlike
+v and the output's gradient so too, and raises if one is not (the rows'
+strides, D * 2 and H * D * 2 bytes, are multiples of 16 at each of its
+head dims).  A private ``_instance="general"`` takes the general
+instance instead, forward and backward, to time the two against each
+other; nothing on a model path passes it.  Unlike
 the Pallas wrapper, any Sq and Skv are taken: the kernels mask the
 ragged edge of their tiles themselves.
 
@@ -45,30 +50,34 @@ _BWD_ARGS = (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P)
 _SIG_BWD = {"flash_attention_bwd_launch": _BWD_ARGS}
 _SIG_BWD_SM90 = {"flash_attention_bwd_sm90_launch": _BWD_ARGS}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SM90_HEAD_DIMS = (64, 128)
+SM90_HEAD_DIMS = (64, 80, 128)
 
 
 def instance(dtype: torch.dtype, head_dim: int) -> str:
     """The kernels a CUDA call launches, forward and backward: ``"sm90"``
     (wgmma and TMA) for bfloat16 with a head dim in
-    :data:`SM90_HEAD_DIMS`, else ``"general"``."""
+    :data:`SM90_HEAD_DIMS` (64-column TMA boxes, and at 80 a 16-column
+    tail box), else ``"general"``."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return "sm90"
     return "general"
 
 
-def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True,
+                    _instance: str | None = None) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D) in
-    q's dtype."""
+    q's dtype.  ``_instance`` ("general") takes the general kernels,
+    forward and backward, in place of :func:`instance`'s."""
+    _forced(_instance, "flash_attention")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
-    _check(q, k, v, causal)
+    _check(q, k, v, causal, _instance)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal)
-    return _forward(q, k, v, causal, None)
+        return _FlashAttention.apply(q, k, v, causal, _instance)
+    return _forward(q, k, v, causal, None, _instance=_instance)
 
 
-def _forward(q, k, v, causal, lse, o32=None):
+def _forward(q, k, v, causal, lse, o32=None, _instance=None):
     """One forward launch; writes each row's log-sum-exp into ``lse``
     (B, Hq, Sq) float32 and the output's float32 values before rounding
     into ``o32`` (B, Sq, Hq, D) unless they are None."""
@@ -78,7 +87,7 @@ def _forward(q, k, v, causal, lse, o32=None):
     if out.numel() == 0:
         return out
     stream = rt.stream_handle(q.device)
-    if instance(q.dtype, D) == "sm90":
+    if (_instance or instance(q.dtype, D)) == "sm90":
         lib = rt.load("flash_attention_sm90", _SIG_SM90)
         rc = lib.flash_attention_sm90_launch(
             rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), rt.ptr(lse),
@@ -136,9 +145,7 @@ def bwd_instance(q, k, v, dout, forced: str | None = None) -> str:
     """The backward kernel a call launches: :func:`instance`'s, or the
     general one where ``forced`` says so.  The Hopper instance reads q,
     k, v and ``dout`` by TMA: raises if one is not 16-byte aligned."""
-    if forced not in (None, "general"):
-        raise ValueError(f"flash_attention_bwd: instance {forced!r}, "
-                         f"expected None or 'general'")
+    _forced(forced, "flash_attention_bwd")
     inst = forced or instance(q.dtype, q.shape[-1])
     if inst == "sm90" and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
         raise ValueError("flash_attention_bwd: the Hopper instance reads q, "
@@ -147,15 +154,22 @@ def bwd_instance(q, k, v, dout, forced: str | None = None) -> str:
     return inst
 
 
+def _forced(forced, what):
+    """Only the general instance can be asked for."""
+    if forced not in (None, "general"):
+        raise ValueError(f"{what}: instance {forced!r}, expected None or "
+                         f"'general'")
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, forced):
         B, Sq, Hq, _ = q.shape
         lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
         o32 = (None if q.dtype == torch.float32 else
                torch.empty(q.shape, dtype=torch.float32, device=q.device))
-        out = _forward(q, k, v, causal, lse, o32)
-        ctx.causal = causal
+        out = _forward(q, k, v, causal, lse, o32, forced)
+        ctx.causal, ctx.forced = causal, forced
         ctx.save_for_backward(q, k, v, out if o32 is None else o32, lse)
         return out
 
@@ -165,11 +179,12 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o32, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o32, lse,
                                          dout.contiguous(),
-                                         causal=ctx.causal)
-        return dq, dk, dv, None
+                                         causal=ctx.causal,
+                                         _instance=ctx.forced)
+        return dq, dk, dv, None, None
 
 
-def _check(q, k, v, causal):
+def _check(q, k, v, causal, forced=None):
     dev = q.device
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtype {q.dtype}, expected "
@@ -189,7 +204,7 @@ def _check(q, k, v, causal):
     if causal and Sq > Skv:
         raise ValueError(f"flash_attention: causal needs Sq <= Skv, got "
                          f"Sq={Sq} Skv={Skv}")
-    if instance(q.dtype, D) == "sm90" and any(
+    if (forced or instance(q.dtype, D)) == "sm90" and any(
             t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: the Hopper instance reads q, k "
                          "and v by TMA and needs them 16-byte aligned")

@@ -501,12 +501,20 @@ def test_flash_attention_kernel_matches_plain(card, B, Sq, Skv, Hq, Hkv, D,
     (1, 2048, 2048, 4, 2, 128),  # 16 K/V tiles: many ring wraps
     (4, 384, 384, 32, 4, 128),   # 384 CTAs, more than the card's SMs
     (2, 300, 300, 40, 8, 128),   # llama4-scout's heads: G 5
-    (1, 500, 500, 64, 4, 128)])  # qwen3-moe's heads: G 16
+    (1, 500, 500, 64, 4, 128),   # qwen3-moe's heads: G 16
+    # D 80: a 64-column box and a 16-column tail box, a 3-stage ring
+    (2, 300, 300, 32, 32, 80),   # zamba2's shared attention: MHA
+    (2, 250, 250, 16, 16, 80),   # hubert-xlarge's 16/16 (not causal there)
+    (2, 200, 200, 8, 2, 80),     # ragged S, GQA 8:2
+    (2, 100, 333, 4, 2, 80),     # Sq < Skv: row i at i + 233
+    (1, 5, 70, 2, 1, 80),        # Sq < Skv inside one tile
+    (1, 2048, 2048, 4, 2, 80),   # 16 K/V tiles: many wraps of 3 stages
+    (4, 384, 384, 32, 32, 80)])  # 384 CTAs, more than the card's SMs
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_hopper_instance_matches_plain(card, B, Sq, Skv, Hq,
                                                        Hkv, D, causal):
-    """The wgmma/TMA instance (bf16, D 64 or 128): ragged edges masked in
-    the kernel, the model's causal offset, GQA, non-causal, long rings
+    """The wgmma/TMA instance (bf16, D 64, 80 or 128): ragged edges masked
+    in the kernel, the model's causal offset, GQA, non-causal, long rings
     and more CTAs than SMs, at the bf16 bars."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          instance)
@@ -522,9 +530,92 @@ def test_flash_attention_hopper_instance_matches_plain(card, B, Sq, Skv, Hq,
     _assert_bf16_rows_close(got, want)
 
 
+def _tail_only(ts):
+    """The tensors with every column outside 64-79 set to zero."""
+    for t in ts:
+        t[..., :64] = 0
+    return ts
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv", [
+    (2, 300, 300, 8, 2), (1, 100, 333, 4, 4)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_hopper_head_dim_80_tail(card, B, Sq, Skv, Hq, Hkv,
+                                                 causal):
+    """q, k and v zero outside columns 64-79, the 16-column tail box: the
+    scores and the output come from the tail alone, so a kernel that
+    drops, misplaces or mis-swizzles that box gives wrong rows.  Columns
+    0-63 of the output must be exactly 0; the rest hold the bf16 bars,
+    forward and backward."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         instance)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_grad_budget, flash_attention_ref,
+        grad_rows_beyond_budget)
+
+    D = 80
+    assert instance(torch.bfloat16, D) == "sm90"
+    # scores of a few units: the softmax is far from uniform
+    q, k, v = _tail_only([2 * t for t in _attn_inputs(
+        card, B, Sq, Skv, Hq, Hkv, D, torch.bfloat16, 80)])
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(got[..., :64], torch.zeros_like(got[..., :64]))
+    _assert_bf16_rows_close(got[..., 64:], want[..., 64:])
+    w = _tail_only([torch.randn((B, Sq, Hq, D), device=card,
+                                generator=torch.Generator(
+                                    device=card).manual_seed(81))])[0]
+    grads = _flash_grads(flash_attention, q, k, v, causal, w)[1]
+    ref = _flash_grads(flash_attention_ref, q, k, v, causal, w)[1]
+    budgets = flash_attention_grad_budget(q, k, v, w.to(torch.bfloat16),
+                                          causal=causal)
+    torch.cuda.synchronize()
+    for name, g, r, b in zip(("dq", "dk", "dv"), grads, ref, budgets):
+        assert torch.equal(g[..., :64], torch.zeros_like(g[..., :64])), name
+        rel = grad_rows_beyond_budget(g, r, b)
+        assert rel <= BF16_GRAD_ROW, f"{name}: {rel} of a row's max"
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv", [(2, 200, 32, 32), (1, 300, 8, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_general_instance_at_head_dim_80(card, B, S, Hq,
+                                                         Hkv, causal):
+    """The general instance stays covered at bf16 D 80, which the Hopper
+    one now takes, through the private ``_instance="general"``: forward
+    at the bf16 bars and backward at the budget bar against the plain
+    version, one launch each way."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_grad_budget, flash_attention_ref,
+        grad_rows_beyond_budget)
+
+    D = 80
+    q, k, v = _attn_inputs(card, B, S, S, Hq, Hkv, D, torch.bfloat16, 17)
+    general = lambda *a, causal: flash_attention(*a, causal=causal,
+                                                 _instance="general")
+    with torch.no_grad():
+        got = general(q, k, v, causal=causal)
+    _assert_bf16_rows_close(got, flash_attention_ref(q, k, v,
+                                                     causal=causal))
+    w = torch.randn((B, S, Hq, D), device=card,
+                    generator=torch.Generator(device=card).manual_seed(18))
+    runtime.reset_launch_counts()
+    grads = _flash_grads(general, q, k, v, causal, w)[1]
+    assert runtime.launch_counts() == {"flash_attention": 1,
+                                       "flash_attention_bwd": 1}
+    ref = _flash_grads(flash_attention_ref, q, k, v, causal, w)[1]
+    budgets = flash_attention_grad_budget(q, k, v, w.to(torch.bfloat16),
+                                          causal=causal)
+    torch.cuda.synchronize()
+    for name, g, r, b in zip(("dq", "dk", "dv"), grads, ref, budgets):
+        rel = grad_rows_beyond_budget(g, r, b)
+        assert rel <= BF16_GRAD_ROW, f"{name}: {rel} of a row's max"
+
+
 @pytest.mark.parametrize("dtype,D,inst", [
     (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "sm90"),
-    (torch.bfloat16, 80, "general"), (torch.float32, 128, "general")])
+    (torch.bfloat16, 80, "sm90"), (torch.float32, 128, "general")])
 def test_flash_attention_one_launch_per_call(card, dtype, D, inst):
     """Either instance is one counted ``flash_attention`` launch."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
@@ -623,7 +714,11 @@ def _flash_grads(fn, q, k, v, causal, w):
     (2, 200, 8, 2, 64),      # G 4
     (1, 300, 16, 2, 128),    # G 8
     (1, (100, 333), 8, 1, 128),  # G 8, Sq < Skv
-    (2, (77, 200), 4, 4, 64)])   # G 1, Sq < Skv
+    (2, (77, 200), 4, 4, 64),    # G 1, Sq < Skv
+    # D 80 (bf16: the Hopper instance with its tail box; G 4 above)
+    (2, 200, 8, 8, 80),      # G 1
+    (1, 300, 16, 2, 80),     # G 8
+    (1, (100, 333), 8, 1, 80)])  # G 8, Sq < Skv
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_matches_plain_autograd(card, B, S, Hq,
@@ -661,11 +756,12 @@ def test_flash_attention_backward_matches_plain_autograd(card, B, S, Hq,
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 80),
                                      (torch.float32, 80)])
 def test_flash_attention_backward_is_deterministic(card, dtype, D):
     """Two backward calls on the same inputs give the same bits (no
     atomics: dk and dv in one pass over the q tiles, dq in another), for
-    the Hopper instance (bf16, D 128) and the general one."""
+    the Hopper instance (bf16, D 128 and 80) and the general one."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
     q, k, v = _attn_inputs(card, 2, 300, 300, 8, 2, D, dtype, 3)
@@ -677,14 +773,15 @@ def test_flash_attention_backward_is_deterministic(card, dtype, D):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("D", [128, 80])
 @pytest.mark.parametrize("which", ["q", "k", "v", "dout"])
-def test_flash_attention_hopper_backward_refuses_misaligned(card, which):
+def test_flash_attention_hopper_backward_refuses_misaligned(card, which, D):
     """The Hopper backward reads q, k, v and dout by TMA: one that is not
     16-byte aligned is refused before the launch, with no fallback; the
     general instance, asked for, takes it."""
     from repro_torch.kernels.flash_attention import ops
 
-    B, S, Hq, Hkv, D = 1, 96, 4, 2, 128
+    B, S, Hq, Hkv = 1, 96, 4, 2
     q, k, v = _attn_inputs(card, B, S, S, Hq, Hkv, D, torch.bfloat16, 4)
     dout = torch.randn((B, S, Hq, D), device=card).to(torch.bfloat16)
     lse = torch.empty((B, Hq, S), device=card)

@@ -138,7 +138,7 @@ def test_flash_plain_row_without_keys_is_zero():
 @pytest.mark.parametrize("dtype,head_dim,want", [
     (torch.bfloat16, 128, "sm90"),      # Yi-6B and the other dense archs
     (torch.bfloat16, 64, "sm90"),
-    (torch.bfloat16, 80, "general"),    # HuBERT
+    (torch.bfloat16, 80, "sm90"),       # Zamba2, HuBERT: the tail box
     (torch.bfloat16, 192, "general"),   # Nemotron-4
     (torch.bfloat16, 16, "general"),    # the reduced archs
     (torch.bfloat16, 256, "general"),
@@ -152,7 +152,7 @@ def test_flash_dispatch_rule(dtype, head_dim, want):
 
 @pytest.mark.parametrize("dtype,head_dim,want", [
     (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "sm90"),
-    (torch.bfloat16, 80, "general"), (torch.bfloat16, 192, "general"),
+    (torch.bfloat16, 80, "sm90"), (torch.bfloat16, 192, "general"),
     (torch.float32, 128, "general")])
 @pytest.mark.parametrize("forced", [None, "general"])
 def test_flash_backward_dispatch_rule(dtype, head_dim, want, forced):
@@ -164,13 +164,15 @@ def test_flash_backward_dispatch_rule(dtype, head_dim, want, forced):
     assert got == (forced or want)
 
 
+@pytest.mark.parametrize("head_dim", [128, 80])
 @pytest.mark.parametrize("which", ["q", "k", "v", "dout"])
-def test_flash_backward_hopper_instance_rejects_misaligned(which):
+def test_flash_backward_hopper_instance_rejects_misaligned(which,
+                                                           head_dim):
     """The Hopper backward reads q, k, v and dout by TMA: one that is not
     16-byte aligned raises before any launch (no fallback); the general
     instance takes it."""
-    ins = {n: torch.zeros((1, 16, 4 if n in ("q", "dout") else 2, 128),
-                          dtype=torch.bfloat16)
+    ins = {n: torch.zeros((1, 16, 4 if n in ("q", "dout") else 2,
+                           head_dim), dtype=torch.bfloat16)
            for n in ("q", "k", "v", "dout")}
     ins[which] = _misaligned(tuple(ins[which].shape), torch.bfloat16)
     args = [ins[n] for n in ("q", "k", "v", "dout")]
@@ -189,13 +191,33 @@ def _misaligned(shape, dtype):
 
 
 @pytest.mark.parametrize("dtype,head_dim", [
-    (torch.float32, 128), (torch.bfloat16, 80)])
+    (torch.float32, 128), (torch.bfloat16, 192)])
 def test_flash_wrapper_takes_misaligned_general_inputs(dtype, head_dim):
     """Only the TMA instance needs 16-byte aligned q, k, v."""
     q = _misaligned((1, 16, 4, head_dim), dtype)
     k = _misaligned((1, 16, 2, head_dim), dtype)
     assert q.is_contiguous() and q.data_ptr() % 16
     flash_ops._check(q, k, k, True)
+
+
+@pytest.mark.parametrize("head_dim", [128, 80])
+def test_flash_forward_instance_choice(head_dim):
+    """The forward's private ``_instance`` takes only None or "general",
+    as the backward's does: anything else raises, on the CPU path too.
+    Asked for, the general instance takes misaligned bf16 inputs that
+    the Hopper one refuses."""
+    q = _misaligned((1, 16, 4, head_dim), torch.bfloat16)
+    k = _misaligned((1, 16, 2, head_dim), torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_ops._check(q, k, k, True)
+    flash_ops._check(q, k, k, True, "general")
+    for bad in ("sm90", "plain", ""):
+        with pytest.raises(ValueError, match="instance"):
+            flash_attention(q, k, k, causal=True, _instance=bad)
+    _, (q, k, v) = _qkv(1, 16, 4, 2, 8, seed=3)
+    torch.testing.assert_close(
+        flash_attention(q, k, v, causal=True, _instance="general"),
+        flash_attention(q, k, v, causal=True), atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("bad,match", [
