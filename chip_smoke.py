@@ -71,7 +71,41 @@ Phases, each fatal on failure (non-zero exit, no result line):
    within 1e-4, cache hit rates equal), and 64 link queries through
    ``QueryEngine.attach`` on the card's TGAT trainer match
    ``offline_forward`` (1e-4);
-7. LM serving phase, for Yi-6B (dense GQA) and Falcon-Mamba-7B (Mamba-1),
+7. distributed training phase: ``DistributedContinuousTrainer`` with
+   P 4 machines x G 2 ranks in one process (the in-process transport,
+   every worker on the card) and the exact ``bucketed`` collective, for
+   TGN (recent, batch 4,000) and TGAT (uniform, batch 600) at phase 6's
+   full width, ingests the first 600,000 events and runs one round of
+   12,000 events with 2 epochs: losses finite and AP in [0, 1], the
+   attention forward launched exactly W·L times a train and an eval
+   step and its backward W·L times a train step (W = 8 workers), the
+   samplers and cache_gather launched, the collective's steps and bytes
+   as accounted, the schedule's load CV below 0.1, and the stage split,
+   the routing's host waits, the traffic, the per-partition hit rates,
+   the refresh bytes beside a full re-upload, the mirrors' bytes and
+   the device's busy share printed.  Then one more global step of each
+   trainer holds every kernel against its plain version on the inputs
+   it gives them: each routed, pow2-padded owner bucket of the sampler
+   (uniform with its request-keyed noise, also against the sampler's
+   ``_hop_plain``), each ``cache_gather``, each worker's attention
+   forward and backward (ids, masks and rows exact, floats within 1e-5
+   of max(1, max |plain|)).  Then, after a 50,000-event prefix and a
+   one-batch round: the distributed trainer on the card against itself
+   on the CPU (TGN and TGAT with recent sampling: step losses, eval
+   loss and AP within 1e-4; load matrix, request and response bytes
+   and per-partition hit rates equal) and against the single-host
+   trainer on the card (loss within 1e-4, AP within 1e-3, the
+   reference's bands); sharded state against replicated for TGN (losses
+   within 1e-4, each machine's shard about 1/P of the replicated
+   bytes); the quantized (int8) and top-k collectives within 0.05 of
+   the exact one, int8 with under a third of its bytes a step and top-k
+   with fewer; and two uniform
+   sampler systems fed the same requests in opposite worker orders draw
+   identical samples, each hop-0 pick an in-window candidate, min(K, n)
+   of them.  If the phase ran past 240 s, the warm prefix
+   (``DIST_WARM_EVENTS``) is what is cut, never the width, P·G or the
+   batch;
+8. LM serving phase, for Yi-6B (dense GQA) and Falcon-Mamba-7B (Mamba-1),
    one at a time: initialise at full width and depth on the card from a
    seeded CUDA generator, cast once to the bf16 compute tree, prefill
    2 prompts of 4,096 tokens through ``make_prefill_step`` (exactly one
@@ -115,7 +149,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against token-by-token decode within 0.15 (the moe archs at 4 tokens,
    where the prefill cannot drop a slot), and zamba2's prefill(S) + one
    decode step against prefill(S + 1);
-8. LM training phase: Yi-6B and Falcon-Mamba-7B at full width, cut to 8
+9. LM training phase: Yi-6B and Falcon-Mamba-7B at full width, cut to 8
    layers, take 3 steps of ``make_train_step`` (B 2 x S 4,096, block
    remat, AdamW from ``make_optimizer``) on one seeded batch: the loss
    falls at every step, each step launches the forward kernel twice a
@@ -931,6 +965,7 @@ def main() -> int:
                 raise AssertionError(f"{r['name']}: no launch in the "
                                      f"{trainer} rounds")
     rows += train_rows
+    dist_phase(torch, dev, args, stream)
     del stream
     rows += lm_phase(torch, dev, args)
     rows += lm_train_phase(torch, dev, args)
@@ -1446,6 +1481,411 @@ def train_phase(torch, dev, args, stream):
                      PARITY_EVENTS + PARITY_ROUND["tgat"])
     log(f"[train] training phase done in {time.perf_counter() - t0:.1f} s")
     return [row], train_counts
+
+
+# ---------------------------------------------------------------------------
+# distributed training phase
+# ---------------------------------------------------------------------------
+
+DIST = (4, 2)                 # P machines x G ranks: the reference's topology
+DIST_WARM_EVENTS = WARM_EVENTS    # cut here (and say so) if the phase
+#                                   ran past 240 s; never the width
+DIST_ATOL_AP = 1e-3           # distributed vs single host: the reference's
+#                               bands (tests/test_dist_continuous.py:73-74)
+LOSSY_BAND = 0.05             # quantized / top-k vs bucketed
+
+
+def dist_trainer(cfg, stream, dev, args, collective="bucketed", **kw):
+    from repro_torch.configs.tgn_gdelt import DistConfig
+    from repro_torch.dist.continuous import DistributedContinuousTrainer
+    return DistributedContinuousTrainer(
+        cfg, stream, DistConfig(*DIST, collective), seed=args.seed,
+        device=dev, **kw)
+
+
+def dist_runs(torch, dev, args, stream):
+    """TGN (recent, batch 4,000) and TGAT (uniform, batch 600) at full
+    width through ``DistributedContinuousTrainer`` (P 4 x G 2,
+    bucketed): DIST_WARM_EVENTS ingested, then one round of ROUND_EVENTS
+    with EPOCHS epochs, profiled.  Checks the round's launch counts (the
+    attention forward and backward W·L times a train step, the forward
+    W·L times an eval step), the collective's accounting and the load
+    CV, and prints the stage split and the traffic."""
+    from repro_torch.configs.tgn_gdelt import tgat, tgn
+    from repro_torch.kernels import runtime
+
+    W = DIST[0] * DIST[1]
+    for cfg in (tgn(), tgat()):
+        name, L = cfg.name, cfg.n_layers
+        t0 = time.perf_counter()
+        tr = dist_trainer(cfg, stream, dev, args)
+        tr.ingest(stream.slice(0, DIST_WARM_EVENTS))
+        torch.cuda.synchronize()
+        log(f"[dist] {name} ({cfg.sampling}, batch {cfg.batch_size}, P "
+            f"{DIST[0]} x G {DIST[1]}): ingested {DIST_WARM_EVENTS} events "
+            f"in {time.perf_counter() - t0:.1f} s; {W} sampler mirrors hold "
+            f"{tr.samplers.mirror_bytes() / 1e6:.1f} MB on the card; full "
+            f"re-upload {tr.full_upload_bytes() / 1e6:.1f} MB")
+        lo = DIST_WARM_EVENTS
+        runtime.reset_launch_counts()
+        share, wall, top, m = profiled_busy(torch, lambda: tr.train_round(
+            stream.slice(lo, lo + ROUND_EVENTS), epochs=EPOCHS))
+        counts = runtime.launch_counts()
+        steps = len(m.step_losses)
+        evals = math.ceil(ROUND_EVENTS / cfg.batch_size)
+        losses = m.step_losses + [m.eval_loss]
+        if not (np.isfinite(losses).all() and 0.0 <= m.ap <= 1.0):
+            raise AssertionError(f"dist {name}: non-finite loss or bad AP "
+                                 f"({m})")
+        want = {"temporal_attn": (steps + evals) * W * L,
+                "temporal_attn_bwd": steps * W * L}
+        for k, v in want.items():
+            if counts.get(k, 0) != v:
+                raise AssertionError(f"dist {name}: {k} launched "
+                                     f"{counts.get(k, 0)} times, expected {v}")
+        for k in (f"temporal_sample_{cfg.sampling}", "cache_gather"):
+            if counts.get(k, 0) <= 0:
+                raise AssertionError(f"dist {name}: {k} never launched")
+        if m.collective_steps != steps or m.reduce_bytes != \
+                steps * tr.reduce_bytes_per_step:
+            raise AssertionError(f"dist {name}: collective accounting "
+                                 f"{m.collective_steps} steps, "
+                                 f"{m.reduce_bytes} bytes")
+        if not m.load_cv < 0.1:
+            raise AssertionError(f"dist {name}: load CV {m.load_cv} "
+                                 f"(>= 0.1): {tr.samplers._load.tolist()}")
+        log(f"[dist] {name} round: loss {m.loss:.6f} eval loss "
+            f"{m.eval_loss:.6f} AP {m.ap:.6f}; round {wall:.3f} s: sample_s "
+            f"{m.sample_s:.3f} (host waits on the owners' hop results "
+            f"{m.route_sync_s:.3f} s over {m.route_syncs} reads, "
+            f"{m.route_sync_s / max(m.sample_s, 1e-12):.4f} of it) fetch_s "
+            f"{m.fetch_s:.3f} step_s {m.step_s:.3f} train_s {m.train_s:.3f} "
+            f"ingest_s {m.ingest_s:.3f}; {steps} train + {evals} eval steps; "
+            f"load CV {m.load_cv:.4f} (load {tr.samplers._load.tolist()}); "
+            f"dispatch {m.dispatch_bytes} B, request {m.request_bytes} B, "
+            f"response {m.response_bytes} B, reduce {m.reduce_bytes} B "
+            f"({tr.reduce_bytes_per_step} a step); hit rate node "
+            f"{m.node_hit_rate:.4f} edge {m.edge_hit_rate:.4f}, per "
+            f"partition node {list(m.node_hit_per_part)} edge "
+            f"{list(m.edge_hit_per_part)}; refresh {m.refresh_bytes} B "
+            f"against a full re-upload of {tr.full_upload_bytes()} B; "
+            f"device busy {share:.4f} of the round's wall time; top device "
+            f"ops (ms): {top}")
+        per = {k: round(v / (steps + evals), 3) for k, v in counts.items()}
+        log(f"[dist] {name}: launches over the round {counts}; per global "
+            f"step {per}")
+        dist_holds(torch, tr, stream, lo + ROUND_EVENTS)
+        del tr
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def hooked(module, name, hook):
+    """``module.name`` replaced by a wrapper that calls the original,
+    then ``hook(args, kwargs, result)``; restored on exit."""
+    orig = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        out = orig(*a, **kw)
+        hook(a, kw, out)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield orig
+    finally:
+        setattr(module, name, orig)
+
+
+def scaled_err(torch, got, want, what) -> float:
+    """max |got - want| against ATOL_KERNEL x max(1, max |want|)."""
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    return max_err(torch, got, want, what, ATOL_KERNEL * scale) / scale
+
+
+def dist_holds(torch, tr, stream, lo):
+    """Every kernel of the distributed path against its plain version on
+    the inputs that one more global step of ``tr`` (the events from
+    ``lo``) gives it: each routed, pow2-padded owner bucket of the
+    sampler (the uniform one with the request-keyed noise the kernel got,
+    against both the kernel's plain version and the sampler's own
+    ``_hop_plain``), each ``cache_gather`` of every worker's fetch, and
+    each worker's attention forward and, with a random upstream gradient,
+    backward.  Ids, masks and gathered rows exact; floats within
+    ATOL_KERNEL of max(1, max |plain|).  Runs after the round's launch
+    counts were read: these launches count nowhere."""
+    from repro_torch.core import feature_cache, sampling
+    from repro_torch.kernels.cache_gather.ref import cache_gather_ref
+    from repro_torch.kernels.temporal_attn.ref import temporal_attn_ref
+    from repro_torch.kernels.temporal_sample.ref import (
+        temporal_sample_ref, temporal_sample_uniform_ref)
+    from repro_torch.models import gnn
+
+    cfg, dist = tr.cfg, tr.dist
+    name, B = cfg.name, cfg.batch_size
+    keys = ("page_table", "page_tmin", "page_tmax", "pages_nbr",
+            "pages_eid", "pages_ts", "pages_valid")
+    seen = {"sample": 0, "padded": 0, "gather": 0, "gather_ids": 0}
+    sizes = {"sample": set(), "attn": set()}
+    attn_calls = []
+
+    def by_eid(r):
+        o = torch.sort(r[1], dim=1, stable=True).indices
+        return r[0].gather(1, o), r[1].gather(1, o), r[2].gather(1, o), r[3]
+
+    def hold_sample(a, kw, out):
+        pages, hop = a[:7], a[7:11]
+        k, scan, policy = kw["k"], kw["scan"], kw["policy"]
+        plain_pages = (pages[0][:, :scan].contiguous(),) + tuple(pages[1:])
+        if policy == "uniform":
+            want = temporal_sample_uniform_ref(*plain_pages, *hop,
+                                               kw["noise"], k=k)
+        else:
+            want = temporal_sample_ref(*plain_pages, *hop, k=k)
+        also = sampling._hop_plain(dict(zip(keys, pages)), *hop,
+                                   kw["noise"], k=k, policy=policy,
+                                   scan_pages=scan)
+        torch.cuda.synchronize()
+        what = f"dist {name} temporal_sample_{policy} N={hop[0].shape[0]}"
+        if policy == "uniform":
+            # _hop_plain lists a row's picks in newest-first lane order,
+            # the kernel in noise order: held row by row, sorted by eid
+            checks = ((out, want, "plain"),
+                      (by_eid(out), by_eid(also),
+                       "_hop_plain, rows sorted by eid"))
+        else:
+            checks = ((out, want, "plain"), (out, also, "_hop_plain"))
+        for got, ref, tag in checks:
+            for i, f in ((0, "nbr"), (1, "eid"), (3, "mask")):
+                assert_equal(torch, got[i], ref[i], f"{what} {f} ({tag})")
+            max_err(torch, got[2], ref[2], f"{what} ts ({tag})")
+        seen["sample"] += 1
+        seen["padded"] += int(not bool(hop[3].all()))
+        sizes["sample"].add(int(hop[0].shape[0]))
+
+    def hold_gather(a, kw, out):
+        want = cache_gather_ref(*a)
+        torch.cuda.synchronize()
+        what = f"dist {name} cache_gather N={a[3].shape[0]}"
+        assert_equal(torch, out[1], want[1], f"{what} hit")
+        assert_equal(torch, out[0], want[0], f"{what} rows")
+        seen["gather"] += 1
+        seen["gather_ids"] += int(a[3].shape[0])
+
+    def record_attn(a, kw, out):
+        q, k, v, mask = a
+        with torch.no_grad():
+            want = temporal_attn_ref(q, k, v, mask)
+        scaled_err(torch, out.detach(), want,
+                   f"dist {name} temporal_attn N={q.shape[0]}")
+        attn_calls.append([t.detach().clone() for t in a])
+
+    src, dst, ts = (np.asarray(x[lo:lo + B])
+                    for x in (stream.src, stream.dst, stream.ts))
+    with hooked(sampling, "temporal_sample", hold_sample), \
+            hooked(feature_cache, "cache_gather", hold_gather):
+        staged = tr._stage_shards(src, dst, ts, micros=dist.grad_accum)
+        shards = tr._sharded_batch(staged)
+    with hooked(gnn, "temporal_attn", record_attn) as temporal_attn:
+        tr._dist_step(tr.params, tr.opt_state, shards, tr.err)
+    want_calls = dist.n_workers * dist.grad_accum * cfg.n_layers
+    if len(attn_calls) != want_calls or not (seen["sample"]
+                                             and seen["padded"]
+                                             and seen["gather"]):
+        raise AssertionError(f"dist {name} holds: {len(attn_calls)} "
+                             f"attention calls (expected {want_calls}), "
+                             f"{seen}")
+    bwd = 0.0
+    for q, k, v, mask in attn_calls:
+        ins = [t.requires_grad_() for t in (q, k, v)]
+        g = torch.Generator(device=q.device).manual_seed(q.shape[0])
+        dout = torch.randn(q.shape, generator=g, device=q.device)
+        got = torch.autograd.grad(temporal_attn(*ins, mask), ins, dout)
+        want = torch.autograd.grad(temporal_attn_ref(*ins, mask), ins, dout)
+        torch.cuda.synchronize()
+        for nm, x, y in zip(("dq", "dk", "dv"), got, want):
+            bwd = max(bwd, scaled_err(
+                torch, x, y, f"dist {name} temporal_attn_bwd "
+                             f"N={q.shape[0]} {nm}"))
+        sizes["attn"].add(tuple(mask.shape))
+    log(f"[dist] {name} kernels against their plain versions on one more "
+        f"global step's inputs: {seen['sample']} routed sampler buckets "
+        f"(N {sorted(sizes['sample'])}; {seen['padded']} with a padded "
+        f"tail) equal to the plain version and to _hop_plain; "
+        f"{seen['gather']} cache_gather calls ({seen['gather_ids']} ids) "
+        f"equal; {len(attn_calls)} attention forwards and backwards at "
+        f"(N, K) {sorted(sizes['attn'])}, backward max |err| / max(1, "
+        f"max |grad|) {bwd:.3g} (tol {ATOL_KERNEL})")
+
+
+def dist_round(cfg, stream, dev, args, trainer=None, **kw):
+    """(trainer, metrics, load matrix, s): one PARITY_ROUND-event round
+    after PARITY_EVENTS, by the distributed trainer or ``trainer``."""
+    t0 = time.perf_counter()
+    tr = trainer(cfg, stream, seed=args.seed, device=dev) if trainer \
+        else dist_trainer(cfg, stream, dev, args, **kw)
+    tr.ingest(stream.slice(0, PARITY_EVENTS))
+    n = PARITY_ROUND[cfg.name]
+    m = tr.train_round(stream.slice(PARITY_EVENTS, PARITY_EVENTS + n),
+                       epochs=EPOCHS)
+    load = tr.samplers.load_stats().per_worker_targets if not trainer \
+        else None
+    return tr, m, load, time.perf_counter() - t0
+
+
+def dist_checks(torch, dev, args, stream):
+    """The distributed trainer on the card against itself on the CPU
+    and against the single-host trainer on the card (TGN and TGAT with
+    recent sampling, one-batch rounds); sharded against replicated
+    state; the lossy collectives against the exact one; and the uniform
+    sampler's request-keyed draws and their containment."""
+    from repro_torch.configs.tgn_gdelt import tgat, tgn
+    from repro_torch.core.continuous import ContinuousTrainer
+
+    card = {}
+    for cfg in (tgn(), tgat(sampling="recent")):
+        tr, a, load_a, t_card = dist_round(cfg, stream, dev, args)
+        _, b, load_b, t_cpu = dist_round(cfg, stream, "cpu", args)
+        _, c, _, _ = dist_round(cfg, stream, dev, args,
+                                trainer=ContinuousTrainer)
+        card[cfg.name] = (tr, a)
+        diffs = [abs(x - y) for x, y in zip(a.step_losses, b.step_losses)]
+        worst = max(diffs + [abs(a.eval_loss - b.eval_loss),
+                             abs(a.ap - b.ap)])
+        if len(a.step_losses) != len(b.step_losses) or not \
+                worst <= ATOL_SERVED:
+            raise AssertionError(f"dist {cfg.name} card vs CPU: {a} vs {b}")
+        for key in ("request_bytes", "response_bytes", "node_hit_per_part",
+                    "edge_hit_per_part", "node_hit_rate", "edge_hit_rate"):
+            if getattr(a, key) != getattr(b, key):
+                raise AssertionError(f"dist {cfg.name}: {key} differs "
+                                     f"between the card and the CPU")
+        if not np.array_equal(load_a, load_b):
+            raise AssertionError(f"dist {cfg.name}: load matrices differ")
+        single = max([abs(x - y) for x, y in zip(a.step_losses,
+                                                  c.step_losses)]
+                     + [abs(a.loss - c.loss)])
+        if len(a.step_losses) != len(c.step_losses) or not (
+                single <= ATOL_SERVED and abs(a.ap - c.ap) <= DIST_ATOL_AP):
+            raise AssertionError(f"dist {cfg.name} vs single host: {a} vs "
+                                 f"{c}")
+        log(f"[dist] card == CPU, {cfg.name} ({cfg.sampling}), one round "
+            f"of {PARITY_ROUND[cfg.name]} events after {PARITY_EVENTS}: "
+            f"{len(diffs)} step losses, eval loss and AP within "
+            f"{worst:.3g} (tol {ATOL_SERVED}); load, request and response "
+            f"bytes and per-partition hit rates equal; card {t_card:.1f} s, "
+            f"CPU {t_cpu:.1f} s.  Against the single-host trainer on the "
+            f"card: loss within {single:.3g} (tol {ATOL_SERVED}), AP "
+            f"|diff| {abs(a.ap - c.ap):.3g} (tol {DIST_ATOL_AP})")
+
+    # sharded state against replicated (TGN), on the card
+    rep_tr, rep = card["tgn"]
+    shd_tr, shd, _, _ = dist_round(tgn(), stream, dev, args,
+                                   state="sharded")
+    diff = max(abs(x - y) for x, y in zip(rep.step_losses + [rep.eval_loss],
+                                          shd.step_losses + [shd.eval_loss]))
+    total = rep_tr.state.resident_bytes()
+    per = [shd_tr.state.shard_bytes(p) / total for p in range(DIST[0])]
+    if not (diff <= ATOL_SERVED and shd_tr.state.resident_bytes() == total
+            and all(0.15 <= r <= 0.35 for r in per)):
+        raise AssertionError(f"dist sharded vs replicated: |diff| {diff}, "
+                             f"shares {per}")
+    log(f"[dist] sharded == replicated state, tgn: losses within "
+        f"{diff:.3g} (tol {ATOL_SERVED}); each machine's shard holds "
+        f"{[round(r, 4) for r in per]} of the replicated {total} B; "
+        f"{shd.state_calls} modeled state calls, {shd.state_bytes} B")
+
+    # the lossy collectives against the exact one (TGAT, recent)
+    exact_tr, exact = card["tgat"]
+    for mode in ("quantized", "topk"):
+        tr, m, _, _ = dist_round(tgat(sampling="recent"), stream, dev, args,
+                                 collective=mode)
+        d = max(abs(x - y) for x, y in zip(exact.step_losses,
+                                           m.step_losses))
+        ratio = 3 if mode == "quantized" else 1
+        smaller = (tr.reduce_bytes_per_step * ratio
+                   < exact_tr.reduce_bytes_per_step)
+        if not (np.isfinite(m.step_losses).all() and d <= LOSSY_BAND
+                and smaller):
+            raise AssertionError(f"dist {mode}: loss |diff| {d}, "
+                                 f"{tr.reduce_bytes_per_step} B a step")
+        log(f"[dist] {mode} collective: step losses within {d:.3g} of "
+            f"bucketed (band {LOSSY_BAND}); {tr.reduce_bytes_per_step} B a "
+            f"step a worker against {exact_tr.reduce_bytes_per_step}")
+    uniform_keyed(torch, dev, args, stream)
+
+
+def uniform_keyed(torch, dev, args, stream):
+    """Two DistributedSamplerSystems on the card over the PARITY_EVENTS
+    prefix (TGAT's uniform fanouts), fed the same requests in two worker
+    orders: identical samples; every hop-0 pick an in-window candidate
+    of the whole graph, min(K, n) of them."""
+    from repro_torch.configs.tgn_gdelt import tgat
+    from repro_torch.core.dgraph import DynamicGraph
+    from repro_torch.core.partition import Dispatcher, GraphPartition
+    from repro_torch.core.scheduler import DistributedSamplerSystem
+    from repro_torch.kernels import runtime
+
+    cfg = tgat()
+    P, G = DIST
+    ev = (stream.src[:PARITY_EVENTS], stream.dst[:PARITY_EVENTS],
+          stream.ts[:PARITY_EVENTS])
+    whole = DynamicGraph(threshold=64, undirected=True)
+    whole.add_edges(*ev)
+    rng = np.random.default_rng(args.seed + 3)
+    n = 3 * 75                    # one worker's shard of a 600-event batch
+    reqs = {(m, r): (rng.integers(0, stream.n_nodes, n),
+                     rng.uniform(ev[2][-1] / 2, ev[2][-1] + 1, n)
+                     .astype(np.float32))
+            for m in range(P) for r in range(G)}
+    order = sorted(reqs)
+    runs = []
+    runtime.reset_launch_counts()
+    for workers in (order, order[::-1]):
+        parts = [GraphPartition(p, P, threshold=64) for p in range(P)]
+        Dispatcher(parts, undirected=True).add_edges(*ev)
+        system = DistributedSamplerSystem(parts, G, cfg.fanouts,
+                                          policy="uniform", seed=args.seed,
+                                          device=dev)
+        runs.append({w: system.sample(*w, *reqs[w]) for w in workers})
+        del system
+    launched = runtime.launch_counts().get("temporal_sample_uniform", 0)
+    if launched <= 0:
+        raise AssertionError("uniform: the distributed sampler never "
+                             "launched its kernel")
+    K = cfg.fanouts[0]
+    checked = 0
+    for w in order:
+        for la, lb in zip(runs[0][w], runs[1][w]):
+            for f in ("nbr_ids", "nbr_eids", "nbr_ts", "mask"):
+                if not np.array_equal(getattr(la, f), getattr(lb, f)):
+                    raise AssertionError(f"uniform {w}: {f} depends on the "
+                                         f"order of requests")
+        hop0 = runs[0][w][0]
+        for i, node in enumerate(reqs[w][0]):
+            cn, ce, _ = whole.neighbors_in_window(int(node), -np.inf,
+                                                  float(reqs[w][1][i]))
+            got = hop0.nbr_eids[i][hop0.mask[i]]
+            if not set(got.tolist()) <= set(ce.tolist()):
+                raise AssertionError(f"uniform sampled a non-candidate for "
+                                     f"node {node}")
+            if len(got) != min(K, len(cn)):
+                raise AssertionError(f"uniform count {len(got)} != min({K},"
+                                     f" {len(cn)}) for node {node}")
+            checked += 1
+    log(f"[dist] uniform: two systems fed {len(order)} workers' requests in "
+        f"opposite orders drew identical samples; {checked} hop-0 "
+        f"neighbourhoods are candidates of the whole graph with min(K, n) "
+        f"entries; {launched} uniform launches")
+
+
+def dist_phase(torch, dev, args, stream):
+    """Phase 7: the distributed continuous trainer."""
+    t0 = time.perf_counter()
+    dist_runs(torch, dev, args, stream)
+    dist_checks(torch, dev, args, stream)
+    log(f"[dist] distributed training phase done in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------

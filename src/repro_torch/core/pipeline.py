@@ -31,7 +31,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.mfg import assemble
+from repro_torch.core.mfg import assemble, host_ids
 from repro_torch.device import resolve
 from repro_torch.obs import trace
 
@@ -86,6 +86,43 @@ class FeatureAssembler:
                 return {"snap_layers": snap_layers, "mask": mask_t}
             return {"layers": sample_fn(seeds, seed_ts), "mask": mask_t}
 
+    def collect_ids(self, sampled: Dict[str, Any]):
+        """Union of (node ids, edge ids, memory ids) the assembly and
+        finalize of ``sampled`` will read — what an async remote-row
+        prefetch must cover.  Memory ids include each node's pending
+        raw-message counterpart (and the pending edge's feature id goes
+        into the edge set); they are computed against the CURRENT raw
+        state, so a commit between collect and finalize can shift a few
+        ids — those just fall back to the synchronous path."""
+        layer_list = (sampled["layers"] if "layers" in sampled
+                      else [l for snap in sampled["snap_layers"]
+                            for l in snap])
+        nodes, eids = [], []
+        for layer in layer_list:
+            nodes.append(host_ids(layer.dst_nodes).ravel())
+            nodes.append(host_ids(layer.nbr_ids).ravel())
+            eids.append(host_ids(layer.nbr_eids).ravel())
+        nodes = np.unique(np.concatenate(nodes)) if nodes else \
+            np.zeros(0, np.int64)
+        nodes = nodes[nodes >= 0]
+        eids = np.unique(np.concatenate(eids)) if eids else \
+            np.zeros(0, np.int64)
+        eids = eids[eids >= 0]
+        mem_ids = None
+        if self.memory is not None:
+            m = self.memory
+            safe = nodes[nodes < len(m.raw_has)]
+            pend = safe[m.raw_has[safe]]
+            others = m.raw_other[pend]
+            # id 0 rides along: gather() reads memory row 0 for every
+            # node WITHOUT a pending message (its placeholder "other")
+            mem_ids = np.unique(np.concatenate(
+                [nodes, others, np.zeros(1, np.int64)]))
+            pend_eids = m.raw_eid[pend]
+            eids = np.unique(np.concatenate([eids,
+                                             pend_eids[pend_eids >= 0]]))
+        return nodes, eids, mem_ids
+
     def assemble_batch(self, sampled: Dict[str, Any]) -> Dict[str, Any]:
         """Phase 2 of ``prefetch``: cache/StateService feature fetch +
         batch assembly for an already-sampled batch."""
@@ -93,13 +130,14 @@ class FeatureAssembler:
         with trace.stage(self.timers, "fetch", phase="assemble"):
             if "snap_layers" in sampled:
                 snapshots = [assemble(layers, self.fetch_node,
-                                      self.fetch_edge)
+                                      self.fetch_edge, device=self.device)
                              for layers in sampled["snap_layers"]]
                 return {"batch": {"snapshots": snapshots,
                                   "seed_mask": mask_t},
                         "layers": None}
             layers = sampled["layers"]
-            hops = assemble(layers, self.fetch_node, self.fetch_edge)
+            hops = assemble(layers, self.fetch_node, self.fetch_edge,
+                            device=self.device)
         return {"batch": {"hops": hops, "seed_mask": mask_t},
                 "layers": layers if self.needs_finalize else None}
 
@@ -118,8 +156,8 @@ class FeatureAssembler:
         with trace.stage(self.timers, "fetch", phase="finalize"):
             blobs = []
             for layer in layers:
-                dst = layer.dst_nodes.cpu().numpy().astype(np.int64)
-                nbr = layer.nbr_ids.cpu().numpy().astype(np.int64)
+                dst = host_ids(layer.dst_nodes)
+                nbr = host_ids(layer.nbr_ids)
                 blobs.append((
                     self.memory.gather(dst, self.edge_feat_fn),
                     self.memory.gather(nbr.reshape(-1), self.edge_feat_fn)))

@@ -222,7 +222,8 @@ def _khop_impl(dev, seeds, seed_ts, tmask0, generator, *,
 def _as(x, dtype, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
-    np_dtype = {torch.int32: np.int32, torch.float32: np.float32}[dtype]
+    np_dtype = {torch.int32: np.int32, torch.float32: np.float32,
+                torch.bool: np.bool_}[dtype]
     return torch.from_numpy(np.array(x, np_dtype, ndmin=1)).to(device)
 
 
@@ -424,6 +425,7 @@ class TemporalSampler:
         self.window = float(window)
         self.scan_pages = int(scan_pages)
         self.device = resolve(device)
+        self.seed = int(seed)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._mirror = DeviceMirror(scan_pages=self.scan_pages,
                                     donate=True, device=self.device)
@@ -454,3 +456,37 @@ class TemporalSampler:
             return [SampledLayer(*h) for h in _khop_impl(
                 dev, targets, times, tmask, self._gen, fanouts=self.fanouts,
                 policy=self.policy, window=self.window, scan_pages=scan)]
+
+    def request_key(self, req_machine: int, seq: int, hop: int
+                    ) -> Optional[int]:
+        """Order-independent RNG key for one served stochastic hop: a
+        deterministic mix of (this sampler's seed, requesting machine,
+        that requester's request seq, hop index).  The serving sampler
+        is already (machine, rank)-seeded, so the full request
+        coordinate determines the draw and concurrent requesters cannot
+        perturb each other's.  The JAX package folds the same
+        coordinate into a threefry key, a stream torch cannot replay, so
+        the draws differ from JAX's while keeping its order
+        independence.  Returns None for the deterministic ``recent``
+        policy."""
+        if self.policy not in _STOCHASTIC:
+            return None
+        mix = np.random.SeedSequence([self.seed, int(req_machine),
+                                      int(seq), int(hop)])
+        return int(mix.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+    def sample_hop(self, targets, times, tmask, k: int, key=None):
+        """One hop for (padded) targets; returns (nbr, eid, ts, mask) on
+        the sampler's device.  ``key`` (from :meth:`request_key`) seeds
+        the hop's Gumbel noise in place of the sampler's own stream."""
+        dev = self._sync_device()
+        gen = self._gen
+        if key is not None:
+            gen = torch.Generator(device=self.device).manual_seed(key)
+        scan = min(self.scan_pages, dev["page_table"].shape[1])
+        [(_, _, _, nbr, eid, ts, m)] = _khop_impl(
+            dev, _as(targets, torch.int32, self.device),
+            _as(times, torch.float32, self.device),
+            _as(tmask, torch.bool, self.device), gen, fanouts=(int(k),),
+            policy=self.policy, window=self.window, scan_pages=scan)
+        return nbr, eid, ts, m

@@ -439,6 +439,49 @@ def test_trainer_on_the_card_matches_the_cpu_trainer(card, name):
                                                   b.edge_hit_rate)
 
 
+@pytest.mark.parametrize("name", ["tgn", "tgat"])
+def test_distributed_trainer_on_the_card_matches_the_cpu(card, name):
+    """One one-batch round of the distributed trainer (P 4 x G 2,
+    bucketed, recent sampling) on the card and on the CPU from the same
+    seed: per-step losses, eval loss and AP within 1e-4; the load
+    matrix, request and response bytes and per-partition hit rates
+    equal; the attention kernels launched W·L times a train step
+    (backward) and W·L times a step (forward)."""
+    from repro_torch.configs import tgn_gdelt as TC
+    from repro_torch.data.events import synth_ctdg
+    from repro_torch.dist.continuous import DistributedContinuousTrainer
+
+    small = dict(d_node=16, d_edge=12, d_time=8, d_hidden=20, d_memory=10,
+                 sampling="recent", batch_size=256)
+    cfg = getattr(TC, name)(**small)
+    stream = synth_ctdg(n_nodes=300, n_events=3000, t_span=3000,
+                        d_node=16, d_edge=12, seed=2)
+    out = []
+    for dev in (card, "cpu"):
+        tr = DistributedContinuousTrainer(
+            cfg, stream, TC.DistConfig(4, 2, "bucketed"), threshold=16,
+            cache_ratio=0.1, seed=0, device=dev)
+        tr.ingest(stream.slice(0, 2000))
+        runtime.reset_launch_counts()
+        m = tr.train_round(stream.slice(2000, 2256), epochs=2)
+        out.append((m, runtime.launch_counts(),
+                    tr.samplers.load_stats().per_worker_targets))
+    (a, counts, load_a), (b, cpu_counts, load_b) = out
+    assert cpu_counts == {}
+    W, L = 8, cfg.n_layers
+    assert len(a.step_losses) == 2 == len(b.step_losses)
+    assert counts["temporal_attn_bwd"] == 2 * W * L
+    assert counts["temporal_attn"] == (2 + 1) * W * L
+    assert counts["temporal_sample_recent"] > 0 and counts["cache_gather"] > 0
+    np.testing.assert_allclose(a.step_losses, b.step_losses, atol=1e-4,
+                               rtol=0)
+    assert abs(a.ap - b.ap) <= 1e-4 and abs(a.eval_loss - b.eval_loss) <= 1e-4
+    np.testing.assert_array_equal(load_a, load_b)
+    for key in ("request_bytes", "response_bytes", "node_hit_per_part",
+                "edge_hit_per_part"):
+        assert getattr(a, key) == getattr(b, key), key
+
+
 # ---------------------------------------------------------------------------
 # LM wing: flash_attention and selective_scan
 # ---------------------------------------------------------------------------
