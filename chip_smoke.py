@@ -60,10 +60,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    other design) and the autograd backward of a masked
    ``scaled_dot_product_attention``; then ``ContinuousTrainer`` for TGN
    (recent, batch 4000) and TGAT (uniform, batch 600) at full width
-   ingests the first 600,000 events and runs 3 rounds of 12,000 events
-   with 2 epochs each: losses finite, every kernel of the path launched
-   (the backward once per train step and layer), the per-stage split,
-   the share of each train prefetch that overlaps the step before it
+   ingests the first 600,000 events and runs 2 rounds of 12,000 events
+   with 2 epochs each (2 rounds, not more, to keep the whole script
+   well inside its time limit): losses finite, every kernel of the path
+   launched (the backward once per train step and layer), the per-stage
+   split, the share of each train prefetch that overlaps the step before it
    (CUDA events), and the device's busy share over one round
    (``torch.profiler``).  A card trainer and a CPU trainer agree over
    a one-batch round (2 train steps) after a 50,000-event prefix (TGN
@@ -105,7 +106,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
    of them.  If the phase ran past 240 s, the warm prefix
    (``DIST_WARM_EVENTS``) is what is cut, never the width, P·G or the
    batch;
-8. LM serving phase, for Yi-6B (dense GQA) and Falcon-Mamba-7B (Mamba-1),
+8. multihost phase: ``repro_torch.launch.multihost.launch`` runs P 4
+   worker processes x G 2 ranks on the card (one machine a process:
+   its partition, rank samplers and state shard behind an RPC server;
+   barriers on the process group's store, the shard count, loss and
+   gradients summed over gloo), for TGN (recent, batch 4,000, sharded
+   state, fenced) and TGAT (uniform, batch 600, replicated state) at
+   phase 6's full width: a 50,000-event warm prefix, then one round of
+   12,000 events with 2 epochs, each worker tracing its spans into a
+   fleet trace under ``chiprun_out/mh_trace``; then the same schedule
+   through the in-process trainer on the card.  Every worker exits 0
+   with its result line; the workers' step and eval losses agree within
+   1e-6; the fleet is within 1e-4 (losses) and 1e-3 (AP) of the
+   in-process trainer, the gap printed; every worker sent RPCs in the
+   round and launched the attention forward exactly G·L times a train
+   and an eval step, its backward G·L times a train step, its sampler
+   and cache_gather; sharded TGN crossed the wire, served its peers,
+   hit its prefetch, served nothing stale and holds about 1/P of the
+   replicated bytes; the merged trace has P lanes with ``rpc.call``,
+   ``rpc.serve`` and ``barrier`` spans.  Printed per worker: the round
+   wall and its split, the RPC and state waits, the seconds in barriers
+   and collectives (from the trace) and the peak device memory, beside
+   the in-process round.  Past 240 s the warm prefix is cut first, then
+   the round's events, never the width, P·G or the batch;
+9. LM serving phase, for Yi-6B (dense GQA) and Falcon-Mamba-7B (Mamba-1),
    one at a time: initialise at full width and depth on the card from a
    seeded CUDA generator, cast once to the bf16 compute tree, prefill
    2 prompts of 4,096 tokens through ``make_prefill_step`` (exactly one
@@ -149,7 +173,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against token-by-token decode within 0.15 (the moe archs at 4 tokens,
    where the prefill cannot drop a slot), and zamba2's prefill(S) + one
    decode step against prefill(S + 1);
-9. LM training phase: Yi-6B and Falcon-Mamba-7B at full width, cut to 8
+10. LM training phase: Yi-6B and Falcon-Mamba-7B at full width, cut to 8
    layers, take 3 steps of ``make_train_step`` (B 2 x S 4,096, block
    remat, AdamW from ``make_optimizer``) on one seeded batch: the loss
    falls at every step, each step launches the forward kernel twice a
@@ -967,6 +991,7 @@ def main() -> int:
     rows += train_rows
     dist_phase(torch, dev, args, stream)
     del stream
+    multihost_phase(torch, dev, args)
     rows += lm_phase(torch, dev, args)
     rows += lm_train_phase(torch, dev, args)
     print(smi, flush=True)
@@ -1182,7 +1207,7 @@ def run(torch, dev, args, stream):
 
 WARM_EVENTS = 600_000     # ingested before the first round
 ROUND_EVENTS = 12_000     # events per continuous round
-ROUNDS, EPOCHS = 3, 2
+ROUNDS, EPOCHS = 2, 2
 PARITY_EVENTS = 50_000    # prefix of the card-vs-CPU check
 # one batch each, 2 train steps: float noise grows with steps (see
 # card_vs_cpu)
@@ -1885,6 +1910,203 @@ def dist_phase(torch, dev, args, stream):
     dist_runs(torch, dev, args, stream)
     dist_checks(torch, dev, args, stream)
     log(f"[dist] distributed training phase done in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# multihost phase
+# ---------------------------------------------------------------------------
+
+MH_WARM_EVENTS = 50_000       # cut here first (and say so) if the phase
+MH_ROUND_EVENTS = ROUND_EVENTS  # ran past 240 s, then the round; never
+#                                 the width, P·G or the batch
+MH_ATOL_LOSS = 1e-4           # fleet vs in-process: the reference's bands
+MH_ATOL_AP = 1e-3             # (tests/test_multihost.py:88-117)
+MH_AGREE = 1e-6               # worker vs worker
+MH_TRACE_CAPACITY = 262_144   # span ring per thread of each worker
+MH_RUNS = (("tgn", "sharded"), ("tgat", "replicated"))
+
+
+def span_seconds(trace, names) -> dict:
+    """pid -> seconds in the merged fleet ``trace``'s spans of ``names``."""
+    out: dict = {}
+    for ev in trace["traceEvents"]:
+        if ev.get("ph") == "X" and ev["name"] in names:
+            out[ev["pid"]] = out.get(ev["pid"], 0.0) + ev["dur"] / 1e6
+    return out
+
+
+def mh_run_cfg(args, name, state):
+    """One round at phase 6's full width on the phase-2 stream, P 4 x
+    G 2 (``DIST``), bucketed, as the workers and the in-process trainer
+    read it."""
+    return {"model": name, "model_kw": {},
+            "stream": dict(n_nodes=args.nodes, n_events=args.events,
+                           d_node=128, d_edge=172, seed=args.seed),
+            "dist": {"collective": "bucketed"},
+            "trainer": {"seed": args.seed, "state": state},
+            "warm": MH_WARM_EVENTS, "round_size": MH_ROUND_EVENTS,
+            "rounds": 1, "epochs": EPOCHS}
+
+
+def mh_fleet(torch, dev, args, name, state, out_dir):
+    """(results, merged trace, s): the P-process fleet on the card, each
+    worker tracing its spans; the merged trace is written to
+    ``out_dir``."""
+    from repro_torch.launch import multihost
+    from repro_torch.obs.trace import load_trace
+
+    t0 = time.perf_counter()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    outs = multihost.launch(
+        *DIST, run_cfg=mh_run_cfg(args, name, state), device=dev.type,
+        extra_env={"REPRO_TRACE": str(MH_TRACE_CAPACITY),
+                   "REPRO_MH_TRACE_DIR": str(out_dir)},
+        timeout_s=600.0)
+    results = multihost.parse_results(outs)
+    merged = multihost.collect_fleet_trace(
+        results, str(out_dir / f"mh_trace_{name}.json"))
+    if merged is None:
+        raise AssertionError(f"multihost {name}: no worker trace")
+    return results, load_trace(merged), time.perf_counter() - t0
+
+
+def mh_inprocess(torch, dev, args, name, state):
+    """(trainer, round metrics, round wall s) of the same schedule
+    through the in-process trainer on the card (peak memory counted
+    from here)."""
+    from repro_torch.dist.continuous import DistributedContinuousTrainer
+    from repro_torch.launch import multihost
+
+    run_cfg = mh_run_cfg(args, name, state)
+    cfg, stream, dist, kw = multihost.build_run(run_cfg, *DIST)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = DistributedContinuousTrainer(cfg, stream, dist, device=dev, **kw)
+    walls: list = []
+    [m] = multihost.run_rounds(run_cfg, tr, stream, walls)
+    torch.cuda.synchronize()
+    return tr, m, walls[0]
+
+
+def mh_checks(name, state, cfg, results, trace, ref_tr, ref):
+    """Every check of the multihost phase on one fleet run; returns the
+    largest fleet-vs-in-process gaps (loss, AP)."""
+    P, G = DIST
+    L = cfg.n_layers
+    if len(results) != P:
+        raise AssertionError(f"multihost {name}: {len(results)} results")
+    rounds = [r["rounds"][0] for r in results]
+    steps = len(ref.step_losses)
+    evals = math.ceil(MH_ROUND_EVENTS / cfg.batch_size)
+    for r, rd in zip(results, rounds):
+        w = r["process_id"]
+        if len(rd["step_losses"]) != steps:
+            raise AssertionError(f"multihost {name} worker {w}: "
+                                 f"{len(rd['step_losses'])} steps, "
+                                 f"in-process {steps}")
+        agree = max(abs(a - b) for a, b in zip(
+            rd["step_losses"] + [rd["eval_loss"]],
+            rounds[0]["step_losses"] + [rounds[0]["eval_loss"]]))
+        if not agree <= MH_AGREE:
+            raise AssertionError(f"multihost {name}: worker {w} differs "
+                                 f"from worker 0 by {agree}")
+        if not (rd["rpc_calls"] > 0 and rd["rpc_wire_bytes"] > 0):
+            raise AssertionError(f"multihost {name} worker {w}: no RPC "
+                                 f"traffic in the round")
+        n = r["launches"]
+        want = {"temporal_attn": (steps + evals) * G * L,
+                "temporal_attn_bwd": steps * G * L}
+        for k, v in want.items():
+            if n.get(k, 0) != v:
+                raise AssertionError(f"multihost {name} worker {w}: {k} "
+                                     f"launched {n.get(k, 0)} times, "
+                                     f"expected {v}")
+        for k in (f"temporal_sample_{cfg.sampling}", "cache_gather"):
+            if n.get(k, 0) <= 0:
+                raise AssertionError(f"multihost {name} worker {w}: {k} "
+                                     f"never launched")
+        if state == "sharded":
+            ss = r["state"]
+            share = ss["resident_bytes"] / ref_tr.state.resident_bytes()
+            if not (ss["wire_calls"] > 0 and ss["served_calls"] > 0
+                    and rd["state_pf_hits"] > 0
+                    and rd["state_stale_served"] == 0
+                    and 0.15 <= share <= 0.35):
+                raise AssertionError(f"multihost {name} worker {w}: state "
+                                     f"{ss}, round pf hits "
+                                     f"{rd['state_pf_hits']}, stale "
+                                     f"{rd['state_stale_served']}, share "
+                                     f"{share}")
+    got = rounds[0]
+    loss_gap = max(abs(a - b) for a, b in zip(
+        got["step_losses"] + [got["eval_loss"]],
+        ref.step_losses + [ref.eval_loss]))
+    ap_gap = abs(got["ap"] - ref.ap)
+    if not (loss_gap <= MH_ATOL_LOSS and ap_gap <= MH_ATOL_AP):
+        raise AssertionError(f"multihost {name}: fleet vs in-process loss "
+                             f"{loss_gap}, AP {ap_gap}")
+    for kind in ("rpc.call", "rpc.serve", "barrier"):
+        lanes = span_seconds(trace, {kind})
+        if sorted(lanes) != list(range(P)):
+            raise AssertionError(f"multihost {name}: {kind} spans in lanes "
+                                 f"{sorted(lanes)}, expected {P}")
+    return loss_gap, ap_gap
+
+
+def multihost_phase(torch, dev, args):
+    """Phase 8: ``repro_torch.launch.multihost`` on the card, P 4 worker
+    processes x G 2, against the in-process trainer on the same events."""
+    t0 = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "mh_trace"
+    P, G = DIST
+    for name, state in MH_RUNS:
+        results, trace, t_fleet = mh_fleet(torch, dev, args, name, state,
+                                           out_dir)
+        t1 = time.perf_counter()
+        ref_tr, ref, ref_wall = mh_inprocess(torch, dev, args, name, state)
+        t_ref = time.perf_counter() - t1
+        cfg = ref_tr.cfg
+        loss_gap, ap_gap = mh_checks(name, state, cfg, results, trace,
+                                     ref_tr, ref)
+        bar = span_seconds(trace, {"barrier"})
+        coll = span_seconds(trace, {"all_gather"})
+        got = results[0]["rounds"][0]
+        workers = trace["metadata"]["workers"]
+        log(f"[multihost] {name} ({cfg.sampling}, batch {cfg.batch_size}, "
+            f"state {state}), {P} processes x G {G} after {MH_WARM_EVENTS} "
+            f"events, one round of {MH_ROUND_EVENTS} ({EPOCHS} epochs): "
+            f"workers agree within {MH_AGREE}; fleet vs in-process: step "
+            f"and eval losses within {loss_gap:.3g} (tol {MH_ATOL_LOSS}), "
+            f"AP {ap_gap:.3g} (tol {MH_ATOL_AP}); loss {got['loss']:.6f} "
+            f"eval loss {got['eval_loss']:.6f} AP {got['ap']:.6f}; fleet "
+            f"launch {t_fleet:.1f} s, in-process {t_ref:.1f} s")
+        for r in results:
+            w, rd = r["process_id"], r["rounds"][0]
+            st = r["state"]
+            log(f"[multihost] {name} worker {w}: round "
+                f"{r['round_walls'][0]:.3f} s: sample_s {rd['sample_s']:.3f} "
+                f"fetch_s {rd['fetch_s']:.3f} step_s {rd['step_s']:.3f} "
+                f"ingest_s {rd['ingest_s']:.3f} train_s {rd['train_s']:.3f}; "
+                f"rpc {rd['rpc_calls']} calls, {rd['rpc_wire_bytes']} B, "
+                f"wait {rd['rpc_wait_s']:.3f} s; state wait "
+                f"{rd['state_wait_s']:.3f} s ({rd['state_round_trips']} "
+                f"trips, pf hits {rd['state_pf_hits']}, stale "
+                f"{rd['state_stale_served']}, resident "
+                f"{st['resident_bytes']} B, served {st['served_calls']}); "
+                f"barriers {bar.get(w, 0.0):.3f} s, collectives "
+                f"{coll.get(w, 0.0):.3f} s (trace); peak device memory "
+                f"{r['peak_device_bytes'] / 1e9:.3f} GB; launches "
+                f"{r['launches']}; dropped spans "
+                f"{workers[str(w)].get('dropped_events')}")
+        log(f"[multihost] {name} in-process (P {P} x G {G}, one process): "
+            f"round {ref_wall:.3f} s: sample_s {ref.sample_s:.3f} fetch_s "
+            f"{ref.fetch_s:.3f} step_s {ref.step_s:.3f} ingest_s "
+            f"{ref.ingest_s:.3f} train_s {ref.train_s:.3f}; resident "
+            f"{ref_tr.state.resident_bytes()} B; peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+        del ref_tr
+        torch.cuda.empty_cache()
+    log(f"[multihost] multihost phase done in "
         f"{time.perf_counter() - t0:.1f} s")
 
 

@@ -15,20 +15,34 @@ On one card every (machine, rank) sampler mirrors its partition's
 snapshot on the trainer's device, and each owner's hop result is read
 back to the host to be scattered into the requester's layer — one
 device-to-host copy per (worker, hop, owner), timed in ``sync_s``.
+
+Served hops run on a CUDA stream of their own (the counterpart of the
+JAX package's spare sampling device), for latency: a peer's request
+does not queue behind the step kernels the trainer's main thread has
+already enqueued on the default stream.  (It is not needed against a
+deadlock: the collectives are staged through host memory, and that
+copy drains the default stream before a process blocks in gloo, so no
+device work waits on a peer.)  The serving stream waits on an
+event recorded after each ``refresh`` (which writes the mirrors on the
+main thread's stream), so a served hop never reads a half-refreshed
+mirror.  On the CPU there is no stream.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.partition import GraphPartition, owner_of
 from repro_torch.core.sampling import NULL, SampledLayer, TemporalSampler
 from repro_torch.core.snapshot import (GraphSnapshot, build_snapshot,
                                        refresh_snapshot)
+from repro_torch.device import resolve
 from repro_torch.obs import trace
 
 
@@ -64,6 +78,11 @@ class DistributedSamplerSystem:
         self.n_gpus = n_gpus
         self.fanouts = tuple(fanouts)
         self.transport = transport
+        self.device = resolve(device)
+        # the serving stream and the event it waits on (set by refresh)
+        self._serve_stream = (torch.cuda.Stream(device=self.device)
+                              if self.device.type == "cuda" else None)
+        self._refreshed: Optional[torch.cuda.Event] = None
         # one snapshot per hosted machine, one sampler per (machine,
         # rank): ranks share the machine snapshot object so refresh()
         # can chain SnapshotDeltas into every rank's device mirror
@@ -78,7 +97,7 @@ class DistributedSamplerSystem:
                 TemporalSampler(snap, fanouts, policy=policy,
                                 window=window, scan_pages=scan_pages,
                                 seed=seed * 1000 + m * 10 + r,
-                                device=device)
+                                device=self.device)
                 for r in range(n_gpus)]
             self._locks[m] = [threading.Lock() for _ in range(n_gpus)]
         self._load = np.zeros((self.n_machines, n_gpus), np.int64)
@@ -106,9 +125,23 @@ class DistributedSamplerSystem:
                 with self._locks[m][r]:
                     s.refresh(self.snaps[m])
                 total += s.last_refresh_bytes
+        if self._serve_stream is not None:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._refreshed = ev
         self.last_refresh_bytes = total
         self.total_refresh_bytes += total
         return total
+
+    def _serving(self):
+        """Context for one served hop: the serving stream, ordered after
+        the last refresh (a no-op on the CPU)."""
+        stream = self._serve_stream
+        if stream is None:
+            return contextlib.nullcontext()
+        if self._refreshed is not None:
+            stream.wait_event(self._refreshed)
+        return torch.cuda.stream(stream)
 
     def mirror_bytes(self) -> int:
         """Device bytes of every hosted sampler's snapshot mirror."""
@@ -125,18 +158,23 @@ class DistributedSamplerSystem:
         """One (already pow2-padded) hop on a hosted sampler, under the
         per-sampler lock; (req_machine, seq, hop) is the request
         coordinate stochastic policies key their noise on.  Returns
-        host arrays: reading them back waits for the hop's launch."""
+        host arrays (the wire's format): reading them back waits for the
+        hop's launch on the serving stream only."""
+        return self._serve(machine, rank, targets, times, pmask, k,
+                           req_machine, seq, hop)[0]
+
+    def _serve(self, machine, rank, targets, times, pmask, k,
+               req_machine, seq, hop):
+        """:meth:`serve_hop` plus the seconds its host read waited."""
         worker = self.samplers[machine][rank]
         key = worker.request_key(req_machine, seq, hop)
         with trace.span("sample.serve_hop", machine=machine, rank=rank,
                         n=len(targets)):
-            with self._locks[machine][rank]:
+            with self._locks[machine][rank], self._serving():
                 out = worker.sample_hop(targets, times, pmask, k, key=key)
                 t0 = time.perf_counter()
                 out = tuple(x.cpu().numpy() for x in out)
-                self.sync_s += time.perf_counter() - t0
-                self.syncs += 1
-            return out
+                return out, time.perf_counter() - t0
 
     def _route_hop(self, trainer_machine: int, rank: int,
                    targets: np.ndarray, times: np.ndarray,
@@ -167,10 +205,11 @@ class DistributedSamplerSystem:
             pmask = np.zeros(bucket, bool)
             pmask[:n_sel] = True
             if m in self.samplers:
-                a, b, c, d = self.serve_hop(m, rank, targets[idx_p],
-                                            times[idx_p], pmask, k,
-                                            req_machine=trainer_machine,
-                                            seq=seq, hop=hop)
+                (a, b, c, d), dt = self._serve(
+                    m, rank, targets[idx_p], times[idx_p], pmask, k,
+                    trainer_machine, seq, hop)
+                self.sync_s += dt
+                self.syncs += 1
             else:
                 a, b, c, d = self.transport.sample_hop(
                     m, rank, targets[idx_p], times[idx_p], pmask, k,

@@ -12,12 +12,27 @@ W data-parallel workers:
                            error feedback (deep gradient compression).
 
 The JAX package runs them under ``shard_map``, each device holding its
-worker's gradient and ``lax.psum`` summing across devices.  Here the W
-workers run one after another on one device, so each function takes
-the W workers' gradient trees as a list (or one tree whose leaves carry
-a leading W axis) and returns the summed tree; the lossy schedules also
-return each worker's residual.  The per-worker arithmetic is the JAX
-package's: the int8 scale is ``max(max|e|, 1e-30) / 127`` in float32,
+worker's gradient and ``lax.psum`` summing across devices.  Here the
+workers a process hosts run one after another on its device, so each
+function takes those workers' gradient trees as a list (or one tree
+whose leaves carry a leading worker axis) and returns the summed tree;
+the lossy schedules also return each worker's residual.  In-process
+the list holds all W workers.  Across processes (``group``, a
+``torch.distributed`` process group, set by a multihost worker) each
+process holds its G workers' trees: it sums those G contributions with
+the same per-worker arithmetic, then the machines' sums are combined
+over the group — one collective a bucket for ``bucketed``, one of the
+float32 sum of the compressed vectors for the lossy schedules.  The
+sum runs machine by machine (``per_machine``): each machine's workers
+first, then the machines in order.  Across processes the machines'
+sums are all-gathered (exact) and added in that order, the same
+additions as in-process, so a fleet's sum is bit for bit the
+in-process trainer's; an ``all_reduce`` would add them in the
+backend's order, whose one-ulp differences the time encoding amplifies
+over rounds.  Collectives are staged through host memory (the gloo
+backend: several processes share one card, where NCCL refuses two
+ranks).  The per-worker arithmetic is
+the JAX package's: the int8 scale is ``max(max|e|, 1e-30) / 127`` in float32,
 ``torch.round`` rounds half to even as ``jnp.round`` does, and top-k
 sends every coordinate whose magnitude reaches the k-th largest, ties
 included.
@@ -33,6 +48,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.obs import trace
 from repro_torch.train.optimizer import tree_leaves, tree_unflatten
 
 Tree = Any
@@ -55,6 +71,39 @@ def grad_payload_bytes(grads: Tree, mode: str, *, bits: int = 8,
     if mode == "topk":
         return _topk_k(n, frac) * 8
     raise ValueError(f"unknown collective mode {mode!r}")
+
+
+def all_gather_cat(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every process's ``t`` (one shape fleet-wide) concatenated along
+    dim 0 in process order (JAX's tiled ``all_gather``); None returns
+    ``t``.  Staged through host memory; the result comes back on
+    ``t``'s device."""
+    if group is None:
+        return t
+    import torch.distributed as tdist
+    host = t.detach().to("cpu", copy=True).contiguous()
+    parts = [torch.empty_like(host)
+             for _ in range(tdist.get_world_size(group))]
+    with trace.span("all_gather", bytes=host.numel() * host.element_size()):
+        tdist.all_gather(parts, host, group=group)
+    return torch.cat(parts).to(t.device)
+
+
+def machine_sum(vecs: Sequence[torch.Tensor],
+                per_machine: Optional[int] = None,
+                group=None) -> torch.Tensor:
+    """Sum of the workers' same-shaped tensors, machine by machine: the
+    ``per_machine`` consecutive workers of each machine first (all of
+    ``vecs`` when None), then the machines in order.  With ``group``,
+    ``vecs`` are this process's machine's workers and the machines'
+    sums are all-gathered and added in process order: the same
+    additions, in the same order, as the in-process sum."""
+    per = per_machine or len(vecs)
+    parts = [torch.stack(list(vecs[i:i + per])).sum(0)
+             for i in range(0, len(vecs), per)]
+    if group is not None:
+        parts = list(all_gather_cat(torch.stack(parts), group))
+    return parts[0] if len(parts) == 1 else torch.stack(parts).sum(0)
 
 
 def _topk_k(n: int, frac: float) -> int:
@@ -94,18 +143,19 @@ def _plan_buckets(leaves: Sequence[torch.Tensor],
     return buckets
 
 
-def bucketed_psum(grads, *, bucket_bytes: int = _DEFAULT_BUCKET_BYTES
-                  ) -> Tree:
+def bucketed_psum(grads, *, bucket_bytes: int = _DEFAULT_BUCKET_BYTES,
+                  per_machine: Optional[int] = None, group=None) -> Tree:
     """Exact sum of every leaf over the workers, fused into flat
-    buckets."""
+    buckets, each summed by :func:`machine_sum` (over the processes of
+    ``group`` too, when given)."""
     trees = _per_worker(grads)
     per = [tree_leaves(t) for t in trees]
     if not per[0]:
         return trees[0]
     out: List[Optional[torch.Tensor]] = [None] * len(per[0])
     for idx in _plan_buckets(per[0], bucket_bytes):
-        red = torch.stack([torch.cat([ls[i].reshape(-1) for i in idx])
-                           for ls in per]).sum(0)
+        red = machine_sum([torch.cat([ls[i].reshape(-1) for i in idx])
+                           for ls in per], per_machine, group)
         off = 0
         for i in idx:
             n = per[0][i].numel()
@@ -137,16 +187,17 @@ def _split_back(flat: torch.Tensor, like: Tree, cast: bool) -> Tree:
     return tree_unflatten(like, out)
 
 
-def _reduce(trees: List[Tree], flats: List[torch.Tensor], compress
-            ) -> Tuple[Tree, List[Tree]]:
+def _reduce(trees: List[Tree], flats: List[torch.Tensor], compress,
+            per_machine=None, group=None) -> Tuple[Tree, List[Tree]]:
     sents = [compress(f) for f in flats]
-    red = torch.stack(sents).sum(0)
+    red = machine_sum(sents, per_machine, group)
     return (_split_back(red, trees[0], cast=True),
             [_split_back(f - s, trees[0], cast=False)
              for f, s in zip(flats, sents)])
 
 
-def quantized_psum_grads(grads, err, *, bits: int = 8
+def quantized_psum_grads(grads, err, *, bits: int = 8,
+                         per_machine: Optional[int] = None, group=None
                          ) -> Tuple[Tree, List[Tree]]:
     """Quantize-reduce-dequantize with error feedback.
 
@@ -167,10 +218,12 @@ def quantized_psum_grads(grads, err, *, bits: int = 8
         scale = flat.abs().max().clamp_min(1e-30) / levels
         return torch.round(flat / scale) * scale
 
-    return _reduce(trees, _with_feedback(trees, err), compress)
+    return _reduce(trees, _with_feedback(trees, err), compress,
+                   per_machine, group)
 
 
-def topk_psum_grads(grads, err, *, frac: float = 0.01
+def topk_psum_grads(grads, err, *, frac: float = 0.01,
+                    per_machine: Optional[int] = None, group=None
                     ) -> Tuple[Tree, List[Tree]]:
     """Magnitude top-k sparsified sum with error feedback.
 
@@ -190,4 +243,5 @@ def topk_psum_grads(grads, err, *, frac: float = 0.01
         thresh = torch.topk(mag, k, sorted=True).values[-1]
         return torch.where(mag >= thresh, flat, torch.zeros_like(flat))
 
-    return _reduce(trees, _with_feedback(trees, err), compress)
+    return _reduce(trees, _with_feedback(trees, err), compress,
+                   per_machine, group)

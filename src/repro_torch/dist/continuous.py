@@ -1,9 +1,10 @@
 """Distributed continuous temporal-GNN training (counterpart of
-``repro.dist.continuous``; GNNFlow §4.4–§5), in-process mode.
+``repro.dist.continuous``; GNNFlow §4.4–§5).
 
-The full paper loop across P simulated machines × G trainer ranks, all
-hosted in this process on one device, run through the staged pipeline
-engine (``repro_torch.core.pipeline``):
+The full paper loop across P machines × G trainer ranks, run through
+the staged pipeline engine (``repro_torch.core.pipeline``), either all
+hosted in this process (in-process mode) or one machine per OS process
+(multihost mode, ``repro_torch.launch.multihost``):
 
   ingest   — ``Dispatcher`` splits each incremental event batch by owner
              into per-machine ``GraphPartition``s and hash-co-located
@@ -25,12 +26,13 @@ engine (``repro_torch.core.pipeline``):
              the worker average.
 
 The JAX package runs the W workers under one ``shard_map`` over W
-devices.  Here they run one after another on the trainer's device:
-``torch.func.vmap`` cannot pass through the kernels'
+devices.  Here a process's workers run one after another on its
+device: ``torch.func.vmap`` cannot pass through the kernels'
 ``autograd.Function``s, and the workers' kernels launch as they would
-on W ranks, shard by shard.  A train step therefore launches the
-attention forward and backward kernels W·A·L times each, an eval step
-the forward W·L times.
+on separate ranks, shard by shard.  In-process a train step therefore
+launches the attention forward and backward kernels W·A·L times each,
+an eval step the forward W·L times; a multihost worker launches them
+G·A·L and G·L times.
 
 Per-lane loss masking makes sharding exact for ANY batch size: shards
 carry a ``seed_mask``, worker w's loss is scaled by ``W / total``
@@ -45,10 +47,23 @@ a ``ShardedStateService`` (compact per-owner rows, modeled remote
 traffic) with a placement-aware device cache and one coalesced
 ``state_batch`` prefetch per remote peer per global batch.
 
-The transport is a ``LocalTransport``: every machine is an in-process
-object.  A transport spanning processes (the RPC transport, a barrier
-and collectives over ``torch.distributed``) is refused until the
-multihost launcher is ported.
+In-process the transport is a ``LocalTransport``: every machine is an
+in-process object.  In multihost mode (a transport spanning processes,
+``RpcTransport``) each process hosts one machine: its graph partition,
+its G rank samplers and, with sharded state, its state shard; remote
+hops and state rows go over the transport's RPCs.  The process stages
+only its G workers' shards of each global batch (still drawing the
+whole batch's negatives, so every process's RNG stays in lockstep),
+the shard count is summed over the ``torch.distributed`` process group
+(the step loss and the ``W / total`` scale are the fleet's), the
+gradients are summed by the collectives over the group, and eval scores
+are all-gathered in worker order, so every process computes the same
+AP.  Ingest is bracketed by barriers; with sharded TGN memory the
+commit adds a read fence and a commit barrier, unless
+``memory_staleness > 0`` lets remote memory reads serve a prefetched
+copy up to k commits stale and drops both.  Every collective and every
+barrier is issued from the trainer's main thread, in the same order on
+every process; the state prefetch thread only makes RPC calls.
 """
 from __future__ import annotations
 
@@ -81,6 +96,11 @@ class DistRoundMetrics(RoundMetrics):
     collective_steps: int = 0   # optimizer steps (all through the collective)
     node_hit_per_part: Tuple[float, ...] = ()
     edge_hit_per_part: Tuple[float, ...] = ()
+    # real cross-process RPC traffic (zero in-process, whose request and
+    # response bytes above are the modeled payloads)
+    rpc_calls: int = 0
+    rpc_wire_bytes: int = 0     # pickled request + response bytes
+    rpc_wait_s: float = 0.0     # client-side blocking on remote calls
     # state-service traffic: modeled calls for the replicated service,
     # modeled + wire for the sharded one
     state_calls: int = 0
@@ -117,18 +137,32 @@ class DistributedContinuousTrainer(ContinuousTrainer):
                  cache_policy: str = "lru", lam: float = 0.2,
                  lr: float = 1e-3, seed: int = 0, overlap: bool = True,
                  transport: Optional[SamplingTransport] = None,
-                 state: str = "replicated", device=None):
+                 state: str = "replicated", memory_staleness: int = 0,
+                 device=None):
         if state not in ("replicated", "sharded"):
             raise ValueError(f"unknown state mode {state!r}")
+        if memory_staleness < 0:
+            raise ValueError("memory_staleness must be >= 0")
+        self.memory_staleness = int(memory_staleness)
         self.dist = dist if dist is not None else DistConfig()
         self.transport = transport if transport is not None \
             else LocalTransport()
-        if self.transport.n_processes > 1:
-            raise NotImplementedError(
-                f"a transport spanning {self.transport.n_processes} "
-                f"processes needs the multihost launcher, which the "
-                f"PyTorch port does not have yet; run in-process "
-                f"(LocalTransport)")
+        self.multihost = self.transport.n_processes > 1
+        self.group = None     # the process group the collectives span
+        if self.multihost:
+            import torch.distributed as tdist
+            if not (tdist.is_available() and tdist.is_initialized()):
+                raise RuntimeError(
+                    f"a transport spanning {self.transport.n_processes} "
+                    f"processes needs an initialized torch.distributed "
+                    f"process group for its barriers and collectives "
+                    f"(repro_torch.launch.multihost.init_worker_from_env)")
+            if tdist.get_world_size() != self.transport.n_processes:
+                raise RuntimeError(
+                    f"process group of {tdist.get_world_size()} processes "
+                    f"for a transport spanning "
+                    f"{self.transport.n_processes}")
+            self.group = tdist.group.WORLD
         self.state_mode = state
         super().__init__(cfg, stream, threshold=threshold,
                          cache_ratio=cache_ratio,
@@ -163,19 +197,24 @@ class DistributedContinuousTrainer(ContinuousTrainer):
             d_memory=cfg.d_memory if cfg.use_memory else 0,
             hosted=self.transport.local_machines(self.dist.n_machines),
             transport=self.transport,
-            local_rank=self.transport.process_id)
+            local_rank=self.transport.process_id,
+            memory_staleness=self.memory_staleness)
+        # expose the hosted shards to peers; the first remote state
+        # access comes after the pre-ingest barrier, long after every
+        # process has bound its state here
         self.transport.bind_state(svc)
         return svc
 
     def _init_dist_state(self) -> None:
         dist = self.dist
-        # per-worker error-feedback residual, only for the lossy
-        # collectives (the exact path would carry W dead copies)
+        # per-worker error-feedback residual of this process's workers,
+        # only for the lossy collectives (the exact path would carry
+        # dead copies)
         if dist.collective == "bucketed":
             self.err: Any = {}
         else:
             self.err = [tree_map(torch.zeros_like, self.params)
-                        for _ in range(dist.n_workers)]
+                        for _ in self._worker_ids()]
         self.reduce_bytes_per_step = C.grad_payload_bytes(
             self.params, dist.collective, bits=dist.quant_bits,
             frac=dist.topk_frac)
@@ -186,6 +225,14 @@ class DistributedContinuousTrainer(ContinuousTrainer):
         Pm = dist.n_machines
         self._part_hits = np.zeros((2, Pm), np.int64)
         self._part_accesses = np.zeros((2, Pm), np.int64)
+
+    def _worker_ids(self) -> range:
+        """Global worker ids this process stages batches for."""
+        if not self.multihost:
+            return range(self.dist.n_workers)
+        G = self.dist.n_gpus
+        p = self.transport.process_id
+        return range(p * G, (p + 1) * G)
 
     @property
     def _reduce_bytes(self) -> int:
@@ -235,9 +282,17 @@ class DistributedContinuousTrainer(ContinuousTrainer):
         def count(mb):
             return 2.0 * mb["seed_mask"].sum()
 
+        group = self.group     # None in-process: no cross-process sum
+        G = dist.n_gpus        # sums run machine by machine (G workers)
+
         def dist_step(params, opt_state, shards, err):
-            total = torch.stack([count(mb) for micros in shards
-                                 for mb in micros]).sum().clamp_min(1.0)
+            """One global step over this process's workers' ``shards``
+            (all W in-process); ``total`` is the fleet-wide count, as
+            JAX's ``lax.psum(cnt, "dp")`` (whole numbers: exact in any
+            order)."""
+            total = C.machine_sum(
+                [torch.stack([count(mb) for mb in micros]).sum()
+                 for micros in shards], G, group).clamp_min(1.0)
             scale = W / total
             grads, wsums = [], []
             for micros in shards:            # worker by worker
@@ -250,24 +305,29 @@ class DistributedContinuousTrainer(ContinuousTrainer):
                 grads.append(gsum)
                 wsums.append(wsum)
             if mode == "bucketed":
-                red = C.bucketed_psum(grads, bucket_bytes=dist.bucket_bytes)
+                red = C.bucketed_psum(grads, bucket_bytes=dist.bucket_bytes,
+                                      per_machine=G, group=group)
                 new_err = err
             elif mode == "quantized":
                 red, new_err = C.quantized_psum_grads(
-                    grads, err, bits=dist.quant_bits)
+                    grads, err, bits=dist.quant_bits, per_machine=G,
+                    group=group)
             else:
                 red, new_err = C.topk_psum_grads(
-                    grads, err, frac=dist.topk_frac)
+                    grads, err, frac=dist.topk_frac, per_machine=G,
+                    group=group)
             red = tree_map(lambda x: x / W, red)
-            loss = torch.stack(wsums).sum() / total
+            loss = C.machine_sum(wsums, G, group) / total
             new_params, new_opt = optimizer.update(red, opt_state, params)
             return new_params, new_opt, loss, new_err
 
         @torch.no_grad()
         def dist_eval(params, shards):
-            """Every shard's forward in worker order; scores, labels and
-            weights concatenate in that order (the JAX package's tiled
-            all_gather)."""
+            """Every local shard's forward in worker order; scores,
+            labels and weights concatenate in that order and, across
+            processes, are all-gathered in process order (the JAX
+            package's tiled all_gather: the shards are pow2-padded to
+            one size fleet-wide), so every process holds all of them."""
             outs, cnts, wl = [], [], []
             for micros in shards:
                 mb = micros[0]
@@ -276,9 +336,10 @@ class DistributedContinuousTrainer(ContinuousTrainer):
                 outs.append(aux)
                 cnts.append(cnt)
                 wl.append(loss * cnt)
-            total = torch.stack(cnts).sum().clamp_min(1.0)
-            scores, labels, w = (torch.cat(x) for x in zip(*outs))
-            return torch.stack(wl).sum() / total, scores, labels, w
+            total = C.machine_sum(cnts, G, group).clamp_min(1.0)
+            scores, labels, w = (C.all_gather_cat(torch.cat(x), group)
+                                 for x in zip(*outs))
+            return C.machine_sum(wl, G, group) / total, scores, labels, w
 
         self._dist_step = dist_step
         self._dist_eval = dist_eval
@@ -333,15 +394,16 @@ class DistributedContinuousTrainer(ContinuousTrainer):
     # -- sharded batch staging ---------------------------------------------
     def _stage_shards(self, src, dst, ts, *, micros: int,
                       for_train: bool = True) -> Dict[str, Any]:
-        """Stage one global batch as W workers' lists of ``micros``
-        shards, each sampled through the static schedule from that
-        worker's (machine, rank) perspective.  The negatives are drawn
-        ONCE for the global batch (the single-host trainer's RNG
-        consumption).  Batches that do not split evenly are padded per
-        shard (pow2 lanes, loss-masked), so EVERY step takes the
-        collective path.  Two phases: every shard is sampled, one
-        coalesced state prefetch covers the union of their remote rows,
-        then cache-fronted assembly runs."""
+        """Stage one global batch as this process's workers' (all W
+        in-process) lists of ``micros`` shards, each sampled through the
+        static schedule from that worker's (machine, rank) perspective.
+        The negatives are drawn ONCE for the whole global batch (the
+        single-host trainer's RNG consumption, and every process's in a
+        fleet, which keeps their RNGs in lockstep).  Batches that do not
+        split evenly are padded per shard (pow2 lanes, loss-masked), so
+        EVERY step takes the collective path.  Two phases: every shard
+        is sampled, one coalesced state prefetch covers the union of
+        their remote rows, then cache-fronted assembly runs."""
         W = self.dist.n_workers
         n = len(src)
         neg = self.builder.negatives(n)
@@ -351,7 +413,7 @@ class DistributedContinuousTrainer(ContinuousTrainer):
             # ragged: pow2 shard so the tail's shapes repeat
             s = max(1, 1 << (s - 1).bit_length()) if s > 1 else 1
         sampled: List[List[Dict[str, Any]]] = []
-        for w in range(W):
+        for w in self._worker_ids():
             fn = self._sample_fn(w)
             parts = []
             for a in range(micros):
@@ -411,17 +473,18 @@ class DistributedContinuousTrainer(ContinuousTrainer):
         eids = svc.pf_filter_new("edge",
                                  eids[svc.remote_mask("edge", eids)])
         mem_ids = None
-        if mems and not for_train:
-            # the commit between prefetch and finalize would
-            # version-reject every buffered row of a train batch; eval
-            # rounds never commit, so the buffered copy serves exactly
+        if mems and (self.memory_staleness > 0 or not for_train):
+            # staleness 0 + the commit between prefetch and finalize
+            # would version-reject every buffered row of a train batch;
+            # eval rounds never commit, so the buffered copy serves
+            # exactly, and staleness > 0 serves within its bound
             m = np.unique(np.concatenate(mems))
             mem_ids = m[svc.remote_mask("memory", m)]
         svc.prefetch_async(node_ids=nodes, eids=eids, mem_ids=mem_ids)
 
     def _sharded_batch(self, staged) -> List[List[Dict[str, Any]]]:
-        """The W workers' lists of finalized micro batches (TGN memory
-        blobs gathered now, after the previous step's commit)."""
+        """This process's workers' lists of finalized micro batches (TGN
+        memory blobs gathered now, after the previous step's commit)."""
         if staged["batch"] is not None:
             return staged["batch"]
         return self._finalized(staged["parts"])
@@ -451,6 +514,31 @@ class DistributedContinuousTrainer(ContinuousTrainer):
 
     def _launch_eval(self, item, staged):
         return self._dist_eval(self.params, self._sharded_batch(staged))
+
+    # -- TGN memory fences (sharded multihost only) ------------------------
+    def _cross_process_memory(self) -> bool:
+        return (self.multihost and self.state_mode == "sharded"
+                and self.cfg.use_memory)
+
+    def _memory_fence(self):
+        # commit_and_stage READS step t-1's memory of the pending set,
+        # then WRITES step t's; with cross-process shards every process
+        # must finish the read before any owner overwrites its rows.
+        # The pending set derives from replicated host state, so every
+        # process reaches the fence the same number of times.  With
+        # memory_staleness > 0 peers may serve memory up to k commits
+        # old, so both fences come off the critical path.
+        if not self._cross_process_memory() or self.memory_staleness > 0:
+            return None
+        return lambda: self.transport.barrier("mem-read")
+
+    def _complete_train(self, loss, item) -> float:
+        loss = super()._complete_train(loss, item)
+        if self._cross_process_memory() and self.memory_staleness == 0:
+            # nobody gathers batch t+1's memory until every owner has
+            # committed batch t's writes into its shard
+            self.transport.barrier("mem-commit")
+        return loss
 
     # -- public API --------------------------------------------------------
     def ingest(self, batch: EventStream) -> float:
@@ -491,10 +579,13 @@ class DistributedContinuousTrainer(ContinuousTrainer):
         self._part_hits[:] = 0
         self._part_accesses[:] = 0
         self._staged_batches = 0
+        self._rpc_base = self.transport.stats()
         self._state_base = self.state.stats()
 
     def _round_metrics(self, ev, step_losses, train_s) -> DistRoundMetrics:
         st = self.samplers.load_stats()
+        rt = self.transport.stats()
+        base = getattr(self, "_rpc_base", None) or {}
         ss = self.state.stats()
         sbase = getattr(self, "_state_base", None) or {}
         d = lambda key, default=0: ss.get(key, default) - sbase.get(
@@ -504,6 +595,11 @@ class DistributedContinuousTrainer(ContinuousTrainer):
             ss.get("wire_bytes_per_part", []),
             sbase.get("wire_bytes_per_part", []))]
         return DistRoundMetrics(
+            rpc_calls=rt["calls"] - base.get("calls", 0),
+            rpc_wire_bytes=(rt["bytes_out"] + rt["bytes_in"]
+                            - base.get("bytes_out", 0)
+                            - base.get("bytes_in", 0)),
+            rpc_wait_s=rt["wait_s"] - base.get("wait_s", 0.0),
             state_calls=d("calls"), state_bytes=d("bytes"),
             state_wait_s=d("wait_s", 0.0),
             state_resident_bytes=ss["resident_bytes"],

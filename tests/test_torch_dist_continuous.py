@@ -14,8 +14,11 @@ port's single-host trainer.
   ragged stream (batch 60) whose every step takes the collective;
 * the lossy collectives within 0.05 of the exact one, at a fraction of
   its payload; ``state="sharded"`` equal to ``"replicated"`` for TGN;
-* an unknown state mode, an unknown collective and a transport spanning
-  processes are refused.
+* an unknown state mode, an unknown collective, a negative
+  ``memory_staleness`` and a transport spanning processes without an
+  initialized ``torch.distributed`` process group are refused;
+* ``memory_staleness`` > 0 ships memory rows in the state prefetch of
+  train batches too (0: eval batches only).
 
 The stream spans 1,500 time units, as in ``tests/test_torch_training.py``
 (float noise over rounds on wide spans, ROADMAP §3).
@@ -188,6 +191,40 @@ class _TwoProcesses(LocalTransport):
     process_id, n_processes = 0, 2
 
 
-def test_refuses_a_transport_spanning_processes():
-    with pytest.raises(NotImplementedError, match="multihost launcher"):
+def test_refuses_a_fleet_transport_without_a_process_group():
+    with pytest.raises(RuntimeError, match="process group"):
         _port("tgat", transport=_TwoProcesses())
+
+
+def test_refuses_a_negative_memory_staleness():
+    with pytest.raises(ValueError, match="memory_staleness"):
+        _port("tgn", state="sharded", memory_staleness=-1)
+
+
+@pytest.mark.parametrize("staleness", [0, 1])
+def test_memory_staleness_ships_train_memory_rows(staleness):
+    """Which batches' state prefetch carries memory rows: eval batches
+    always, train batches only when stale reads may serve them."""
+    tr = _port("tgn", TC.DistConfig(2, 1, "bucketed"), state="sharded",
+               memory_staleness=staleness)
+    assert tr.memory_staleness == staleness
+    phase, shipped = {"now": None}, {"train": 0, "eval": 0}
+    prefetch = tr.state.prefetch_async
+
+    def spy(node_ids=None, eids=None, mem_ids=None):
+        if mem_ids is not None and len(mem_ids):
+            shipped[phase["now"]] += 1
+        return prefetch(node_ids=node_ids, eids=eids, mem_ids=mem_ids)
+
+    def staged(name, stage):
+        def run(item):
+            phase["now"] = name
+            return stage(item)
+        return run
+
+    tr.state.prefetch_async = spy
+    tr._stage_train = staged("train", tr._stage_train)
+    tr._stage_eval = staged("eval", tr._stage_eval)
+    _rounds(tr, T_STREAM, n=1, epochs=1)
+    assert shipped["eval"] > 0
+    assert (shipped["train"] > 0) == (staleness > 0), shipped
