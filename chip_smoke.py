@@ -172,7 +172,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    near-tie and is named beside the reading), the prefill
    against token-by-token decode within 0.15 (the moe archs at 4 tokens,
    where the prefill cannot drop a slot), and zamba2's prefill(S) + one
-   decode step against prefill(S + 1);
+   decode step against prefill(S + 1).  Qwen3-MoE's tree is also served
+   under a (data 1, model 4) local mesh with ``default_rules()`` (the
+   mesh part): a 2 x 8,192 prefill whose attention takes the
+   context-parallel blocked branch (``flash_attention`` at q_offset 0,
+   2,048, 4,096 and 6,144: exactly 32 launches) and whose moe layers
+   take the expert-parallel path, timed beside the same prefill off the
+   mesh, with its ``moe_drop_frac`` and peak memory; 4 decode steps from
+   its state; a 2 x 4,096 prefill on the direct branch (0 launches);
+   layer 0's context-parallel attention against ``blocked_attention``
+   over the whole sequence on the card (the per-row bf16 bar); then, the
+   tree dropped, flash_attention at the context-parallel shape at each
+   offset against its plain version (the per-row bar, which the last
+   shard's offset given to shard 0 must fail), timed beside SDPA with the
+   same boolean mask, and the general instance in float32 at offsets
+   within 1e-5; and on the moe depth cut, under the mesh, the card
+   against the CPU within 1e-4 (the same experts) and, at a capacity
+   factor of E / k where nothing drops, the mesh against no mesh within
+   1e-4;
 10. LM training phase: Yi-6B and Falcon-Mamba-7B at full width, cut to 8
    layers, take 3 steps of ``make_train_step`` (B 2 x S 4,096, block
    remat, AdamW from ``make_optimizer``) on one seeded batch: the loss
@@ -2150,6 +2167,16 @@ ATOL_LOGITS = 5e-2
 # tests' port-vs-JAX bar of 0.1 sits between
 ATOL_LOGITS_OF = {"zamba2-2.7b": 0.1}
 ATOL_DECODE = 0.15            # prefill vs decode (tests/test_lm_smoke.py)
+# the mesh part: Qwen3-MoE's 8-layer tree served under a (data 1, model 4)
+# local mesh with default_rules(): context-parallel attention and
+# expert-parallel moe over 4 logical shards on the one card
+MESH_ARCH = "qwen3-moe-235b-a22b"
+MESH = (1, 4)
+# each shard's float32 score block 2 x 64 x 2,048 x 8,192 x 4 B = 8.6e9 B,
+# past the 5e9 budget: the blocked branch, flash at 4 offsets a layer
+MESH_PREFILL = (2, 8192)
+MESH_DIRECT = (2, 4096)       # 2.1e9 B: the direct branch, no flash launch
+MESH_DECODE_STEPS = 4
 # head dims whose arch row is also timed in turns with the general
 # flash_attention instance: 80, which the Hopper instance takes through
 # its 16-column tail box
@@ -2164,7 +2191,7 @@ def tree_bytes(tree) -> int:
 
 def lm_serve(torch, dev, args, cfg):
     """Init, prefill and decode at full size; returns the kernel's launch
-    count over the prefill and the decode."""
+    count over the prefill and the decode, and the compute tree."""
     from repro_torch.kernels import runtime
     from repro_torch.models import lm_zoo as Z
     from repro_torch.models import transformer_lm as T
@@ -2264,7 +2291,7 @@ def lm_serve(torch, dev, args, cfg):
         f"{dec_peak / 1e9:.2f} GB; 8 profiled steps: device busy "
         f"{d_busy[0]:.4f} of {d_busy[1] * 1e3:.1f} ms, top device ops (ms) "
         f"{d_busy[2]}")
-    return counts[kernel]
+    return counts[kernel], cp
 
 
 def flash_row(torch, dev, cfg, flush, ab=()):
@@ -2693,6 +2720,8 @@ def lm_cut_checks(torch, dev, args, cfg):
                     ATOL_SERVED)
     routed = (f", the same experts for all {B * S} tokens"
               if cut.moe is not None else "")
+    if cfg.name == MESH_ARCH:
+        routed += mesh_cut_holds(torch, dev, cut, params, cpu, x, pos)
     cp_g, cp_c = Z._cast_compute(params), Z._cast_compute(cpu)
     del params, cpu, h_g
     toks = torch.from_numpy(rng.integers(0, cut.vocab, (B, S + 1)).astype(
@@ -2776,13 +2805,302 @@ def lm_cut_checks(torch, dev, args, cfg):
         f"{ATOL_DECODE}){''.join(notes)}")
 
 
+def mesh_ctx(dev):
+    """The mesh part's context: a (1, 4) local mesh on ``dev`` with the
+    default rules."""
+    from repro_torch.dist.sharding import default_rules, sharding_ctx
+    from repro_torch.launch.mesh import make_local_mesh
+
+    return sharding_ctx(make_local_mesh(*MESH, device=dev), default_rules())
+
+
+def mesh_timed(torch, fn) -> tuple:
+    """(fn's result, ms on the host clock, synchronised, the kernels'
+    launch counts during it)."""
+    from repro_torch.kernels import runtime
+
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, runtime.launch_counts()
+
+
+def mesh_serve(torch, dev, args, cfg, cp):
+    """Qwen3-MoE's full-width tree ``cp`` served under the (1, 4) mesh:
+    the 2 x 8,192 prefill (CP blocked: ``flash_attention`` at 4 offsets a
+    layer, exactly; EP with 32 experts a shard), timed beside the same
+    prefill off the mesh; 4 decode steps from its state (dense moe, no
+    flash); the 2 x 4,096 prefill (CP direct: no flash launch); and layer
+    0's q, k and v at 2 x 8,192 through ``_cp_attention_shard_map``
+    (blocked, 4 launches) against ``blocked_attention`` over the whole
+    sequence (1 launch), both on the card, at the per-row bf16 bar.
+    Returns the flash launches of the mesh prefill."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm_zoo as Z
+    from repro_torch.models import transformer_lm as T
+
+    t0 = time.perf_counter()
+    B, S = MESH_PREFILL
+    sp, want = MESH[1], {"flash_attention": MESH[1] * cfg.n_layers}
+    rng = np.random.default_rng(args.seed + 2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32)).to(dev)
+    prefill, serve = Z.make_prefill_step(cfg), Z.make_serve_step(cfg)
+    prefill(cp, {"tokens": toks})                      # warm-up
+    _, flat_ms, counts = mesh_timed(torch, lambda: prefill(
+        cp, {"tokens": toks}))
+    if counts != {"flash_attention": cfg.n_layers}:
+        raise AssertionError(f"mesh: the prefill off the mesh launched "
+                             f"{counts}")
+    x = T.embed_input(cfg, cp, {"tokens": toks})
+    pos = torch.arange(S, device=dev)[None].expand(B, S)
+    flat_drop = float(T.forward_hidden(cfg, cp, x, pos)[1]["moe_drop_frac"])
+    with mesh_ctx(dev):
+        prefill(cp, {"tokens": toks})                  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        (logits, st), pre_ms, counts = mesh_timed(torch, lambda: prefill(
+            cp, {"tokens": toks}))
+        peak = torch.cuda.max_memory_allocated()
+        if counts != want:
+            raise AssertionError(f"mesh: the {B} x {S} prefill launched "
+                                 f"{counts}, expected {want}")
+        if tuple(logits.shape) != (B, cfg.vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError("mesh: bad prefill logits")
+        aux = T.forward_hidden(cfg, cp, x, pos)[1]
+        drop = float(aux["moe_drop_frac"])
+
+        # decode from the prefill's state, its K/V stacks S long
+        pad = lambda t: torch.nn.functional.pad(
+            t, (0, 0, 0, 0, 0, MESH_DECODE_STEPS))
+        dstate = dict(st, k=pad(st["k"]), v=pad(st["v"]))
+        del st
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        step_ms, outs = [], []
+        for _ in range(MESH_DECODE_STEPS):
+            (out, dstate), ms, counts = mesh_timed(
+                torch, lambda: serve(cp, dstate, tok))
+            if counts:
+                raise AssertionError(f"mesh: a decode step launched {counts}")
+            tok = out.argmax(-1, keepdim=True).to(torch.int32)
+            step_ms.append(ms)
+            outs.append(out)
+        if (int(dstate["pos"][0]) != S + MESH_DECODE_STEPS
+                or not bool(torch.isfinite(torch.stack(outs)).all())):
+            raise AssertionError("mesh: bad decode")
+        del dstate, outs
+
+        Sd = MESH_DIRECT[1]
+        toks_d = toks[:, :Sd].contiguous()
+        prefill(cp, {"tokens": toks_d})                # warm-up
+        (l_d, _), direct_ms, counts = mesh_timed(torch, lambda: prefill(
+            cp, {"tokens": toks_d}))
+        if counts or not bool(torch.isfinite(l_d).all()):
+            raise AssertionError(f"mesh: the {B} x {Sd} prefill (direct) "
+                                 f"launched {counts} or is not finite")
+
+        # layer 0's attention: CP (blocked) against the whole sequence
+        lp = T.layer(cp["layers"], 0)
+        q, k, v = T._qkv(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                         cfg, pos)
+        del x
+        o_cp, cp_ms, counts = mesh_timed(
+            torch, lambda: T._cp_attention_shard_map(q, k, v, causal=True,
+                                                     blocked=True))
+        if counts != {"flash_attention": sp}:
+            raise AssertionError(f"mesh: CP attention launched {counts}")
+    o_all, all_ms, counts = mesh_timed(
+        torch, lambda: L.blocked_attention(q, k, v, causal=True))
+    if counts != {"flash_attention": 1}:
+        raise AssertionError(f"mesh: whole-sequence attention launched "
+                             f"{counts}")
+    what = "mesh: layer 0's CP attention vs the whole sequence"
+    rel = row_rel_err(torch, o_cp, o_all, what)
+    err = max_err(torch, o_cp, o_all, what, ATOL_BF16)
+    log(f"[mesh] {cfg.name} ({cfg.n_layers} layers) under a {MESH} mesh: "
+        f"prefill {B} x {S} {pre_ms:.1f} ms ({B * S / pre_ms * 1e3:.0f} "
+        f"tokens/s; off the mesh {flat_ms:.1f} ms), flash_attention "
+        f"launches {want['flash_attention']} (CP blocked, {sp} a layer), "
+        f"moe_drop_frac {drop:.6f} (off the mesh {flat_drop:.6f}; "
+        f"moe_lb_loss {float(aux['moe_lb_loss']):.6f}), peak "
+        f"{peak / 1e9:.2f} GB; "
+        f"{MESH_DECODE_STEPS} decode steps (B {B}, dense moe) "
+        f"{float(np.median(step_ms)):.2f} ms a step median (each "
+        f"{' '.join(f'{m:.2f}' for m in step_ms)}); prefill {B} x {Sd} "
+        f"(CP direct) {direct_ms:.1f} ms, 0 flash launches; layer 0's "
+        f"attention at {B} x {S}: CP {cp_ms:.2f} ms ({sp} launches) vs the "
+        f"whole sequence {all_ms:.2f} ms (1), max|err|/max|ref| of a row "
+        f"{rel:.3g} (tol {ROW_REL_BF16}), max|err| {err:.3g} (tol "
+        f"{ATOL_BF16}); {time.perf_counter() - t0:.1f} s")
+    return want["flash_attention"]
+
+
+def mesh_flash_row(torch, dev, cfg, flush, launches):
+    """flash_attention at the context-parallel shape of the mesh prefill
+    (q 2 x 2,048 of the 8,192 positions, qwen3-moe's 64/4 heads of 128,
+    bf16, causal) at each shard's q_offset 0, 2,048, 4,096 and 6,144,
+    against its plain version at the per-row bar, timed beside one
+    scaled_dot_product_attention with the same explicit boolean mask
+    (``enable_gqa``); the row's times and bound are the four launches'
+    sums (one layer's attention).  The last shard's offset given to
+    shard 0, a planted fault, must fail the bar.  Then the general
+    instance in float32 at q_offsets inside and past the default, within
+    1e-5.  ``launches`` is the mesh prefill's count."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         instance)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    B, S = MESH_PREFILL
+    sp = MESH[1]
+    Sq, Hq, Hkv, D = S // sp, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    inst = instance(torch.bfloat16, D)
+    if inst != "sm90":
+        raise AssertionError(f"mesh: flash_attention takes the {inst} "
+                             f"instance at head dim {D}")
+    g = torch.Generator(device=dev).manual_seed(29)
+    q, k, v = [torch.randn(sh, generator=g, device=dev).to(torch.bfloat16)
+               for sh in ((B, Sq, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kpos = torch.arange(S, device=dev)
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    tot = dict(ms=0.0, call=0.0, plain=0.0, lib=0.0, lib_call=0.0,
+               bound=0.0)
+    rels, errs, lib_rels, per, bys = [], [], [], [], set()
+    for off in range(0, S, Sq):
+        kern = lambda off=off: flash_attention(q, k, v, causal=True,
+                                               q_offset=off)
+        plain = lambda off=off: flash_attention_ref(q, k, v, causal=True,
+                                                    q_offset=off)
+        mask = kpos[None, :] <= (torch.arange(Sq, device=dev) + off)[:, None]
+        library = lambda mask=mask: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        what = f"flash_attention q_offset {off}"
+        rels.append(row_rel_err(torch, got, want, what))
+        errs.append(max_err(torch, got, want, what, ATOL_BF16))
+        lib_rels.append(row_rel_err(torch, library().transpose(1, 2), got,
+                                    f"SDPA vs {what}"))
+        del got, want
+        ms, lib_ms = device_ms(torch, kern, flush), device_ms(torch, library,
+                                                              flush)
+        turns = [call_ms(torch, fn, flush=flush)
+                 for fn in (kern, library, library, kern)]
+        pairs = B * Hq * float(np.minimum(S, off + np.arange(Sq) + 1).sum())
+        b, by = bound_ms(nbytes, 4.0 * D * pairs, BF16_OPS_PER_S, exps=pairs)
+        bys.add(by)
+        for key, val in (("ms", ms), ("lib", lib_ms),
+                         ("call", (turns[0] + turns[3]) / 2),
+                         ("lib_call", (turns[1] + turns[2]) / 2),
+                         ("plain", device_ms(torch, plain, flush, reps=2)),
+                         ("bound", b)):
+            tot[key] += val
+        per.append(f"{off}: {ms:.4f}/{lib_ms:.4f}/{b:.4f}")
+    # the planted fault: shard 0's rows at the last shard's offset
+    bad = row_rel_err(torch, flash_attention(q, k, v, causal=True,
+                                             q_offset=S - Sq),
+                      flash_attention_ref(q, k, v, causal=True, q_offset=0),
+                      "the last shard's offset on shard 0", math.inf)
+    if not bad > ROW_REL_BF16:
+        raise AssertionError(f"mesh: the per-row bar {ROW_REL_BF16} passes "
+                             f"shard 0 at the last shard's offset ({bad})")
+    del q, k, v, qt, kt, vt
+
+    # the general instance in float32, at offsets before, at and past the
+    # default (row i then sees keys up to i + q_offset)
+    f_shape, f_errs = "B=2 Sq=256 Skv=1024 Hq=8 Hkv=2 D=64", []
+    q, k, v = [torch.randn(sh, generator=g, device=dev) for sh in (
+        (2, 256, 8, 64), (2, 1024, 2, 64), (2, 1024, 2, 64))]
+    for off in (0, 300, 768, 900):
+        f_errs.append(max_err(
+            torch, flash_attention(q, k, v, causal=True, q_offset=off),
+            flash_attention_ref(q, k, v, causal=True, q_offset=off),
+            f"flash_attention f32 q_offset {off}"))
+    del q, k, v
+    shape = (f"B={B} Sq={Sq} Skv={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal "
+             f"q_offset {'/'.join(str(o) for o in range(0, S, Sq))} (a "
+             f"layer's {sp} context-parallel shards, one launch each)")
+    log(f"[kernel] flash_attention ({inst}) {cfg.name} {shape} ok "
+        f"max|err|/max|ref| of a row {max(rels):.3g} (tol {ROW_REL_BF16}; "
+        f"SDPA with the mask vs kernel {max(lib_rels):.3g}), max|err| "
+        f"{max(errs):.3g} (tol {ATOL_BF16}); the last shard's offset on "
+        f"shard 0 {bad:.3g} (must exceed {ROW_REL_BF16}); device ms of the "
+        f"{sp}: kernel {tot['ms']:.4f}  plain {tot['plain']:.4f}  bound "
+        f"{tot['bound']:.4f} ({'/'.join(sorted(bys))})  library "
+        f"{tot['lib']:.4f}; per offset kernel/library/bound {'  '.join(per)};"
+        f" ms per call summed, in turns: kernel {tot['call']:.4f}  library "
+        f"{tot['lib_call']:.4f}; launches {launches} a mesh prefill; the "
+        f"general instance f32 at {f_shape} q_offset 0/300/768/900 max|err| "
+        f"{max(f_errs):.3g} (tol {ATOL_KERNEL})")
+    return dict(name="flash_attention", route="cuda", instance=inst,
+                source="src/repro_torch/csrc/flash_attention_sm90.cu",
+                replaces="src/repro/kernels/flash_attention/"
+                         "flash_attention.py:82",
+                launches=launches, max_abs_err=max(errs), ms=tot["ms"],
+                call_ms=tot["call"], plain_ms=tot["plain"],
+                bound_ms=tot["bound"], bound_by="/".join(sorted(bys)),
+                library_ms=tot["lib"], library_call_ms=tot["lib_call"],
+                shape=shape)
+
+
+def mesh_cut_holds(torch, dev, cut, params, cpu, x, pos) -> str:
+    """The mesh on the full-width float32 1-layer cut (``params`` on the
+    card, ``cpu`` its copy; ``x``, ``pos`` on the host), at the cut's S,
+    where CP takes the direct branch: (a) the card against the CPU, both
+    under the mesh (each token's experts equal, the hidden within 1e-4);
+    (b) at a capacity factor of E / k, where no shard and no row can
+    drop a slot, the mesh against no mesh on the card within 1e-4.
+    Returns the note for the cut's log line."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer_lm as T
+
+    paths = []
+    with hooked(T, "_cp_attention_shard_map",
+                lambda a, kw, out: paths.append(("cp", kw["blocked"]))), \
+            hooked(moe, "_moe_apply_ep",
+                   lambda a, kw, out: paths.append(("ep",))):
+        with mesh_ctx(dev), routing() as r_g:
+            h_g = T.forward_hidden(cut, params, x.to(dev), pos.to(dev))[0]
+        with mesh_ctx(torch.device("cpu")), routing() as r_c:
+            h_c = T.forward_hidden(cut, cpu, x, pos)[0]
+    if paths != [("cp", False), ("ep",)] * 2:
+        raise AssertionError(f"mesh: the cut took {paths}, expected CP "
+                             f"direct and EP on both sides")
+    routing_note(torch, r_g, r_c, "mesh float32 forward_hidden")
+    err_a = max_err(torch, h_g.cpu(), h_c, "mesh forward_hidden f32, card "
+                    "vs CPU", ATOL_SERVED)
+    del h_g, h_c
+    E, k = cut.moe.num_experts, cut.moe.top_k
+    wide = dataclasses.replace(cut, moe=dataclasses.replace(
+        cut.moe, capacity_factor=E / k))
+    xg, pg = x.to(dev), pos.to(dev)
+    with mesh_ctx(dev):
+        h_m, aux_m, _ = T.forward_hidden(wide, params, xg, pg)
+    h_d, aux_d, _ = T.forward_hidden(wide, params, xg, pg)
+    drops = (float(aux_m["moe_drop_frac"]), float(aux_d["moe_drop_frac"]))
+    if drops != (0.0, 0.0):
+        raise AssertionError(f"mesh: cf {E / k} dropped {drops}")
+    err_b = max_err(torch, h_m, h_d, f"mesh vs no mesh at cf {E / k}",
+                    ATOL_SERVED)
+    return (f"; under a {MESH} mesh (CP direct, EP) card vs CPU {err_a:.3g} "
+            f"with the same experts, and at cf {E / k:g} (no slot dropped) "
+            f"mesh vs no mesh {err_b:.3g} (tol {ATOL_SERVED})")
+
+
 def lm_phase(torch, dev, args):
     """Yi-6B, then Falcon-Mamba-7B: serve at full size, hold the kernel
     against its plain version (and at the shapes past its old limits),
     check the depth cut; then the same for Qwen3-MoE and Llama-4-Scout
     (cut to 8 layers) and Zamba2 (whole), with a flash_attention row at
-    each one's prefill shape.  Returns the rows of flash_attention and
-    selective_scan."""
+    each one's prefill shape, and for Qwen3-MoE the mesh part
+    (:func:`mesh_serve` on its tree, then :func:`mesh_flash_row`; the
+    depth cut adds :func:`mesh_cut_holds`).  Returns the rows of
+    flash_attention and selective_scan."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -2792,7 +3110,7 @@ def lm_phase(torch, dev, args):
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     for arch in LM_ARCHS:
         cfg = get_arch(arch)
-        launches = lm_serve(torch, dev, args, cfg)
+        launches = lm_serve(torch, dev, args, cfg)[0]
         torch.cuda.empty_cache()
         row = (scan_row if cfg.family == "ssm" else flash_row)(
             torch, dev, cfg, flush, args.ab)
@@ -2810,8 +3128,15 @@ def lm_phase(torch, dev, args):
         cfg = get_arch(arch)
         if arch in LM_SERVE_DEPTH:
             cfg = dataclasses.replace(cfg, n_layers=LM_SERVE_DEPTH[arch])
-        launches = lm_serve(torch, dev, args, cfg)
+        launches, cp = lm_serve(torch, dev, args, cfg)
+        mesh_launches = (mesh_serve(torch, dev, args, cfg, cp)
+                         if arch == MESH_ARCH else None)
+        del cp
         torch.cuda.empty_cache()
+        if mesh_launches is not None:
+            rows.append(mesh_flash_row(torch, dev, cfg, flush,
+                                       mesh_launches))
+            torch.cuda.empty_cache()
         rows.append(arch_flash_row(torch, dev, cfg, flush, launches,
                                    args.ab))
         torch.cuda.empty_cache()

@@ -8,8 +8,10 @@
 // models/layers.py::blocked_attention: for query row i of batch b and
 // head h, against KV head h / G (G = Hq / Hkv),
 //   s_j = <q_i, k_j> * D^-0.5 in float32,  masked where causal and
-//         j > i + (Skv - Sq)   (the Pallas body has no Skv - Sq offset; it
-//         agrees with the model only when Sq == Skv),
+//         j > i + q_offset, q_offset the absolute position of query row 0:
+//         the model's Skv - Sq by default, a shard's first position under
+//         context parallelism (the Pallas body has no offset; it agrees
+//         with the model only when Sq == Skv),
 //   running max m, running sum l and accumulator acc kept on chip,
 //   p_j = exp(s_j - m) rounded to v's dtype before P.V (as the Pallas body
 //         and blocked_attention do), l summing the unrounded p,
@@ -236,7 +238,8 @@ struct Tile {
 };
 
 __device__ __forceinline__ Tile tile_of(int Sq, int Skv, int Hq, int Hkv,
-                                        int D, int Dc, int causal) {
+                                        int D, int Dc, int causal,
+                                        int q_offset) {
   Tile t;
   const int nd = (D + Dc - 1) / Dc;
   t.qt = gridDim.x - 1 - blockIdx.x;   // longest tiles first
@@ -246,7 +249,7 @@ __device__ __forceinline__ Tile tile_of(int Sq, int Skv, int Hq, int Hkv,
   t.dn = min(Dc, D - t.d0);
   t.hk = t.h / (Hq / Hkv);
   t.q0 = t.qt * kBQ;
-  t.off = Skv - Sq;                    // q row i sits at i + off
+  t.off = q_offset;                    // q row i sits at i + off
   // keys this tile needs: all, or up to its last real row's diagonal
   const int last_row = min(t.q0 + kBQ, Sq) - 1;
   const int k_end = causal ? min(Skv, last_row + t.off + 1) : Skv;
@@ -277,7 +280,7 @@ __global__ void __launch_bounds__(kThreads)
                                float* __restrict__ lse,
                                float* __restrict__ o32, int Sq, int Skv,
                                int Hq, int Hkv, int D, int causal,
-                               float scale, int Dc) {
+                               float scale, int Dc, int q_offset) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
   const bool sliced = D > kMaxD;
@@ -290,7 +293,7 @@ __global__ void __launch_bounds__(kThreads)
   float* corr = ps + kBQ * ps_ld;     // (kBQ) rescale factor of the tile
   float* lsum = corr + kBQ;           // (kBQ) final row sums
 
-  const Tile t = tile_of(Sq, Skv, Hq, Hkv, D, Dc, causal);
+  const Tile t = tile_of(Sq, Skv, Hq, Hkv, D, Dc, causal, q_offset);
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
   const int srow = tid >> 2, spart = tid & 3;   // softmax lanes
@@ -392,7 +395,7 @@ __global__ void __launch_bounds__(kThreads, kCols <= 8 ? 2 : 1)
                                 float* __restrict__ lse,
                                 float* __restrict__ o32, int Sq, int Skv,
                                 int Hq, int Hkv, int D, int causal,
-                                float scale, int Dc) {
+                                float scale, int Dc, int q_offset) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const bool sliced = D > kMaxD;
   const int ld = bf16_stride(min(D, kMaxD));
@@ -413,7 +416,7 @@ __global__ void __launch_bounds__(kThreads, kCols <= 8 ? 2 : 1)
   float* corr = reinterpret_cast<float*>(p);  // (kBQ)
   float* lsum = corr + kBQ;                   // (kBQ)
 
-  const Tile t = tile_of(Sq, Skv, Hq, Hkv, D, Dc, causal);
+  const Tile t = tile_of(Sq, Skv, Hq, Hkv, D, Dc, causal, q_offset);
   const int tid = threadIdx.x, warp = tid >> 5;
   const int ty = tid >> 4, tx = tid & 15;
   const int srow = tid >> 2, spart = tid & 3;
@@ -528,7 +531,7 @@ template <typename T, typename K>
 int launch(K kernel, size_t smem, const void* q, const void* k,
            const void* v, void* out, float* lse, float* o32, int B, int Sq,
            int Skv, int Hq, int Hkv, int D, int causal, float scale, int Dc,
-           cudaStream_t stream) {
+           int q_offset, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -536,7 +539,7 @@ int launch(K kernel, size_t smem, const void* q, const void* k,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, o32, Sq, Skv,
-      Hq, Hkv, D, causal, scale, Dc);
+      Hq, Hkv, D, causal, scale, Dc, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -547,16 +550,19 @@ int launch(K kernel, size_t smem, const void* q, const void* k,
 // backward, where lse is not null, each row's float32 log-sum-exp into lse
 // (B, Hq, Sq), and where o32 is not null, out's float32 values before
 // rounding into o32 (B, Sq, Hq, D) (a bfloat16 call's; a float32 call's
-// out is its own).  Requires Hq % Hkv == 0, D >= 1 and, if causal,
-// Sq <= Skv.  Returns cudaGetLastError() after the launch (0 on success).
+// out is its own).  Query row i sits at position i + q_offset (the
+// model's default is Skv - Sq); q_offset comes last, after the stream, so
+// the arguments before it keep the positions of the interface without it.
+// Requires Hq % Hkv == 0, D >= 1 and q_offset >= 0.  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       void* o32, int B, int Sq, int Skv,
                                       int Hq, int Hkv, int D, int dtype,
-                                      int causal, float scale,
-                                      void* stream) {
+                                      int causal, float scale, void* stream,
+                                      int q_offset) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (D < 1 || q_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
   // output chunk width: D itself up to kMaxD, else an even split of D
   // into the fewest chunks of at most kMaxD columns, rounded up to 16
   const int nd = (D + kMaxD - 1) / kMaxD;
@@ -568,10 +574,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                              : flash_attention_bf16_kernel<8>,
                         smem_bf16(sw, Dc), q, k, v, out,
                         static_cast<float*>(lse), static_cast<float*>(o32),
-                        B, Sq, Skv, Hq, Hkv, D, causal, scale, Dc, s);
+                        B, Sq, Skv, Hq, Hkv, D, causal, scale, Dc,
+                        q_offset, s);
   return launch<float>(wide ? flash_attention_f32_kernel<16>
                             : flash_attention_f32_kernel<8>,
                        smem_f32(sw, Dc), q, k, v, out,
                        static_cast<float*>(lse), static_cast<float*>(o32),
-                       B, Sq, Skv, Hq, Hkv, D, causal, scale, Dc, s);
+                       B, Sq, Skv, Hq, Hkv, D, causal, scale, Dc,
+                       q_offset, s);
 }

@@ -10,7 +10,9 @@
 // models/layers.py::blocked_attention): for query row i of batch b and
 // head h, against KV head h / G (G = Hq / Hkv),
 //   s_j = <q_i, k_j> * D^-0.5 in float32, masked where causal and
-//         j > i + (Skv - Sq) (the model's offset; the Pallas body has none),
+//         j > i + q_offset, q_offset the absolute position of query row 0
+//         (the model's Skv - Sq by default, a shard's first position under
+//         context parallelism; the Pallas body has none),
 //   running max m, running sum l and accumulator acc kept in registers,
 //   p_j = exp(s_j - m) rounded to bfloat16 before P.V, l summing the
 //         unrounded p,
@@ -111,10 +113,11 @@ __device__ __forceinline__ bool tile_at(int round, int n_qt, int Hq, int B,
 }
 
 // K/V tiles q tile qt walks: all, or up to its last real row's diagonal
-__device__ __forceinline__ int kv_tiles(int qt, int Sq, int Skv,
-                                        int causal) {
+// (row i sits at position i + off)
+__device__ __forceinline__ int kv_tiles(int qt, int Sq, int Skv, int causal,
+                                        int off) {
   const int last_row = min((qt + 1) * kBQ, Sq) - 1;
-  const int k_end = causal ? min(Skv, last_row + Skv - Sq + 1) : Skv;
+  const int k_end = causal ? min(Skv, last_row + off + 1) : Skv;
   return (k_end + kBK - 1) / kBK;
 }
 
@@ -127,7 +130,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 float* __restrict__ lse,
                                 float* __restrict__ o32, int B, int Sq,
                                 int Skv, int Hq, int Hkv, int causal,
-                                float scale_log2) {
+                                float scale_log2, int off) {
   constexpr int kStages = stages<D>();
   constexpr int kTile = tile_bytes<D, kBQ>();   // kBQ == kBK
   constexpr int kO = D / 2;          // O registers a thread (m64nD)
@@ -143,7 +146,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto empty_v = [&](int s) { return bars + 8 * (2 + 3 * kStages + s); };
   const int n_qt = (Sq + kBQ - 1) / kBQ;
   const int group = Hq / Hkv;
-  const int off = Skv - Sq;                    // q row i sits at i + off
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
@@ -171,7 +173,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(empty_q, (round & 1) ^ 1);
         mbar_expect_tx(full_q, kTile);
         load_tile<D, kBQ, kBQ>(s_q, tq, full_q, t.h, t.qt * kBQ, t.b);
-        const int n_kt = kv_tiles(t.qt, Sq, Skv, causal);
+        const int n_kt = kv_tiles(t.qt, Sq, Skv, causal, off);
         for (int kt = 0; kt < n_kt; ++kt, ++it) {
           const int s = it % kStages;
           const uint32_t parity = ((it / kStages) & 1) ^ 1;
@@ -283,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     lim0 = causal ? min(Skv - 1, row0 + off) : Skv - 1;
     lim1 = causal ? min(Skv - 1, row0 + 8 + off) : Skv - 1;
     wg_pos = tile.qt * kBQ + wg * 64 + off;     // first row's position
-    const int n_kt = kv_tiles(tile.qt, Sq, Skv, causal);
+    const int n_kt = kv_tiles(tile.qt, Sq, Skv, causal, off);
 #pragma unroll
     for (int i = 0; i < kO; ++i) o[i] = 0.f;
     m0 = m1 = -CUDART_INF_F;
@@ -383,7 +385,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, float* o32, int B, int Sq, int Skv, int Hq, int Hkv,
-           int causal, float scale, cudaStream_t stream) {
+           int causal, float scale, int q_offset, cudaStream_t stream) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   // with no keys the kernel loads no K/V tile: its maps stay blank
@@ -401,7 +403,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const int ctas = min(tiles, sm_count());          // one CTA per SM
   flash_attention_sm90_kernel<D><<<ctas, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(out), lse, o32, B, Sq, Skv, Hq, Hkv,
-      causal, scale * kLog2e);
+      causal, scale * kLog2e, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -411,26 +413,30 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // contiguous bfloat16 with 16-byte aligned q, k, v, and, for the
 // backward, where lse is not null, each row's float32 log-sum-exp into lse
 // (B, Hq, Sq), and where o32 is not null, out's float32 values before
-// rounding into o32 (B, Sq, Hq, D).  Requires D 64, 80 or 128, Hq % Hkv == 0
-// and, if causal, Sq <= Skv.  Returns cudaGetLastError() after the launch
-// (0 on success), or the error that kept it from launching.
+// rounding into o32 (B, Sq, Hq, D).  Query row i sits at position
+// i + q_offset (the model's default is Skv - Sq); q_offset comes last, after
+// the stream, so the arguments before it keep the positions of the
+// interface without it.  Requires D 64, 80 or 128, Hq % Hkv == 0 and
+// q_offset >= 0.  Returns cudaGetLastError() after the launch (0 on
+// success), or the error that kept it from launching.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* out,
                                            void* lse, void* o32, int B,
                                            int Sq, int Skv, int Hq, int Hkv,
                                            int D, int causal, float scale,
-                                           void* stream) {
+                                           void* stream, int q_offset) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   float* f = static_cast<float*>(o32);
+  if (q_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (D == 128)
     return launch<128>(q, k, v, out, l, f, B, Sq, Skv, Hq, Hkv, causal,
-                       scale, s);
+                       scale, q_offset, s);
   if (D == 80)
     return launch<80>(q, k, v, out, l, f, B, Sq, Skv, Hq, Hkv, causal,
-                      scale, s);
+                      scale, q_offset, s);
   if (D == 64)
     return launch<64>(q, k, v, out, l, f, B, Sq, Skv, Hq, Hkv, causal,
-                      scale, s);
+                      scale, q_offset, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

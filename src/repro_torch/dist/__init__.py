@@ -1,5 +1,6 @@
 """Distributed substrate (counterpart of ``repro.dist``): the
-P-machine x G-rank continuous-learning loop run in one process.
+P-machine x G-rank continuous-learning loop run in one process, and the
+LM wing's logical-axis sharding.
 
 ``repro_torch.dist.transport``   where a machine lives: the in-process
                                  ``LocalTransport`` and the op table.
@@ -8,6 +9,10 @@ P-machine x G-rank continuous-learning loop run in one process.
 ``repro_torch.dist.collectives`` gradient reduction over the W
                                  workers' trees (bucketed / quantized /
                                  top-k sparsified sum).
+``repro_torch.dist.sharding``    the rules table, the mesh context and
+                                 the local ``shard_map`` with its
+                                 collectives (context-parallel
+                                 attention, expert-parallel moe).
 ``repro_torch.dist.continuous``  ``DistributedContinuousTrainer``
                                  (imported lazily: it pulls in the
                                  model zoo).

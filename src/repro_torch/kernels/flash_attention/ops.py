@@ -14,15 +14,25 @@ or raises on what the kernel does not take: q, k and v must be
 contiguous float32 or bfloat16 tensors of one dtype, (B, S, H, D) with
 Hq % Hkv == 0 and any head dim D (the general instance takes D > 256 in
 chunks of output columns), and a causal call needs Sq <= Skv (every
-query row then has at least one key).  The Hopper instance reads q, k
-and v by TMA, which needs them 16-byte aligned; its backward reads q, k,
-v and the output's gradient so too, and raises if one is not (the rows'
-strides, D * 2 and H * D * 2 bytes, are multiples of 16 at each of its
-head dims).  A private ``_instance="general"`` takes the general
-instance instead, forward and backward, to time the two against each
-other; nothing on a model path passes it.  Unlike
-the Pallas wrapper, any Sq and Skv are taken: the kernels mask the
-ragged edge of their tiles themselves.
+query row then has at least one key) unless it gives ``q_offset``.  The
+Hopper instance reads q, k and v by TMA, which needs them 16-byte
+aligned; its backward reads q, k, v and the output's gradient so too,
+and raises if one is not (the rows' strides, D * 2 and H * D * 2 bytes,
+are multiples of 16 at each of its head dims).  A private
+``_instance="general"`` takes the general instance instead, forward and
+backward, to time the two against each other; nothing on a model path
+passes it.  Unlike the Pallas wrapper, any Sq and Skv are taken: the
+kernels mask the ragged edge of their tiles themselves.
+
+A causal call masks the keys past each query row's position, row i
+sitting at ``i + q_offset``: by default ``Skv - Sq`` (the last Sq of Skv
+positions, the model's prefill), or the ``q_offset >= 0`` the caller
+gives (a context-parallel shard's first position, its keys all-gathered
+over the whole sequence); both kernels take it, the plain version too.
+A negative ``q_offset`` raises.  The backward kernels take only the
+default, so a call on the card that autograd records raises on any other
+offset (:func:`q_offset_of`) rather than return a wrong gradient; the
+CPU path's autograd takes any.
 
 When grad mode is on and an input requires grad, the call goes through
 one ``torch.autograd.Function``: the forward kernel also writes each
@@ -43,9 +53,9 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 P, I, F = rt.PTR, rt.INT, rt.FLOAT
 _SIG = {"flash_attention_launch": (P, P, P, P, P, P, I, I, I, I, I, I, I,
-                                   I, F, P)}
+                                   I, F, P, I)}
 _SIG_SM90 = {"flash_attention_sm90_launch": (P, P, P, P, P, P, I, I, I, I,
-                                             I, I, I, F, P)}
+                                             I, I, I, F, P, I)}
 _BWD_ARGS = (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P)
 _SIG_BWD = {"flash_attention_bwd_launch": _BWD_ARGS}
 _SIG_BWD_SM90 = {"flash_attention_bwd_sm90_launch": _BWD_ARGS}
@@ -64,41 +74,69 @@ def instance(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
+                    q_offset: int | None = None,
                     _instance: str | None = None) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D) in
-    q's dtype.  ``_instance`` ("general") takes the general kernels,
-    forward and backward, in place of :func:`instance`'s."""
+    q's dtype; a causal call's query row i sits at ``i + q_offset``
+    (default ``Skv - Sq``).  ``_instance`` ("general") takes the general
+    kernels, forward and backward, in place of :func:`instance`'s."""
     _forced(_instance, "flash_attention")
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
-    _check(q, k, v, causal, _instance)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        q_offset_of(q, k, causal, q_offset)
+        given = {} if q_offset is None else {"q_offset": q_offset}
+        return flash_attention_ref(q, k, v, causal=causal, **given)
+    _check(q, k, v, causal, _instance, q_offset)
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    off = q_offset_of(q, k, causal, q_offset, backward=grad)
+    if grad:
         return _FlashAttention.apply(q, k, v, causal, _instance)
-    return _forward(q, k, v, causal, None, _instance=_instance)
+    return _forward(q, k, v, causal, None, _instance=_instance, q_offset=off)
 
 
-def _forward(q, k, v, causal, lse, o32=None, _instance=None):
+def q_offset_of(q, k, causal: bool, q_offset: int | None = None, *,
+                backward: bool = False) -> int:
+    """The position of query row 0 that a call's causal mask takes:
+    ``q_offset``, or ``Skv - Sq`` by default; 0 for a call that is not
+    causal (it masks nothing).  Raises on a negative ``q_offset`` and,
+    with ``backward`` (a call on the card that autograd records, whose
+    backward kernels take only the default), on any other offset."""
+    if q_offset is not None and q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    if not causal:
+        return 0
+    default = k.shape[1] - q.shape[1]
+    if backward and q_offset is not None and q_offset != default:
+        raise NotImplementedError(
+            f"flash_attention: the backward kernels take only the default "
+            f"q_offset Skv - Sq = {default}, got {q_offset}")
+    return default if q_offset is None else int(q_offset)
+
+
+def _forward(q, k, v, causal, lse, o32=None, _instance=None, q_offset=None):
     """One forward launch; writes each row's log-sum-exp into ``lse``
     (B, Hq, Sq) float32 and the output's float32 values before rounding
-    into ``o32`` (B, Sq, Hq, D) unless they are None."""
+    into ``o32`` (B, Sq, Hq, D) unless they are None.  ``q_offset``
+    None is the default, ``Skv - Sq``."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     stream = rt.stream_handle(q.device)
+    off = q_offset_of(q, k, causal, q_offset)
     if (_instance or instance(q.dtype, D)) == "sm90":
         lib = rt.load("flash_attention_sm90", _SIG_SM90)
         rc = lib.flash_attention_sm90_launch(
             rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), rt.ptr(lse),
             rt.ptr(o32), B, Sq, Skv, Hq, Hkv, D, int(causal), D ** -0.5,
-            stream)
+            stream, off)
     else:
         lib = rt.load("flash_attention", _SIG)
         rc = lib.flash_attention_launch(
             rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(out), rt.ptr(lse),
             rt.ptr(o32), B, Sq, Skv, Hq, Hkv, D, DTYPES[q.dtype],
-            int(causal), D ** -0.5, stream)
+            int(causal), D ** -0.5, stream, off)
     rt.count_launch("flash_attention")
     rt.check(lib, rc, "flash_attention")
     return out
@@ -184,7 +222,7 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def _check(q, k, v, causal, forced=None):
+def _check(q, k, v, causal, forced=None, q_offset=None):
     dev = q.device
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtype {q.dtype}, expected "
@@ -201,7 +239,7 @@ def _check(q, k, v, causal, forced=None):
                          f"Hkv={Hkv}")
     if D < 1:
         raise ValueError(f"flash_attention: head dim {D} < 1")
-    if causal and Sq > Skv:
+    if causal and q_offset is None and Sq > Skv:
         raise ValueError(f"flash_attention: causal needs Sq <= Skv, got "
                          f"Sq={Sq} Skv={Skv}")
     if (forced or instance(q.dtype, D)) == "sm90" and any(

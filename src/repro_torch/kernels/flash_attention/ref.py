@@ -3,7 +3,8 @@ attention.
 
 Scores are float32 (operands converted to float32, which is exact for
 bfloat16), scaled by D^-0.5 after the dot product; causal masking is
-``k_pos > q_pos + (Skv - Sq)``.  As in the kernel and in the JAX
+``k_pos > q_pos + q_offset``, ``q_offset`` the absolute position of query
+row 0 (default ``Skv - Sq``).  As in the kernel and in the JAX
 package's ``blocked_attention``, the unnormalised weights
 ``p = exp(s - max s)`` are rounded to v's dtype before P.V, and the
 float32 row sum of the unrounded ``p`` divides the result, floored at
@@ -16,7 +17,8 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal: bool) -> torch.Tensor:
+def flash_attention_ref(q, k, v, *, causal: bool,
+                        q_offset: int | None = None) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D)."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -25,7 +27,8 @@ def flash_attention_ref(q, k, v, *, causal: bool) -> torch.Tensor:
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (D ** -0.5)
     if causal:
         kpos = torch.arange(Skv, device=q.device)
-        qpos = torch.arange(Sq, device=q.device) + (Skv - Sq)
+        qpos = torch.arange(Sq, device=q.device) + (
+            Skv - Sq if q_offset is None else q_offset)
         masked = kpos[None, :] > qpos[:, None]                  # (Sq, Skv)
         s = s.masked_fill(masked, float("-inf"))
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)

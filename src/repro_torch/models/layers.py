@@ -6,9 +6,11 @@ Two wings share this module:
 * the LM backbones: ``rms_norm``, rotary embeddings (rotate-half, in
   float32), ``blocked_attention`` (the full-sequence GQA attention; on
   the card it is the hand-written ``flash_attention`` kernel, and its
-  backward kernel under autograd), ``decode_attention`` (one token
-  against a padded KV cache, plain PyTorch as in the JAX package), the
-  MLP activations and the LM loss ``chunked_softmax_xent``.
+  backward kernel under autograd), ``direct_attention`` (unchunked, the
+  context-parallel shard's attention when its score block is small) and
+  ``decode_attention`` (one token against a padded KV cache), both plain
+  PyTorch as in the JAX package, the MLP activations and the LM loss
+  ``chunked_softmax_xent``.
 
 Initialisers take an explicit ``torch.Generator`` and draw on the
 generator's own device: a CPU generator gives the same weights on every
@@ -77,12 +79,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # ---------------------------------------------------------------------------
 
 
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: float
+                ) -> torch.Tensor:
+    """q: (B, qc, Hkv, G, D), k: (B, kc, Hkv, D) -> float32 scores
+    (B, Hkv, G, qc, kc), scaled after the product."""
+    return torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+
+
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool) -> torch.Tensor:
+                      causal: bool, q_offset: Optional[int] = None
+                      ) -> torch.Tensor:
     """Full-sequence GQA attention with an online softmax.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) with Hq % Hkv == 0; query
-    row i sits at position i + Skv - Sq.  Returns (B, Sq, Hq, D) in
+    row i sits at position i + q_offset (default Skv - Sq; a
+    context-parallel shard gives its first position, as the JAX
+    package's ``(B,)`` array of one value).  Returns (B, Sq, Hq, D) in
     q.dtype.  On the card this is one launch of the ``flash_attention``
     kernel, which tiles the sequence itself (the JAX package's
     ``q_chunk``/``kv_chunk`` have no counterpart), and under autograd
@@ -90,7 +102,33 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     plain version.
     """
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal)
+                           causal=causal, q_offset=q_offset)
+
+
+def direct_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool, q_offset: Optional[int] = None
+                     ) -> torch.Tensor:
+    """Unchunked attention: makes the (B, Hkv, G, Sq, Skv) float32 scores.
+
+    The context-parallel shard's attention, q S-sharded against the
+    all-gathered K/V, when its score block fits the per-shard budget
+    (``transformer_lm._CP_SCORE_BYTES_LIMIT``); plain PyTorch, as the
+    JAX package computes it outside any kernel.  Query row i sits at
+    i + q_offset (default Skv - Sq); masked scores are ``NEG_INF``,
+    weights are rounded to v's dtype before P.V.
+    """
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    s = _gqa_scores(q.reshape(B, Sq, Hkv, G, D), k, D ** -0.5)
+    if causal:
+        offset = Skv - Sq if q_offset is None else q_offset
+        q_pos = torch.arange(Sq, device=q.device)[:, None]
+        kv_pos = torch.arange(Skv, device=q.device)[None, :]
+        s.masked_fill_(kv_pos > q_pos + offset, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

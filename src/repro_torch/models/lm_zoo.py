@@ -12,9 +12,21 @@
 
 Every step computes in bfloat16 (``_cast_compute``), with the float32
 leaves of ``_FP32_KEEP`` left as they are; the train step takes its
-gradient with respect to the float32 master leaves.  The JAX module's
-``input_specs``/``decode_state_specs`` (stand-ins for XLA lowering) have
-no counterpart.
+gradient with respect to the float32 master leaves.
+
+Under a mesh, as in the JAX package, the same steps shard themselves:
+
+    with sharding_ctx(make_local_mesh(1, 4), default_rules()):
+        logits, dstate = prefill(params, batch)   # CP attention, EP moe
+        logits, dstate = serve(params, dstate, tokens)
+
+(``dist.sharding``, ``launch.mesh``): a prefill whose length the
+``seq_act`` axis divides takes context-parallel attention and the
+expert-parallel moe path; a decode step's one token does not split, so
+it takes the whole-sequence paths.  The tree needs nothing new.
+
+The JAX module's ``input_specs``/``decode_state_specs`` (stand-ins for
+XLA lowering) have no counterpart.
 """
 from __future__ import annotations
 

@@ -32,8 +32,14 @@ Per-layer leaves are stacked on a leading ``L`` axis, the layout
 ``jax.vmap`` of the JAX init gives, so a JAX tree maps across one to one
 (``repro_torch.models.convert.params_from_jax``); ``lax.scan`` over the
 layers is a Python loop over ``leaf[i]`` slices.  The JAX package's
-sharding constraints and its context-parallel branch are identity or not
-taken outside a device mesh and have no counterpart here.
+sharding constraints are the identity on the port's logical mesh and
+are left out.  Under an active mesh (``dist.sharding.sharding_ctx``)
+whose ``seq_act`` axis divides the sequence, ``attn_full`` takes the
+context-parallel branch as the JAX package does
+(:func:`_cp_attention_shard_map`: each shard's queries against the
+all-gathered K/V, directly or, past the per-shard score budget,
+through ``flash_attention`` with the shard's ``q_offset``), and the moe
+layer its expert-parallel path (``moe.moe_apply``).
 
 Two departures from JAX's functional style, both to save device memory:
 ``decode_forward`` writes the new token's K/V into the caches of the
@@ -51,11 +57,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve
+from repro_torch.dist.sharding import (P, active_mesh, all_gather,
+                                       axis_for, axis_index, axis_size_of,
+                                       shard_map)
 from repro_torch.models import mamba as M
 from repro_torch.models.layers import (apply_rope, blocked_attention,
                                        decode_attention, dense_init,
-                                       embed_init, mlp_apply,
-                                       mlp_param_shapes, rms_norm)
+                                       direct_attention, embed_init,
+                                       mlp_apply, mlp_param_shapes,
+                                       rms_norm)
 from repro_torch.models.moe import moe_apply, moe_init
 
 PyTree = Any
@@ -191,12 +201,60 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
     return q, k, v
 
 
+_CP_SCORE_BYTES_LIMIT = 5e9  # per-shard f32 score block budget
+
+
+def _cp_attention_shard_map(q, k, v, *, causal: bool,
+                            blocked: bool = False) -> torch.Tensor:
+    """Context-parallel attention as an explicit shard_map.
+
+    q/k/v arrive seq-sharded over the 'seq_act' axis.  Each shard
+    all-gathers K/V and computes its query shard's attention against
+    them, its rows at positions ``axis_index * S_loc`` on: with
+    ``direct_attention``, or with ``blocked_attention`` (the
+    ``flash_attention`` kernel on the card, at the shard's ``q_offset``)
+    when ``blocked``.  Under autograd the all-gather's transpose sums
+    each shard's dK/dV back onto its own rows.
+    """
+    mesh = active_mesh()
+    dp_ax = axis_for("batch")
+    sp_ax = axis_for("seq_act")
+    sp_name = sp_ax if isinstance(sp_ax, str) else sp_ax[0]
+
+    def body(q_l, k_l, v_l):
+        # (B_loc, S_loc, H, D); gather the full K/V sequence
+        k_f = yield all_gather(k_l, sp_name, axis=1, tiled=True)
+        v_f = yield all_gather(v_l, sp_name, axis=1, tiled=True)
+        offset = axis_index(sp_name) * q_l.shape[1]
+        attend = blocked_attention if blocked else direct_attention
+        return attend(q_l, k_f, v_f, causal=causal, q_offset=offset)
+
+    spec = P(dp_ax, sp_ax, None, None)
+    return shard_map(body, mesh=mesh, in_specs=(spec, spec, spec),
+                     out_specs=spec)(q, k, v)
+
+
 def attn_full(p: dict, x: torch.Tensor, cfg: ArchConfig,
               positions: torch.Tensor):
-    """x: (B, S, d) (already normed). Returns (out, (k, v))."""
+    """x: (B, S, d) (already normed). Returns (out, (k, v)).
+
+    Path selection, as in the JAX package: when the sequence axis is
+    sharded ('seq_act' rule, context parallelism) and divides S, the
+    shard_map branch, single-shot ``direct_attention`` if the per-shard
+    float32 score block fits :data:`_CP_SCORE_BYTES_LIMIT`, else the
+    blocked kernel inside the shard; otherwise ``blocked_attention``
+    over the whole sequence.
+    """
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
-    o = blocked_attention(q, k, v, causal=cfg.causal)
+    if axis_for("seq_act") is not None and S % axis_size_of("seq_act") == 0:
+        dp, sp = axis_size_of("batch"), axis_size_of("seq_act")
+        score_bytes = (B / dp) * cfg.n_heads * (S / sp) * S * 4.0
+        o = _cp_attention_shard_map(
+            q, k, v, causal=cfg.causal,
+            blocked=score_bytes > _CP_SCORE_BYTES_LIMIT)
+    else:
+        o = blocked_attention(q, k, v, causal=cfg.causal)
     out = o.reshape(B, S, -1) @ p["wo"]
     return out, (k, v)
 

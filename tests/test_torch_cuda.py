@@ -573,6 +573,54 @@ def test_flash_attention_hopper_instance_matches_plain(card, B, Sq, Skv, Hq,
     _assert_bf16_rows_close(got, want)
 
 
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,dtype,inst", [
+    # a context-parallel shard: Sq = Skv / 4, qwen3-moe's heads
+    (2, 512, 2048, 64, 4, 128, torch.bfloat16, "sm90"),
+    (1, 300, 1000, 4, 2, 64, torch.bfloat16, "sm90"),    # ragged tiles
+    (2, 200, 700, 32, 32, 80, torch.bfloat16, "sm90"),   # the tail box
+    (2, 512, 2048, 64, 4, 128, torch.bfloat16, "general"),
+    (1, 300, 1000, 4, 2, 64, torch.float32, "general"),
+    (1, 70, 200, 4, 1, 192, torch.bfloat16, "general")])  # the wide one
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_q_offset_matches_plain(card, B, Sq, Skv, Hq, Hkv,
+                                                D, dtype, inst, causal):
+    """Query row i at i + q_offset, for offsets from 0 (the first
+    context-parallel shard) through the default Skv - Sq to past it (the
+    last rows see every key), on both instances: within 1e-5 in float32
+    and at the bf16 row bars; one launch a call.  Under autograd a
+    non-default offset raises (the backward kernels take only the
+    default) and the default passes."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         instance)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    assert inst == "general" or instance(dtype, D) == "sm90"
+    forced = "general" if inst == "general" else None
+    q, k, v = _attn_inputs(card, B, Sq, Skv, Hq, Hkv, D, dtype, Sq + Skv)
+    for off in sorted({0, 1, Sq // 2 + 3, Skv - Sq, Skv - Sq // 2,
+                       2 * Skv}):
+        runtime.reset_launch_counts()
+        got = flash_attention(q, k, v, causal=causal, q_offset=off,
+                              _instance=forced)
+        assert runtime.launch_counts() == {"flash_attention": 1}
+        want = flash_attention_ref(q, k, v, causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        else:
+            _assert_bf16_rows_close(got, want)
+    qg = q.detach().clone().requires_grad_(True)
+    if causal:
+        with pytest.raises(NotImplementedError, match="backward"):
+            flash_attention(qg, k, v, causal=True, q_offset=0,
+                            _instance=forced)
+    out = flash_attention(qg, k, v, causal=causal, q_offset=Skv - Sq,
+                          _instance=forced)
+    assert out.requires_grad
+    with pytest.raises(ValueError, match="q_offset -1"):
+        flash_attention(q, k, v, causal=causal, q_offset=-1)
+
+
 def _tail_only(ts):
     """The tensors with every column outside 64-79 set to zero."""
     for t in ts:
