@@ -84,7 +84,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    as accounted, the schedule's load CV below 0.1, and the stage split,
    the routing's host waits, the traffic, the per-partition hit rates,
    the refresh bytes beside a full re-upload, the mirrors' bytes and
-   the device's busy share printed.  Then one more global step of each
+   TGN's device busy share printed (TGAT's round is not profiled: the
+   profiler took longer over its 8 workers' events than the round
+   itself).  Then one more global step of each
    trainer holds every kernel against its plain version on the inputs
    it gives them: each routed, pow2-padded owner bucket of the sampler
    (uniform with its request-keyed noise, also against the sampler's
@@ -190,35 +192,52 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against the CPU within 1e-4 (the same experts) and, at a capacity
    factor of E / k where nothing drops, the mesh against no mesh within
    1e-4;
-10. LM training phase: Yi-6B and Falcon-Mamba-7B at full width, cut to 8
-   layers, take 3 steps of ``make_train_step`` (B 2 x S 4,096, block
-   remat, AdamW from ``make_optimizer``) on one seeded batch: the loss
-   falls at every step, each step launches the forward kernel twice a
-   layer and its backward kernel (``flash_attention_bwd``, Yi's the
-   Hopper instance, or ``selective_scan_bwd``) once, and the step time,
-   peak memory, device busy share and top device ops are printed.  Then
-   both backward kernels against the plain version's autograd (flash at
+10. LM training phase: every family at full width takes 3 steps of
+   ``make_train_step`` (block remat) on one seeded batch, each arch cut
+   as ``LM_TRAIN_OF`` says: Yi-6B and Falcon-Mamba-7B to 8 layers at B 2
+   x S 4,096 with AdamW, Zamba2-2.7B whole (AdamW), and Qwen3-MoE-235B-A22B and
+   Llama-4-Scout-17B-16E at one layer with Adafactor (AdamW's moments do
+   not fit beside their 3.7 and 4.3 B parameters): the loss falls at
+   every step, each step launches the forward kernel twice an attention
+   application or Mamba-1 layer and its backward kernel
+   (``flash_attention_bwd``, the Hopper instance, or
+   ``selective_scan_bwd``) once, exactly, and the step time, peak
+   memory, device busy share and top device ops are printed; on each moe
+   arch's trained tree two backward passes give the same bits.  Then
+   Qwen3-MoE's layer under the (1, 4) mesh at B 2 x 8,192 (context
+   parallel, blocked: flash at the 4 shards' q_offsets, 8 launches a
+   step and its backward 4; expert parallel): 3 steps, the loss falling,
+   timed beside one step off the mesh, both peaks printed.  Then both
+   backward kernels against the plain version's autograd (flash at
    Yi's train shape in bf16, the Hopper instance, each query row of dq
    and each key of dk and dv within 0.02 of its max |grad| beyond each
    element's rounding budget, a bar that must fail the last KV tile's dk
    and dv zeroed, and timed in turns with the general instance, which
    must agree with it within the same bar; the same at Zamba2's
    attention (2, 4,096, 32/32 heads of 80, causal: the Hopper instance
-   with its tail box; no card path trains Zamba2 yet, so the row counts
-   its own call's launches); at a ragged float32 shape
+   with its tail box); at the mesh step's context-parallel shape at
+   each shard's q_offset (the same bar, which shard 0's gradient at the
+   last shard's offset must fail; dk and dv exactly 0 on the keys no
+   query of a shard sees; timed beside SDPA's backward with the same
+   boolean mask), and the general instance in float32 at those
+   offsets; at a ragged float32 shape
    within 1e-5 of max(1, max |grad|); the scan at Falcon's with L cut to
    1,024 for the oracle, within 1e-5, and with ``--ab`` in turns with
    the other design at the full L), timed beside the plain backward
    and, for flash, the backward of one
    ``scaled_dot_product_attention``; one train step's
-   gradients of a 2-layer cut (B 2, S 256) on the card against the CPU
-   (float32: loss within 1e-4, each gradient leaf within 1e-4 of its
-   max; bf16: each leaf within 5e-2 of its max, a bar that must fail
-   the card's step with the last 64 positions' gradients of both
-   backward kernels zeroed); ``LMTrainer``'s
-   save, restore and continue on the card equal to an uninterrupted
-   run, exactly; and ``python -m repro_torch.launch.train lm`` in a
-   subprocess.
+   gradients of each arch's depth cut (``LM_CUT_OF``) on the card
+   against the CPU (float32: loss within 1e-4, each gradient leaf within
+   1e-4 of its max, a moe arch's experts equal; bf16: each leaf within
+   5e-2 of its max, the CPU replaying a moe arch's experts, a bar that
+   must fail the card's step with the last 64 positions' gradients of
+   both backward kernels zeroed), and on Qwen3-MoE's cut under the mesh
+   with the score budget lowered (blocked at S 128): the card against
+   the CPU and, at a capacity factor of E / k, the mesh against no mesh
+   on the card, both within 1e-4; ``LMTrainer``'s save, restore and
+   continue on the card equal to an uninterrupted run, exactly, for
+   Yi-6B's and Qwen3-MoE's reduced configs; and ``python -m
+   repro_torch.launch.train lm`` in a subprocess.
 
 The second-to-last line is the JSON ``kernels`` record, the last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -291,14 +310,12 @@ def call_ms(torch, fn, *, reps: int = 30, warm: int = 5,
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
-def device_us(torch, prof) -> float:
-    """Summed duration of the device's own events (kernels, copies,
-    memsets) in a ``torch.profiler`` run, in microseconds.  Host ops are
-    skipped: their device time repeats that of the kernels they
-    launched."""
+def device_events(torch, prof) -> list:
+    """The device's own events (kernels, copies, memsets) of a
+    ``torch.profiler`` run, averaged by name: host ops are skipped, as
+    their device time repeats that of the kernels they launched."""
     cuda = torch.autograd.DeviceType.CUDA
-    return float(sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == cuda))
+    return [e for e in prof.key_averages() if e.device_type == cuda]
 
 
 def device_ms(torch, fn, flush, *, reps: int = 30) -> float:
@@ -353,12 +370,10 @@ def burst_ms(torch, fn, flush, *, reps: int = 20) -> float:
     return (span(lambda: (flush.zero_(), fn())) - span(flush.zero_)) / reps
 
 
-def top_ops(torch, prof, n: int = 6) -> list:
-    """The ``n`` device events of a profile with the most device time:
-    [(name, ms)]."""
-    cuda = torch.autograd.DeviceType.CUDA
-    top = sorted((e for e in prof.key_averages() if e.device_type == cuda),
-                 key=lambda e: -e.self_device_time_total)[:n]
+def top_ops(events, n: int = 6) -> list:
+    """The ``n`` of ``events`` (:func:`device_events`) with the most
+    device time: [(name, ms)]."""
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:n]
     return [(e.key[:48], round(e.self_device_time_total / 1e3, 3))
             for e in top]
 
@@ -374,8 +389,9 @@ def profiled_busy(torch, work) -> tuple:
         out = work()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return (device_us(torch, prof) / (wall * 1e6), wall, top_ops(torch, prof),
-            out)
+    events = device_events(torch, prof)       # averaged once: slow on a
+    busy_us = sum(e.self_device_time_total for e in events)  # long run
+    return busy_us / (wall * 1e6), wall, top_ops(events), out
 
 
 def timings(torch, fn, flush) -> tuple:
@@ -1535,6 +1551,11 @@ DIST_WARM_EVENTS = WARM_EVENTS    # cut here (and say so) if the phase
 DIST_ATOL_AP = 1e-3           # distributed vs single host: the reference's
 #                               bands (tests/test_dist_continuous.py:73-74)
 LOSSY_BAND = 0.05             # quantized / top-k vs bucketed
+# the round profiled for the device's busy share: TGN's.  TGAT's 8
+# workers launch so many kernels and copies that the profiler's
+# averaging of them took about 120 s beside the round's 46.8 (PERF.md
+# run R2), more than half the phase; phase 6 profiles single-host TGAT
+DIST_PROFILED = ("tgn",)
 
 
 def dist_trainer(cfg, stream, dev, args, collective="bucketed", **kw):
@@ -1549,7 +1570,8 @@ def dist_runs(torch, dev, args, stream):
     """TGN (recent, batch 4,000) and TGAT (uniform, batch 600) at full
     width through ``DistributedContinuousTrainer`` (P 4 x G 2,
     bucketed): DIST_WARM_EVENTS ingested, then one round of ROUND_EVENTS
-    with EPOCHS epochs, profiled.  Checks the round's launch counts (the
+    with EPOCHS epochs (profiled for the trainers in DIST_PROFILED).
+    Checks the round's launch counts (the
     attention forward and backward W·L times a train step, the forward
     W·L times an eval step), the collective's accounting and the load
     CV, and prints the stage split and the traffic."""
@@ -1570,8 +1592,17 @@ def dist_runs(torch, dev, args, stream):
             f"re-upload {tr.full_upload_bytes() / 1e6:.1f} MB")
         lo = DIST_WARM_EVENTS
         runtime.reset_launch_counts()
-        share, wall, top, m = profiled_busy(torch, lambda: tr.train_round(
-            stream.slice(lo, lo + ROUND_EVENTS), epochs=EPOCHS))
+        round_ = lambda: tr.train_round(stream.slice(lo, lo + ROUND_EVENTS),
+                                        epochs=EPOCHS)
+        if name in DIST_PROFILED:
+            share, wall, top, m = profiled_busy(torch, round_)
+            busy = (f"device busy {share:.4f} of the round's wall time; top "
+                    f"device ops (ms): {top}")
+        else:
+            t1 = time.perf_counter()
+            m = round_()
+            torch.cuda.synchronize()
+            wall, busy = time.perf_counter() - t1, "not profiled"
         counts = runtime.launch_counts()
         steps = len(m.step_losses)
         evals = math.ceil(ROUND_EVENTS / cfg.batch_size)
@@ -1611,12 +1642,15 @@ def dist_runs(torch, dev, args, stream):
             f"partition node {list(m.node_hit_per_part)} edge "
             f"{list(m.edge_hit_per_part)}; refresh {m.refresh_bytes} B "
             f"against a full re-upload of {tr.full_upload_bytes()} B; "
-            f"device busy {share:.4f} of the round's wall time; top device "
-            f"ops (ms): {top}")
+            f"{busy}")
         per = {k: round(v / (steps + evals), 3) for k, v in counts.items()}
         log(f"[dist] {name}: launches over the round {counts}; per global "
             f"step {per}")
+        t1 = time.perf_counter()
         dist_holds(torch, tr, stream, lo + ROUND_EVENTS)
+        log(f"[dist] {name}: ingest, round and holds in "
+            f"{time.perf_counter() - t0:.1f} s (the holds "
+            f"{time.perf_counter() - t1:.1f})")
         del tr
         torch.cuda.empty_cache()
 
@@ -1821,6 +1855,7 @@ def dist_checks(torch, dev, args, stream):
             f"|diff| {abs(a.ap - c.ap):.3g} (tol {DIST_ATOL_AP})")
 
     # sharded state against replicated (TGN), on the card
+    t0 = time.perf_counter()
     rep_tr, rep = card["tgn"]
     shd_tr, shd, _, _ = dist_round(tgn(), stream, dev, args,
                                    state="sharded")
@@ -1854,7 +1889,10 @@ def dist_checks(torch, dev, args, stream):
         log(f"[dist] {mode} collective: step losses within {d:.3g} of "
             f"bucketed (band {LOSSY_BAND}); {tr.reduce_bytes_per_step} B a "
             f"step a worker against {exact_tr.reduce_bytes_per_step}")
+    t1 = time.perf_counter()
     uniform_keyed(torch, dev, args, stream)
+    log(f"[dist] sharded and lossy rounds {t1 - t0:.1f} s, uniform "
+        f"{time.perf_counter() - t1:.1f} s")
 
 
 def uniform_keyed(torch, dev, args, stream):
@@ -1925,9 +1963,11 @@ def dist_phase(torch, dev, args, stream):
     """Phase 7: the distributed continuous trainer."""
     t0 = time.perf_counter()
     dist_runs(torch, dev, args, stream)
+    t1 = time.perf_counter()
     dist_checks(torch, dev, args, stream)
     log(f"[dist] distributed training phase done in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (the runs {t1 - t0:.1f}, the "
+        f"checks {time.perf_counter() - t1:.1f})")
 
 
 # ---------------------------------------------------------------------------
@@ -2132,8 +2172,9 @@ def multihost_phase(torch, dev, args):
 # ---------------------------------------------------------------------------
 
 LM_ARCHS = ("yi-6b", "falcon-mamba-7b")
-# served only (their training is later work): the moe archs cut in depth
-# (qwen3-moe's bf16 tree takes 5 GB a layer), zamba2 whole
+# served after Yi and Falcon (the LM training phase trains them too):
+# the moe archs cut in depth (qwen3-moe's bf16 tree takes 5 GB a layer),
+# zamba2 whole
 LM_SERVE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e",
                   "zamba2-2.7b")
 LM_SERVE_DEPTH = {"qwen3-moe-235b-a22b": 8, "llama4-scout-17b-a16e": 8}
@@ -2623,7 +2664,7 @@ def routing(replay=None):
 
     def record(probs, k):
         vals, idx = real(probs, k)
-        picked.append((probs.cpu(), idx.cpu()))
+        picked.append((probs.detach().cpu(), idx.cpu()))
         if replay is None:
             return vals, idx
         idx = replay[len(picked) - 1][1].to(probs.device)
@@ -3153,15 +3194,48 @@ def lm_phase(torch, dev, args):
 
 LM_TRAIN = (8, 2, 4096)   # layers (cut from 32 and 64), B, S (train_4k's S;
 LM_TRAIN_STEPS = 3        # its global batch of 256 cut to 2)
+# every arch trained at full width, with its cut (layers, B, S) and its
+# optimizer (None: the config's own), reckoned from Yi's measured peak of
+# 63.27 GB at 1.9 B parameters (S1): about 33 B a parameter under the
+# functional AdamW (float32 masters, moments, gradients, their clipped
+# copies and the new tree beside the old)
+LM_TRAIN_OF = {
+    "yi-6b": LM_TRAIN + (None,),
+    "falcon-mamba-7b": LM_TRAIN + (None,),
+    # 2.0 B parameters whole (bf16 tree 4.07 GB): about 67 GB at Yi's
+    # ratio before SSD's float32 activations; it fits whole, B 2 x S
+    # 4,096 (peak 70.00 GB, PERF.md run P2)
+    "zamba2-2.7b": (54, 2, 4096, None),
+    # one layer each (3.7 and 4.3 B parameters with the embedding and
+    # unembedding): about 123 and 140 GB under AdamW; Adafactor's
+    # factored moments hold about 14 B a parameter (52 and 60 GB) plus
+    # the update's temporaries of one leaf
+    "qwen3-moe-235b-a22b": (1, 2, 4096, "adafactor"),
+    "llama4-scout-17b-a16e": (1, 2, 4096, "adafactor")}
 SCAN_ORACLE_L = 1024      # the plain scan's autograd graph, L cut from 4,096
 # the flash_attention backward rows (B, S, Hq, Hkv, D, causal, dtype,
-# whose launches): Yi-6B's train shape in bf16 (the train steps'
+# whose launches): Yi-6B's train shape in bf16 (Yi's train steps'
 # launches), Zamba2-2.7B's attention in bf16 (the Hopper instance at
-# head dim 80; no card path trains Zamba2 yet, so the row counts its own
-# call), then a ragged float32 one (a shape no path takes)
-FLASH_BWD_SHAPES = ((2, 4096, 32, 4, 128, True, "bfloat16", "path"),
-                    (2, 4096, 32, 32, 80, True, "bfloat16", "own call"),
+# head dim 80; Zamba2's train steps' launches), Qwen3-MoE's and
+# Llama-4-Scout's train shapes in bf16 (64/4 and 40/8 heads of 128;
+# their train steps' launches), then a ragged float32 one (a shape no
+# path takes: its own call's)
+FLASH_BWD_SHAPES = ((2, 4096, 32, 4, 128, True, "bfloat16", "yi-6b"),
+                    (2, 4096, 32, 32, 80, True, "bfloat16", "zamba2-2.7b"),
+                    (2, 4096, 64, 4, 128, True, "bfloat16",
+                     "qwen3-moe-235b-a22b"),
+                    (2, 4096, 40, 8, 128, True, "bfloat16",
+                     "llama4-scout-17b-a16e"),
                     (2, 1000, 8, 2, 80, False, "float32", "own call"))
+# the largest float32 score block (B Hq Sq Skv x 4 B, Yi's row) whose
+# plain autograd graph is held whole beside the kernel's; past it the
+# plain version runs in (batch, KV head) slices (``plain_bwd_sliced``)
+PLAIN_WHOLE_SCORES = 2 ** 32
+# the mesh train step: Qwen3-MoE's one full-width layer (Adafactor)
+# under the (1, 4) mesh at B 2 x 8,192, where each shard's float32 score
+# block (8.6e9 B) is past the 5e9 budget: flash at the 4 shards'
+# q_offsets, twice under block remat, and 5b at each once
+MESH_TRAIN = (1, 2, 8192)
 # float32 train step, card vs CPU: the loss within the reference's
 # per-round bar, each gradient leaf within 1e-4 of its max |value|
 ATOL_LOSS = 1e-4
@@ -3191,24 +3265,105 @@ def grad_err(torch, got, want, what, tol) -> float:
     return err
 
 
-def lm_train_steps(torch, dev, args, cfg) -> dict:
-    """Full width, depth cut to 8 layers: 3 steps of ``make_train_step``
-    on one seeded batch of B 2 x S 4,096, the config's own optimizer
-    from ``make_optimizer`` (AdamW, its default warmup schedule), block
-    remat as the config says.  The loss must be finite and fall at every
-    step; each step must launch the forward kernel twice a layer (the
-    remat recompute) and the backward kernel once.  Returns the launches
-    per step."""
+def train_cut(cfg, depth, opt=None):
+    """``cfg`` cut to ``depth`` layers (the hybrid's in whole superlayers)
+    with the optimizer ``opt`` (None: its own)."""
     import dataclasses
 
+    return dataclasses.replace(cfg, n_layers=depth,
+                               optimizer=opt or cfg.optimizer)
+
+
+def train_launches(cfg, applications: int = 1) -> dict:
+    """The kernel launches of one train step under block remat: the
+    forward kernel twice an attention application (or a Mamba-1 layer)
+    and its backward once, ``applications`` times a layer (the
+    context-parallel shards)."""
+    if cfg.family == "ssm":
+        return {"selective_scan": 2 * cfg.n_layers,
+                "selective_scan_bwd": cfg.n_layers}
+    n = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+         else cfg.n_layers) * applications
+    return {"flash_attention": 2 * n, "flash_attention_bwd": n}
+
+
+def seeded_tokens(torch, cfg, B, S, seed, dev):
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)}
+
+
+def timed_steps(torch, step, box, batch, want, what, n, profile=True):
+    """``n`` steps of ``step`` from ``box["state"]`` on ``batch``, each
+    launching exactly ``want`` (the last one profiled), each new state
+    put in ``box`` in place of the old, so that no caller's name keeps a
+    state alive (a full-width tree and its moments are tens of GB);
+    returns (losses, step ms, the profile's (busy, wall, top ops) or
+    None)."""
     from repro_torch.kernels import runtime
+
+    losses, step_ms, busy = [], [], None
+    for i in range(n):
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        if profile and i == n - 1:
+            busy = profiled_busy(torch, lambda: step(box.pop("state"),
+                                                     batch))
+            box["state"], m = busy[3]
+            busy = busy[:3]
+        else:
+            box["state"], m = step(box.pop("state"), batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = runtime.launch_counts()
+        if counts != want:
+            raise AssertionError(f"{what} train step {i} launched {counts}, "
+                                 f"expected {want}")
+        losses.append(float(m["loss"]))
+        del m
+    if not all(math.isfinite(x) for x in losses) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{what}: losses {losses} do not fall")
+    return losses, step_ms, busy
+
+
+def same_grads_twice(torch, cut, params, batch) -> int:
+    """The loss's gradients with respect to ``params`` taken twice on the
+    same batch must be the same bits, leaf by leaf (the moe dispatch and
+    combine and both backward kernels add in a fixed order).  Returns
+    the leaves compared."""
+    from repro_torch.models import lm_zoo as Z
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+
+    def grads():
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss, _ = Z.make_loss_fn(cut)(tree_unflatten(params, leaves), batch)
+        return torch.autograd.grad(loss, leaves, allow_unused=True,
+                                   materialize_grads=True)
+
+    first = grads()
+    for i, (a, b) in enumerate(zip(first, grads())):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{cut.name}: two identical backward "
+                                 f"passes differ at leaf {i}")
+    return len(first)
+
+
+def lm_train_steps(torch, dev, args, cfg) -> dict:
+    """Full width, depth, B and S cut as ``LM_TRAIN_OF`` says, with its
+    optimizer (AdamW from ``make_optimizer``, or Adafactor for the moe
+    layers): 3 steps of ``make_train_step`` on one seeded batch, block
+    remat as the config says.  The loss must be finite and fall at every
+    step; each step must launch the forward kernel twice an attention
+    application or Mamba-1 layer (the remat recompute) and the backward
+    kernel once.  For a moe arch, two backward passes on the trained
+    tree must then give the same bits.  Returns the launches per step."""
     from repro_torch.models import lm_zoo as Z
     from repro_torch.train.optimizer import tree_leaves
 
-    depth, B, S = LM_TRAIN
-    cut = dataclasses.replace(cfg, n_layers=depth)
-    kernel = "selective_scan" if cfg.family == "ssm" else "flash_attention"
-    want = {kernel: 2 * depth, f"{kernel}_bwd": depth}
+    depth, B, S, opt_name = LM_TRAIN_OF[cfg.name]
+    cut = train_cut(cfg, depth, opt_name)
+    want = train_launches(cut)
     if cfg.family != "ssm":
         from repro_torch.kernels.flash_attention.ops import instance
         inst = instance(torch.bfloat16, cfg.head_dim_)
@@ -3217,61 +3372,323 @@ def lm_train_steps(torch, dev, args, cfg) -> dict:
                                  f"{inst} instances, forward and backward")
     t0 = time.perf_counter()
     opt = Z.make_optimizer(cut)
-    state = Z.init_train_state(
+    box = {"state": Z.init_train_state(
         cut, torch.Generator(device=dev).manual_seed(args.seed), opt,
-        device=dev)
-    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-    rng = np.random.default_rng(args.seed)
-    batch = {"tokens": torch.from_numpy(rng.integers(
-        0, cut.vocab, (B, S)).astype(np.int32)).to(dev)}
+        device=dev)}
+    n_params = sum(p.numel() for p in tree_leaves(box["state"]["params"]))
+    batch = seeded_tokens(torch, cut, B, S, args.seed, dev)
     step = Z.make_train_step(cut, opt)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    losses, step_ms, busy = [], [], None
-    for i in range(LM_TRAIN_STEPS):
-        runtime.reset_launch_counts()
-        t0 = time.perf_counter()
-        if i == LM_TRAIN_STEPS - 1:          # the last step, profiled
-            busy = profiled_busy(torch, lambda: step(state, batch))
-            state, m = busy[3]
-        else:
-            state, m = step(state, batch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        counts = runtime.launch_counts()
-        if counts != want:
-            raise AssertionError(f"{cfg.name} train step {i} launched "
-                                 f"{counts}, expected {want}")
-        losses.append(float(m["loss"]))
+    losses, step_ms, busy = timed_steps(
+        torch, step, box, batch, want, cfg.name, LM_TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated()
-    if not all(math.isfinite(x) for x in losses) or not all(
-            b < a for a, b in zip(losses, losses[1:])):
-        raise AssertionError(f"{cfg.name}: losses {losses} do not fall")
+    same = ""
+    if cut.moe is not None:
+        n = same_grads_twice(torch, cut, box["state"]["params"], batch)
+        same = (f"; two backward passes on the trained tree: the same "
+                f"bits in all {n} gradient leaves")
     log(f"[lm_train] {cfg.name} cut to {depth} layers ({n_params / 1e9:.3f}"
-        f" B params), B {B} x S {S}, remat {cut.remat!r}, AdamW: init "
-        f"{init_s:.1f} s; losses {[round(x, 4) for x in losses]}; step ms "
+        f" B params), B {B} x S {S}, remat {cut.remat!r}, "
+        f"{cut.optimizer}: init {init_s:.1f} s; losses "
+        f"{[round(x, 4) for x in losses]}; step ms "
         f"{[round(x, 1) for x in step_ms]} (the last profiled); peak "
         f"{peak / 1e9:.2f} GB; launches per step {want} (exact); profiled "
         f"step: device busy {busy[0]:.4f} of {busy[1] * 1e3:.1f} ms, top "
-        f"device ops (ms) {busy[2]}")
-    del state, m, batch
+        f"device ops (ms) {busy[2]}{same}")
+    del box, batch
     return want
+
+
+def mesh_train_steps(torch, dev, args, cfg) -> dict:
+    """Qwen3-MoE's full-width layer (``MESH_TRAIN``, Adafactor) trained
+    under the (1, 4) mesh: each layer's attention takes the
+    context-parallel blocked branch (flash at the 4 shards' q_offsets,
+    twice under block remat, and the backward kernel at each once:
+    exactly 8 and 4 launches a step) and its moe layer the
+    expert-parallel path; 3 steps on one seeded batch, the loss finite
+    and falling, timed beside one step of the same state off the mesh
+    (2 and 1 launches), with both peaks.  Returns the mesh step's
+    launches."""
+    from repro_torch.models import lm_zoo as Z
+    from repro_torch.models import moe
+    from repro_torch.models import transformer_lm as T
+
+    t0 = time.perf_counter()
+    depth, B, S = MESH_TRAIN
+    cut = train_cut(cfg, depth, "adafactor")
+    sp = MESH[1]
+    score = B * cut.n_heads * (S // sp) * S * 4.0
+    if not score > T._CP_SCORE_BYTES_LIMIT:
+        raise AssertionError(f"mesh train: a shard's score block {score} B "
+                             f"takes the direct branch")
+    opt = Z.make_optimizer(cut)
+    box = {"state": Z.init_train_state(
+        cut, torch.Generator(device=dev).manual_seed(args.seed + 5), opt,
+        device=dev)}
+    batch = seeded_tokens(torch, cut, B, S, args.seed + 5, dev)
+    step = Z.make_train_step(cut, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # one step off the mesh from the same state, its new state dropped
+    flat_ms = timed_steps(torch, step, dict(box), batch, train_launches(cut),
+                          f"{cfg.name} off the mesh", 1, profile=False)[1]
+    flat_peak = torch.cuda.max_memory_allocated()
+    want = train_launches(cut, sp)
+    paths = []
+    torch.cuda.reset_peak_memory_stats()
+    with mesh_ctx(dev), \
+            hooked(T, "_cp_attention_shard_map",
+                   lambda a, kw, out: paths.append(("cp", kw["blocked"]))), \
+            hooked(moe, "_moe_apply_ep",
+                   lambda a, kw, out: paths.append(("ep",))):
+        losses, step_ms, _ = timed_steps(
+            torch, step, box, batch, want, f"{cfg.name} under the mesh",
+            LM_TRAIN_STEPS, profile=False)
+    peak = torch.cuda.max_memory_allocated()
+    if not took_cp_ep(paths, depth * LM_TRAIN_STEPS):
+        raise AssertionError(f"mesh train: the steps took {set(paths)}, "
+                             f"expected CP blocked and EP")
+    log(f"[mesh] {cfg.name} cut to {depth} layer, Adafactor, B {B} x S {S} "
+        f"under a {MESH} mesh (CP blocked: each shard's score block "
+        f"{score:.3g} B; EP): losses {[round(x, 4) for x in losses]}; step "
+        f"ms {[round(x, 1) for x in step_ms]} (off the mesh "
+        f"{flat_ms[0]:.1f}, peak {flat_peak / 1e9:.2f} GB); peak "
+        f"{peak / 1e9:.2f} GB; launches per step {want} (exact); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del box, batch
+    return want
+
+
+def took_cp_ep(paths, layers) -> bool:
+    """Whether ``layers`` layer applications under autograd and block
+    remat took the blocked context-parallel branch and the
+    expert-parallel moe path (``paths`` as ``hooked`` records them on
+    return): each layer's forward and its recompute return from the
+    attention; the recompute stops once the block's saved tensors are
+    back (``torch.utils.checkpoint``'s early stop), inside the moe
+    layer, so only the forward's moe call returns for certain."""
+    return (set(paths) == {("cp", True), ("ep",)}
+            and paths.count(("cp", True)) == 2 * layers
+            and paths.count(("ep",)) >= layers)
+
+
+def plain_bwd_sliced(torch, q, k, v, dout, causal, off, flush):
+    """The plain version's autograd (dq, dk, dv) and rounding budgets
+    (``flash_attention_grad_budget``) at ``q_offset`` ``off`` (None: the
+    default), in float32, taken in (batch, KV head) slices to bound the
+    score blocks' memory, and the summed device ms of the slices'
+    backward passes."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_grad_budget, flash_attention_ref)
+
+    B, Hkv = k.shape[0], k.shape[2]
+    G = q.shape[2] // Hkv
+    q, k, v, dout = (t.detach() for t in (q, k, v, dout))
+    outs = [torch.empty_like(t, dtype=torch.float32) for t in
+            (q, k, v, q, k, v)]
+    ms = 0.0
+    for b in range(B):
+        for h in range(Hkv):
+            hq = slice(h * G, (h + 1) * G)
+            ins = [q[b:b + 1, :, hq], k[b:b + 1, :, h:h + 1],
+                   v[b:b + 1, :, h:h + 1]]
+            ins = [t.contiguous().requires_grad_() for t in ins]
+            d = dout[b:b + 1, :, hq].contiguous()
+            out = flash_attention_ref(*ins, causal=causal, q_offset=off)
+            back = lambda: torch.autograd.grad(out, ins, d,
+                                               retain_graph=True)
+            got = back()
+            ms += device_ms(torch, back, flush, reps=2)
+            budget = flash_attention_grad_budget(
+                *(t.detach() for t in ins), d, causal=causal, q_offset=off)
+            for j, t in enumerate(got + budget):
+                idx = (slice(b, b + 1), slice(None),
+                       hq if j % 3 == 0 else slice(h, h + 1))
+                outs[j][idx] = t.float()
+            del out, got, budget
+    return outs[:3], outs[3:], ms
+
+
+def mesh_flash_bwd_row(torch, dev, cfg, flush, launches):
+    """The flash_attention backward at the mesh train step's
+    context-parallel shape (q 2 x 2,048 of the 8,192 positions,
+    qwen3-moe's 64/4 heads of 128, bf16, causal: the Hopper instance) at
+    each shard's q_offset 0, 2,048, 4,096 and 6,144, against the plain
+    version's autograd at the same offset, taken in (batch, KV head)
+    slices to bound its memory: each query row of dq and each key of dk
+    and dv within BF16_GRAD_ROW beyond its rounding budget, and dk and dv
+    exactly 0 on the keys past the shard's last row (no query sees
+    them).  Shard 0's gradient at the last shard's offset, a planted
+    fault, must fail the bar.  Timed beside the backward of one
+    scaled_dot_product_attention with the same boolean mask; the row's
+    times and bound are the four offsets' sums (one layer's backward).
+    Then the general instance in float32 at the same offsets of a
+    smaller shape, within 1e-5 of max(1, max |grad|)."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         instance)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_ref, grad_rows_beyond_budget)
+
+    _, B, S = MESH_TRAIN
+    sp = MESH[1]
+    Sq, Hq, Hkv, D = S // sp, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    G = Hq // Hkv
+    inst = instance(torch.bfloat16, D)
+    if inst != "sm90":
+        raise AssertionError(f"mesh: flash_attention takes the {inst} "
+                             f"instance at head dim {D}")
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(31)
+    q, k, v, dout = [torch.randn(sh, generator=g, device=dev)
+                     .to(torch.bfloat16) for sh in (
+                         (B, Sq, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                         (B, Sq, Hq, D))]
+    kpos = torch.arange(S, device=dev)
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * B * Hq * Sq
+    tot = dict(ms=0.0, call=0.0, plain=0.0, lib=0.0, lib_call=0.0,
+               bound=0.0)
+    rels, errs, per, bys, zeros = [], [], [], set(), 0
+
+    for off in range(0, S, Sq):
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out_k = flash_attention(*ins, causal=True, q_offset=off)
+        kernel = lambda: torch.autograd.grad(out_k, ins, dout,
+                                             retain_graph=True)
+        got = kernel()
+        torch.cuda.synchronize()
+        want, budgets, plain_ms = plain_bwd_sliced(torch, q, k, v, dout,
+                                                   True, off, flush)
+        for name, a, w, bud in zip(("dq", "dk", "dv"), got, want, budgets):
+            rel = grad_rows_beyond_budget(a, w, bud)
+            if not rel <= BF16_GRAD_ROW:
+                raise AssertionError(f"mesh: flash_attention_bwd {name} at "
+                                     f"q_offset {off}: {rel} of a row's max")
+            rels.append(rel)
+            errs.append(float((a.float() - w).abs().max()))
+        if off + Sq < S:          # keys past the shard's last row
+            unseen = [t[:, off + Sq:] for t in got[1:]]
+            if any(bool(t.any()) for t in unseen):
+                raise AssertionError(f"mesh: flash_attention_bwd at "
+                                     f"q_offset {off} wrote nonzero dk/dv "
+                                     f"on keys no query sees")
+            zeros += unseen[0].shape[1]
+        if off == 0:              # the planted fault: the last offset
+            wrong = torch.autograd.grad(
+                flash_attention(*ins, causal=True, q_offset=S - Sq), ins,
+                dout)
+            bad = max(grad_rows_beyond_budget(a, w, bud) for a, w, bud in
+                      zip(wrong, want, budgets))
+            # over what the shard sees alone (dq, and dk and dv of the
+            # keys up to its last row) and only the rows whose reference
+            # is not 0 (the unseen keys, and dq's first row, whose one
+            # key's softmax is 1): elsewhere the 1e-30 floor reads it
+            over, top = [], []
+            for a, w, bud, n in zip(wrong, want, budgets,
+                                    (Sq, off + Sq, off + Sq)):
+                w = w[:, :n]
+                over.append(((a[:, :n].float() - w).abs() - bud[:, :n])
+                            .clamp_min(0).amax(-1).flatten())
+                top.append(w.abs().amax(-1).flatten())
+            over, top = torch.cat(over), torch.cat(top)
+            seen = (over[top > 0] / top[top > 0]).double()
+            bad_seen = float(seen.max())
+            seen_share = float((seen > BF16_GRAD_ROW).double().mean())
+            if not min(bad, bad_seen) > BF16_GRAD_ROW:
+                raise AssertionError(f"mesh: the per-row bar passes shard "
+                                     f"0's gradient at the last shard's "
+                                     f"offset ({bad}; on the rows it sees "
+                                     f"{bad_seen})")
+            del wrong, over, top, seen
+        del got, want, budgets
+        mask = kpos[None, :] <= (torch.arange(Sq, device=dev) + off)[:, None]
+        lib_in = [t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v)]
+        out_l = F.scaled_dot_product_attention(*lib_in, attn_mask=mask,
+                                               enable_gqa=True)
+        d_l = dout.transpose(1, 2)
+        library = lambda: torch.autograd.grad(out_l, lib_in, d_l,
+                                              retain_graph=True)
+        ms, lib_ms = (device_ms(torch, kernel, flush),
+                      device_ms(torch, library, flush))
+        turns = [call_ms(torch, fn, flush=flush)
+                 for fn in (kernel, library, library, kernel)]
+        pairs = B * Hq * float(np.minimum(S, off + np.arange(Sq) + 1).sum())
+        b, by = bound_ms(nbytes, 10.0 * D * pairs, BF16_OPS_PER_S,
+                         exps=pairs)
+        bys.add(by)
+        for key, val in (("ms", ms), ("lib", lib_ms),
+                         ("call", (turns[0] + turns[3]) / 2),
+                         ("lib_call", (turns[1] + turns[2]) / 2),
+                         ("plain", plain_ms), ("bound", b)):
+            tot[key] += val
+        per.append(f"{off}: {ms:.4f}/{lib_ms:.4f}/{b:.4f}")
+        del ins, out_k, lib_in, out_l, mask
+        torch.cuda.empty_cache()
+    del q, k, v, dout
+
+    # the general instance in float32 at the same offsets, a smaller shape
+    f_shape, f_errs = "B=2 Sq=256 Skv=1024 Hq=8 Hkv=2 D=64", []
+    f_in = [torch.randn(sh, generator=g, device=dev) for sh in (
+        (2, 256, 8, 64), (2, 1024, 2, 64), (2, 1024, 2, 64))]
+    f_d = torch.randn((2, 256, 8, 64), generator=g, device=dev)
+    for off in (0, 256, 512, 768):
+        grads = []
+        for fn in (flash_attention, flash_attention_ref):
+            ins = [t.clone().requires_grad_() for t in f_in]
+            grads.append(torch.autograd.grad(
+                fn(*ins, causal=True, q_offset=off), ins, f_d))
+        f_errs += [grad_err(torch, a, w, f"flash_attention_bwd f32 q_offset "
+                            f"{off}", ATOL_KERNEL)
+                   for a, w in zip(*grads)]
+    shape = (f"B={B} Sq={Sq} Skv={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal "
+             f"q_offset {'/'.join(str(o) for o in range(0, S, Sq))} (a "
+             f"layer's {sp} context-parallel shards, one launch each)")
+    log(f"[kernel] flash_attention_bwd ({inst}) {cfg.name} {shape} ok dq, "
+        f"dk, dv beyond the rounding budget {max(rels):.3g} of a row's max "
+        f"(tol {BF16_GRAD_ROW}; shard 0 at the last shard's offset "
+        f"{bad:.3g}, over its dq and the keys it sees, rows whose "
+        f"reference is not 0, {bad_seen:.3g} with {seen_share:.3g} of "
+        f"them over the bar; both must exceed it), max|err| "
+        f"{max(errs):.3g}; dk and dv "
+        f"exactly 0 on the {zeros} keys past the shards' last rows; device "
+        f"ms of the {sp}: kernel {tot['ms']:.4f}  plain {tot['plain']:.4f} "
+        f"(its {B * Hkv} (batch, KV head) slices summed)  bound "
+        f"{tot['bound']:.4f} ({'/'.join(sorted(bys))})  library (SDPA "
+        f"backward, the same boolean mask) {tot['lib']:.4f}; per offset "
+        f"kernel/library/bound {'  '.join(per)}; ms per call summed, in "
+        f"turns: kernel {tot['call']:.4f}  library {tot['lib_call']:.4f}; "
+        f"launches {launches['flash_attention_bwd']} a mesh train step; the "
+        f"general instance f32 at {f_shape} q_offset 0/256/512/768 max|err| "
+        f"{max(f_errs):.3g} (tol {ATOL_KERNEL} of max(1, max|grad|))")
+    return dict(name="flash_attention_bwd", route="cuda", instance=inst,
+                source="src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+                replaces="src/repro/kernels/flash_attention/"
+                         "flash_attention.py:82",
+                launches=launches["flash_attention_bwd"],
+                max_abs_err=max(errs), ms=tot["ms"], call_ms=tot["call"],
+                plain_ms=tot["plain"], bound_ms=tot["bound"],
+                bound_by="/".join(sorted(bys)), library_ms=tot["lib"],
+                library_call_ms=tot["lib_call"], shape=shape)
 
 
 def flash_bwd_rows(torch, dev, flush, launches):
     """The flash_attention backward against the plain version's autograd
-    at Yi-6B's train shape (2, 4,096, 32/4 heads of 128) and at
-    Zamba2-2.7B's attention (2, 4,096, 32/32 heads of 80, the tail box)
-    in bf16, causal (the Hopper instances, forward and backward), and at
-    (2, 1,000, 8/2, 80) in float32, not causal (the general ones), timed
-    beside the plain autograd backward and the autograd backward of one
+    at Yi-6B's train shape (2, 4,096, 32/4 heads of 128), Zamba2-2.7B's
+    attention (2, 4,096, 32/32 heads of 80, the tail box), Qwen3-MoE's
+    (64/4 heads of 128) and Llama-4-Scout's (40/8) in bf16, causal (the
+    Hopper instances, forward and backward), and at (2, 1,000, 8/2, 80)
+    in float32, not causal (the general ones), timed beside the plain
+    autograd backward (in (batch, KV head) slices past
+    PLAIN_WHOLE_SCORES) and the autograd backward of one
     ``scaled_dot_product_attention`` (a yardstick, never called by the
     port).  Each bf16 row's Hopper backward is also timed in turns with
     the general instance's (its WMMA route, taken through the ops
     module's private ``_instance``), which must agree with it within the
-    same bar.  Yi's row counts the train steps' launches; the others'
-    shapes are on no card path, so they count their own call's."""
+    same bar.  The bf16 rows count their archs' train steps' launches
+    (``launches``, by arch); the float32 row's shape is on no card path,
+    so it counts its own call's."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          instance)
@@ -3289,9 +3706,15 @@ def flash_bwd_rows(torch, dev, flush, launches):
                for sh in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
         dout = torch.randn((B, S, Hq, D), generator=g, device=dev).to(dtype)
         out_k = flash_attention(*ins, causal=causal)
-        out_p = flash_attention_ref(*ins, causal=causal)
         got = torch.autograd.grad(out_k, ins, dout, retain_graph=True)
-        want = torch.autograd.grad(out_p, ins, dout, retain_graph=True)
+        out_p = budgets = None
+        sliced = B * Hq * S * S * 4 > PLAIN_WHOLE_SCORES
+        if sliced:
+            want, budgets, plain_ms = plain_bwd_sliced(
+                torch, *ins, dout, causal, None, flush)
+        else:
+            out_p = flash_attention_ref(*ins, causal=causal)
+            want = torch.autograd.grad(out_p, ins, dout, retain_graph=True)
         torch.cuda.synchronize()
         names = [f"flash_attention_bwd {nm} D={D}" for nm in ("dq", "dk",
                                                               "dv")]
@@ -3302,8 +3725,9 @@ def flash_bwd_rows(torch, dev, flush, launches):
                 raise AssertionError(f"flash_attention_bwd D={D} bf16 takes "
                                      f"the {inst} instance")
             tol = BF16_GRAD_ROW
-            budgets = flash_attention_grad_budget(
-                *(t.detach() for t in ins), dout, causal=causal)
+            if budgets is None:
+                budgets = flash_attention_grad_budget(
+                    *(t.detach() for t in ins), dout, causal=causal)
             rels = [grad_rows_beyond_budget(a, w, b)
                     for a, w, b in zip(got, want, budgets)]
             rel = max(rels)
@@ -3349,7 +3773,8 @@ def flash_bwd_rows(torch, dev, flush, launches):
         library = lambda: torch.autograd.grad(out_l, lib_in, d_l,
                                               retain_graph=True)
         ms, call = timings(torch, kernel, flush)
-        plain_ms = device_ms(torch, plain, flush, reps=3)
+        if not sliced:
+            plain_ms = device_ms(torch, plain, flush, reps=3)
         lib_ms, lib_call = timings(torch, library, flush)
         pairs = B * Hq * ((S * S + S) / 2 if causal else S * S)
         ops_n = 10.0 * D * pairs      # S, dP, dv, dk, dq: 2D FLOP a pair
@@ -3359,11 +3784,14 @@ def flash_bwd_rows(torch, dev, flush, launches):
         peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
         b, by = bound_ms(nbytes, ops_n, peak, exps=pairs)
         b7 = bound_ms(nbytes, 1.4 * ops_n, peak, exps=pairs)[0]
+        slices = (f" (its {B * Hkv} (batch, KV head) slices summed)"
+                  if sliced else "")
         shape = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
                  f"{str(dtype).split('.')[-1]} "
                  f"{'causal' if causal else 'full'} ({inst})")
         log(f"[kernel] flash_attention_bwd {shape} ok max|err| {err:.3g}, "
-            f"{held} device ms: kernel {ms:.4f}  plain {plain_ms:.4f}  "
+            f"{held} device ms: kernel {ms:.4f}  plain {plain_ms:.4f}"
+            f"{slices}  "
             f"bound {b:.4f} ({by}: {ops_n:.3g} FLOP, {pairs:.3g} exp, "
             f"{nbytes / 1e6:.1f} MB; with S and dP recomputed for dq, "
             f"seven products: {b7:.4f})  library (SDPA backward) "
@@ -3381,8 +3809,8 @@ def flash_bwd_rows(torch, dev, flush, launches):
         if turns is not None:
             row["ab"] = {"general instance (csrc/flash_attention_bwd.cu)":
                          turns}
-        if launches_of == "path":
-            row["launches"] = launches["flash_attention_bwd"]
+        if launches_of in launches:
+            row["launches"] = launches[launches_of]["flash_attention_bwd"]
         else:
             row["launches"] = own_launches(torch, "flash_attention_bwd",
                                            kernel)
@@ -3541,60 +3969,97 @@ def last_tile_dropped(torch):
         fa.flash_attention_bwd, ss.selective_scan_bwd = flash_bwd, scan_bwd
 
 
-def lm_train_cut(torch, dev, args, cfg):
-    """Full width, depth cut to 2 layers (B 2, S 256): every gradient leaf
-    of one train step on the card against the CPU.  In float32 the loss
-    within ATOL_LOSS and each leaf within RTOL_GRAD of its max |grad|; in
-    bf16 each leaf within BF16_STEP_GRAD_REL of it, a bar that must fail
-    the card's gradients with the last tile's gradients of both backward
-    kernels zeroed (the bf16 loss is logged: the forward is held by the
-    bf16 prefill logits of ``lm_cut_checks``)."""
-    import dataclasses
-
+def cut_loss_grads(torch, cut, tree, toks, device):
+    """(loss, gradients with respect to every leaf of ``tree``, metrics)
+    of one train step's loss on ``toks``, on ``device``."""
     from repro_torch.models import lm_zoo as Z
-    from repro_torch.models import transformer_lm as T
     from repro_torch.train.optimizer import tree_leaves, tree_unflatten
 
-    depth, B, S = LM_CUT
-    cut = dataclasses.replace(cfg, n_layers=depth)
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(tree)]
+    loss, m = Z.make_loss_fn(cut)(tree_unflatten(tree, leaves),
+                                  {"tokens": toks.to(device)})
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return (float(loss.detach()), list(grads),
+            {k: float(v.detach()) for k, v in m.items()})
+
+
+def leaf_rel(got, want) -> float:
+    """The largest over the leaves of max |got - want| / max |want|,
+    each leaf of ``want`` moved to ``got``'s device (the card's, where
+    the arithmetic over a full-width tree is quick)."""
+    def rel(a, b):
+        b = b.to(a.device)
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    return max(rel(a, b) for a, b in zip(got, want))
+
+
+def lm_train_cut(torch, dev, args, cfg):
+    """Full width, depth cut as ``LM_CUT_OF`` says (``LM_CUT``, 2 layers
+    at B 2, S 256, for the dense and ssm archs; the moe archs 1 layer at
+    B 1, S 128; zamba2 one superlayer): every gradient leaf of one train
+    step on the card against the CPU.  In float32 the loss within
+    ATOL_LOSS and each leaf within RTOL_GRAD of its max |grad|, a moe
+    arch's experts the same for every token; in bf16 each leaf within
+    BF16_STEP_GRAD_REL of it (a moe arch's CPU side replaying the card's
+    experts, a token routed differently a near-tie), a bar that must
+    fail the card's gradients with the last tile's gradients of both
+    backward kernels zeroed (the bf16 loss is logged: the forward is
+    held by the bf16 prefill logits of ``lm_cut_checks``).  On Qwen3-MoE's
+    cut, :func:`mesh_train_holds` too."""
+    from repro_torch.models import lm_zoo as Z
+    from repro_torch.models import transformer_lm as T
+
+    depth, B, S = LM_CUT_OF.get(cfg.name, LM_CUT)
+    cut = train_cut(cfg, depth)
     params = Z.init_params(cut, torch.Generator(device=dev).manual_seed(
         args.seed + 2), device=dev)
     cpu = _to_cpu(params)
-    rng = np.random.default_rng(args.seed + 2)
-    toks = torch.from_numpy(rng.integers(0, cut.vocab, (B, S)).astype(
-        np.int32))
-
-    def loss_grads(tree, device):
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(tree)]
-        loss, _ = Z.make_loss_fn(cut)(tree_unflatten(tree, leaves),
-                                      {"tokens": toks.to(device)})
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        return float(loss.detach()), [x.cpu() for x in grads]
-
-    def leaf_rel(got, want):     # the largest leaf's max |diff| / max |grad|
-        return max(float((a - b).abs().max()) / max(float(b.abs().max()),
-                                                    1e-30)
-                   for a, b in zip(got, want))
+    toks = seeded_tokens(torch, cut, B, S, args.seed + 2, "cpu")["tokens"]
 
     t0 = time.perf_counter()
+    ts = []                          # card and CPU seconds of each pass
     with float32_compute(torch, Z, T):
-        (l_g, g_g), (l_c, g_c) = loss_grads(params, dev), loss_grads(
-            cpu, "cpu")
+        with routing() as r_g:
+            l_g, g_g, _ = cut_loss_grads(torch, cut, params, toks, dev)
+        ts.append(time.perf_counter())
+        with routing() as r_c:
+            l_c, g_c, _ = cut_loss_grads(torch, cut, cpu, toks, "cpu")
+        ts.append(time.perf_counter())
+    routing_note(torch, r_g, r_c, f"{cfg.name} f32 train step")
     d_f, rel_f = abs(l_g - l_c), leaf_rel(g_g, g_c)
     if not (d_f <= ATOL_LOSS and rel_f <= RTOL_GRAD):
         raise AssertionError(f"{cfg.name} f32 train step, card vs CPU: "
                              f"loss {d_f}, gradients {rel_f} of a leaf's "
                              f"max")
-    (b_g, h_g), (b_c, h_c) = loss_grads(params, dev), loss_grads(cpu, "cpu")
-    with last_tile_dropped(torch):
-        h_f = loss_grads(params, dev)[1]
-    rel_b, rel_x = leaf_rel(h_g, h_c), leaf_rel(h_f, h_c)
+    del g_g, g_c
+    ts.append(time.perf_counter())
+    with routing() as r_g:
+        b_g, h_g, _ = cut_loss_grads(torch, cut, params, toks, dev)
+    ts.append(time.perf_counter())
+    with routing(r_g) as r_c:
+        b_c, h_c, _ = cut_loss_grads(torch, cut, cpu, toks, "cpu")
+    ts.append(time.perf_counter())
+    note = routing_note(torch, r_g, r_c, "bf16 train step", NEAR_TIE)
+    rel_b = leaf_rel(h_g, h_c)
+    del h_g
+    with last_tile_dropped(torch), routing(r_g):
+        rel_x = leaf_rel(cut_loss_grads(torch, cut, params, toks, dev)[1],
+                         h_c)
+    del h_c
+    ts.append(time.perf_counter())
+    split = " / ".join(f"{b - a:.1f}" for a, b in zip([t0] + ts, ts))
     if not rel_b <= BF16_STEP_GRAD_REL < rel_x:
         raise AssertionError(
             f"{cfg.name} bf16 train step, card vs CPU: gradients {rel_b} "
             f"of a leaf's max, with the last tile's gradients zeroed "
             f"{rel_x}; the bar {BF16_STEP_GRAD_REL} must lie between")
+    routed = (f", the same experts for all {B * S} tokens in float32"
+              if cut.moe is not None else "")
+    if cfg.name == MESH_ARCH:
+        t1 = time.perf_counter()
+        routed += mesh_train_holds(torch, dev, cut, params, cpu, toks)
+        split += f"; the mesh holds {time.perf_counter() - t1:.1f}"
     log(f"[lm_train] {cfg.name} cut to {depth} layers, B {B} S {S}, one "
         f"train step's gradients, card vs CPU, the largest leaf max|diff| "
         f"/ leaf max|grad|: f32 {rel_f:.3g} (tol {RTOL_GRAD}; loss "
@@ -3602,13 +4067,90 @@ def lm_train_cut(torch, dev, args, cfg):
         f"{rel_b:.3g} (tol {BF16_STEP_GRAD_REL}; loss |diff| "
         f"{abs(b_g - b_c):.3g}, logged), with the last {FAULT_TAIL} "
         f"positions' gradients zeroed in both backward kernels {rel_x:.3g} "
-        f"(must exceed the tol); in {time.perf_counter() - t0:.1f} s")
+        f"(must exceed the tol){routed}{note}; in "
+        f"{time.perf_counter() - t0:.1f} s (f32 card / CPU / compare, bf16 "
+        f"card / CPU / compare and fault: {split})")
 
 
-def lm_resume(torch, dev, args):
-    """``LMTrainer`` on the card (Yi-6B's reduced 2-layer config): 2
-    steps, a save, a new trainer that restores and runs to step 4 must
-    equal an uninterrupted 4-step run leaf by leaf, exactly."""
+def mesh_train_holds(torch, dev, cut, params, cpu, toks) -> str:
+    """The mesh on the moe depth cut's train step, in float32, with the
+    score budget lowered so that each shard's attention takes the
+    blocked branch at the cut's S (flash and its backward at the 4
+    shards' q_offsets, the general instances): (a) the card against the
+    CPU, both under the (1, 4) mesh: the loss within ATOL_LOSS, each
+    gradient leaf within RTOL_GRAD of its max, each token's experts
+    equal, and on the card exactly the launches of ``train_launches(cut,
+    4)``; (b) at a capacity factor of E / k (no shard and no row drops a
+    slot) with the balance term weighted 0 (the EP balance loss is each
+    shard's, averaged, by the JAX package's convention, so it differs
+    from the dense path's by design; the CPU tests hold it against JAX),
+    the mesh against no mesh on the card within the same bars.  Returns
+    the note for the cut's log line."""
+    import dataclasses
+
+    from repro_torch.kernels import runtime
+    from repro_torch.models import lm_zoo as Z
+    from repro_torch.models import moe
+    from repro_torch.models import transformer_lm as T
+
+    paths, limit = [], T._CP_SCORE_BYTES_LIMIT
+    T._CP_SCORE_BYTES_LIMIT = 1.0
+    try:
+        with float32_compute(torch, Z, T), \
+                hooked(T, "_cp_attention_shard_map", lambda a, kw, out:
+                       paths.append(("cp", kw["blocked"]))), \
+                hooked(moe, "_moe_apply_ep",
+                       lambda a, kw, out: paths.append(("ep",))):
+            runtime.reset_launch_counts()
+            with mesh_ctx(dev), routing() as r_g:
+                l_g, g_g, _ = cut_loss_grads(torch, cut, params, toks, dev)
+            torch.cuda.synchronize()
+            counts = runtime.launch_counts()
+            with mesh_ctx(torch.device("cpu")), routing() as r_c:
+                l_c, g_c, _ = cut_loss_grads(torch, cut, cpu, toks, "cpu")
+        want = train_launches(cut, MESH[1])
+        if counts != want:
+            raise AssertionError(f"mesh train cut launched {counts}, "
+                                 f"expected {want}")
+        if not took_cp_ep(paths, 2 * cut.n_layers):     # card and CPU
+            raise AssertionError(f"mesh train cut took {set(paths)}, "
+                                 f"expected CP blocked and EP")
+        routing_note(torch, r_g, r_c, "mesh f32 train step")
+        d_a, rel_a = abs(l_g - l_c), leaf_rel(g_g, g_c)
+        if not (d_a <= ATOL_LOSS and rel_a <= RTOL_GRAD):
+            raise AssertionError(f"mesh f32 train step, card vs CPU: loss "
+                                 f"{d_a}, gradients {rel_a} of a leaf's max")
+        del g_g, g_c
+        E, k = cut.moe.num_experts, cut.moe.top_k
+        wide = dataclasses.replace(cut, moe=dataclasses.replace(
+            cut.moe, capacity_factor=E / k, router_aux_weight=0.0))
+        with float32_compute(torch, Z, T):
+            with mesh_ctx(dev):
+                l_m, g_m, m_m = cut_loss_grads(torch, wide, params, toks,
+                                               dev)
+            l_d, g_d, m_d = cut_loss_grads(torch, wide, params, toks, dev)
+    finally:
+        T._CP_SCORE_BYTES_LIMIT = limit
+    drops = (m_m["moe_drop_frac"], m_d["moe_drop_frac"])
+    if drops != (0.0, 0.0):
+        raise AssertionError(f"mesh: cf {E / k} dropped {drops}")
+    d_b, rel_b = abs(l_m - l_d), leaf_rel(g_m, g_d)
+    if not (d_b <= ATOL_LOSS and rel_b <= RTOL_GRAD):
+        raise AssertionError(f"mesh vs no mesh at cf {E / k}: loss {d_b}, "
+                             f"gradients {rel_b} of a leaf's max")
+    return (f"; under a {MESH} mesh with the score budget lowered (CP "
+            f"blocked at {MESH[1]} offsets, EP; launches {counts}), f32 "
+            f"card vs CPU: gradients {rel_a:.3g}, loss |diff| {d_a:.3g} "
+            f"with the same experts; at cf {E / k:g} (no slot dropped, the "
+            f"balance term weighted 0) mesh vs no mesh on the card: "
+            f"gradients {rel_b:.3g}, loss |diff| {d_b:.3g} (tols "
+            f"{RTOL_GRAD}, {ATOL_LOSS})")
+
+
+def lm_resume(torch, dev, args, arch):
+    """``LMTrainer`` on the card (``arch``'s reduced config): 2 steps, a
+    save, a new trainer that restores and runs to step 4 must equal an
+    uninterrupted 4-step run leaf by leaf, exactly."""
     import tempfile
 
     from repro_torch.configs import get_arch
@@ -3616,7 +4158,7 @@ def lm_resume(torch, dev, args):
     from repro_torch.train.checkpoint import flatten_with_names
     from repro_torch.train.trainer import LMTrainer, TrainerConfig
 
-    cfg = get_arch("yi-6b").reduced()
+    cfg = get_arch(arch).reduced()
     stream = lm_batches(cfg, 2, 64, seed=args.seed, device=dev)
     batches = [next(stream) for _ in range(4)]
     with tempfile.TemporaryDirectory() as tmp:
@@ -3641,7 +4183,8 @@ def lm_resume(torch, dev, args):
         for (name, x), (_, y) in zip(a, b):
             same = x == y if isinstance(x, int) else torch.equal(x, y)
             if not same:
-                raise AssertionError(f"resumed run differs at {name}")
+                raise AssertionError(f"{arch}: resumed run differs at "
+                                     f"{name}")
     log(f"[lm_train] LMTrainer resume on the card ({cfg.name} reduced, "
         f"{cfg.n_layers} layers): steps 0-2, save, restore, steps 2-4 equal "
         f"an uninterrupted 4-step run in all {len(a)} leaves, exactly")
@@ -3671,31 +4214,43 @@ def lm_launcher():
 
 
 def lm_train_phase(torch, dev, args):
-    """Yi-6B, then Falcon-Mamba-7B: train steps at full width and 8
-    layers; then the two backward kernels against the plain autograd;
-    the 2-layer card-vs-CPU train step; the resume; the launcher.
+    """Every arch of ``LM_TRAIN_OF``: train steps at full width; the mesh
+    train step; then the two backward kernels against the plain autograd
+    (flash also at the mesh step's context-parallel offsets); the
+    card-vs-CPU train step of each arch's depth cut (and the mesh holds
+    on Qwen3-MoE's); the resume of a dense and a moe arch; the launcher.
     Returns the rows of flash_attention_bwd and selective_scan_bwd."""
     from repro_torch.configs import get_arch
 
     t0 = time.perf_counter()
     launches = {}
-    for arch in LM_ARCHS:
-        launches.update(lm_train_steps(torch, dev, args, get_arch(arch)))
+    for arch in LM_TRAIN_OF:
+        launches[arch] = lm_train_steps(torch, dev, args, get_arch(arch))
         torch.cuda.empty_cache()
+    mesh = mesh_train_steps(torch, dev, args, get_arch(MESH_ARCH))
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     rows = flash_bwd_rows(torch, dev, flush, launches)
+    rows.append(mesh_flash_bwd_row(torch, dev, get_arch(MESH_ARCH), flush,
+                                   mesh))
     rows.append(scan_bwd_row(torch, dev, flush,
-                             get_arch("falcon-mamba-7b"), launches,
-                             args.ab))
+                             get_arch("falcon-mamba-7b"),
+                             launches["falcon-mamba-7b"], args.ab))
     del flush
     torch.cuda.empty_cache()
-    for arch in LM_ARCHS:
+    t2 = time.perf_counter()
+    for arch in LM_TRAIN_OF:
         lm_train_cut(torch, dev, args, get_arch(arch))
         torch.cuda.empty_cache()
-    lm_resume(torch, dev, args)
+    t3 = time.perf_counter()
+    for arch in ("yi-6b", MESH_ARCH):
+        lm_resume(torch, dev, args, arch)
     lm_launcher()
     log(f"[lm_train] LM training phase done in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (train steps {t1 - t0:.1f}, "
+        f"backward kernel rows {t2 - t1:.1f}, card-vs-CPU cuts "
+        f"{t3 - t2:.1f})")
     return rows
 
 

@@ -12,7 +12,9 @@
 // computes that gradient (held on the card against the autograd of the
 // port's plain version, kernels/flash_attention/ref.py).  For query row i
 // of batch b and head h, against KV head h / G (G = Hq / Hkv), with the
-// forward's causal rule (key j visible where j <= i + Skv - Sq):
+// forward's causal rule (key j visible where j <= i + q_offset, q_offset
+// the absolute position of query row 0: Skv - Sq for the model's own
+// sequence, a context-parallel shard's first position otherwise):
 //   P_ij  = exp(s_ij * scale - LSE_i),  s_ij = <q_i, k_j>, LSE_i the row's
 //           log-sum-exp the forward wrote (so P is the normalised softmax);
 //   D_i   = rowsum(dO_i * O_i), O_i the forward's float32 output row
@@ -42,7 +44,8 @@
 //   2. dk, dv: one CTA of 256 threads per (64-key tile, KV head, batch);
 //      it keeps its tile's dk and dv accumulators in registers while it
 //      walks the G query heads and, for each, the 64-row q tiles that see
-//      its keys;
+//      its keys (none for a tile past every row's position, which then
+//      stores zeros);
 //   3. dq: one CTA per (64-row q tile, q head, batch), longest causal
 //      tiles first, walking the K/V tiles its rows see.
 // Per (q tile, K/V tile) both recompute S = Q K^T and dP = dO V^T, then P
@@ -88,6 +91,7 @@ __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 struct Shape {
   int B, Sq, Skv, Hq, Hkv, D, causal;
+  int off;      // q_offset: query row i sits at position i + off
   float scale;
   int Dc, nd;   // output chunk width and count
   int ld;       // row stride of the staged q, k, v, dO tiles
@@ -205,7 +209,7 @@ __device__ void scores(const Smem& m, const float* q, const float* k,
 // entries (past Sq or Skv, or above the causal diagonal) are 0.
 __device__ __forceinline__ void softmax_grad(const Smem& m, int q0, int k0,
                                              const Shape& s) {
-  const int off = s.Skv - s.Sq;
+  const int off = s.off;
   for (int idx = threadIdx.x; idx < kBQ * kBK; idx += kThreads) {
     const int r = idx / kBK, c = idx - r * kBK;
     const int qpos = q0 + r, kpos = k0 + c;
@@ -281,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int k0 = blockIdx.x * kBK, hk = blockIdx.y;
   const int b = blockIdx.z / s.nd;
   const int d0 = blockIdx.z % s.nd * s.Dc, dn = min(s.Dc, s.D - d0);
-  const int G = s.Hq / s.Hkv, off = s.Skv - s.Sq;
+  const int G = s.Hq / s.Hkv, off = s.off;
   const int n_qt = (s.Sq + kBQ - 1) / kBQ;
   // q tiles whose rows see this tile's first key
   const int qt_first = s.causal ? max(0, k0 - off) / kBQ : 0;
@@ -364,8 +368,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = blockIdx.z / s.nd;
   const int d0 = blockIdx.z % s.nd * s.Dc, dn = min(s.Dc, s.D - d0);
   const int last_row = min(q0 + kBQ, s.Sq) - 1;
-  const int k_end = s.causal ? min(s.Skv, last_row + s.Skv - s.Sq + 1)
-                             : s.Skv;
+  const int k_end = s.causal ? min(s.Skv, last_row + s.off + 1) : s.Skv;
   const int n_kt = (k_end + kBK - 1) / kBK;
 
   if (!sliced) {
@@ -579,7 +582,7 @@ __device__ void scores_b(const SmemB& m, const bf16* q, const bf16* k,
 // dsb; masked entries 0.
 __device__ __forceinline__ void softmax_grad_b(const SmemB& m, int q0,
                                                int k0, const Shape& s) {
-  const int off = s.Skv - s.Sq;
+  const int off = s.off;
   for (int idx = threadIdx.x; idx < kBQ * kBK; idx += kThreads) {
     const int r = idx / kBK, c = idx - r * kBK;
     const int qpos = q0 + r, kpos = k0 + c;
@@ -638,7 +641,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = blockIdx.z / s.nd;
   const int d0 = blockIdx.z % s.nd * s.Dc, dn = min(s.Dc, s.D - d0);
   const int ncb = pad16(dn) / 16;
-  const int G = s.Hq / s.Hkv, off = s.Skv - s.Sq;
+  const int G = s.Hq / s.Hkv, off = s.off;
   const int n_qt = (s.Sq + kBQ - 1) / kBQ;
   const int qt_first = s.causal ? max(0, k0 - off) / kBQ : 0;
 
@@ -720,8 +723,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int d0 = blockIdx.z % s.nd * s.Dc, dn = min(s.Dc, s.D - d0);
   const int ncb = pad16(dn) / 16;
   const int last_row = min(q0 + kBQ, s.Sq) - 1;
-  const int k_end = s.causal ? min(s.Skv, last_row + s.Skv - s.Sq + 1)
-                             : s.Skv;
+  const int k_end = s.causal ? min(s.Skv, last_row + s.off + 1) : s.Skv;
   const int n_kt = (k_end + kBK - 1) / kBK;
 
   if (!sliced) {
@@ -817,19 +819,20 @@ int launch(KV kv_kernel, Q q_kernel, size_t smem, int& set_kv, int& set_q,
 // float32 (dtype 0) or bfloat16 (dtype 1), the forward's output out
 // (B, Sq, Hq, D) in float32 (a bfloat16 call's values before rounding,
 // its o32), and its lse (B, Hq, Sq) float32 -> dq, dk, dv of the inputs'
-// shapes and dtype, using dd (B, Hq, Sq) float32 as scratch.  Requires B, Sq >= 1, Hq % Hkv == 0,
-// D >= 1 and, if causal, Sq <= Skv.  Returns the first launch error (0 on
-// success).
+// shapes and dtype, using dd (B, Hq, Sq) float32 as scratch.  Query row
+// i sits at position i + q_offset, the forward's (q_offset comes last,
+// after the stream).  Requires B, Sq >= 1, Hq % Hkv == 0, D >= 1 and
+// q_offset >= 0.  Returns the first launch error (0 on success).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* dd, void* dq, void* dk,
     void* dv, int B, int Sq, int Skv, int Hq, int Hkv, int D, int dtype,
-    int causal, float scale, void* stream) {
-  if (D < 1 || B < 1 || Sq < 1)
+    int causal, float scale, void* stream, int q_offset) {
+  if (D < 1 || B < 1 || Sq < 1 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Shape s;
   s.B = B; s.Sq = Sq; s.Skv = Skv; s.Hq = Hq; s.Hkv = Hkv; s.D = D;
-  s.causal = causal; s.scale = scale;
+  s.causal = causal; s.scale = scale; s.off = q_offset;
   // output chunks: D itself up to kMaxD, else an even split of D into the
   // fewest chunks of at most kMaxD columns, rounded up to 16
   s.nd = (D + kMaxD - 1) / kMaxD;

@@ -8,7 +8,10 @@
 // models/layers.py::blocked_attention.  This kernel computes what
 // csrc/flash_attention_bwd.cu computes (which keeps float32 and every
 // other head dim): for query row i of batch b and head h, against KV
-// head h / G (G = Hq / Hkv), with the causal rule j <= i + Skv - Sq,
+// head h / G (G = Hq / Hkv), with the causal rule j <= i + q_offset
+// (q_offset the absolute position of query row 0: Skv - Sq for the
+// model's own sequence, a context-parallel shard's first position for a
+// shard whose keys are all-gathered over the whole sequence),
 //   P_ij  = exp(s_ij * scale - LSE_i), LSE_i the forward's row log-sum-exp;
 //   D_i   = rowsum(dO_i * O_i) from the forward's float32 output O;
 //   dP_ij = <dO_i, v_j>,  dS_ij = P_ij (dP_ij - D_i);
@@ -28,11 +31,14 @@
 // launches:
 //   1. D_i into a float32 buffer (B, Hq, Sq), a warp per row.
 //   2. dk, dv: a persistent grid over (128-key tile, KV head, batch)
-//      tiles, key tile 0 (the longest causal walk) first, dealt in a
-//      snake to as many CTAs as keep the rounds per CTA at their least,
-//      so each CTA's sum of walk lengths is about the same.  A CTA is two
-//      consumer warpgroups of 64 keys each and a producer warpgroup,
-//      which hands its registers to the consumers (setmaxnreg).  One
+//      tiles, key tile 0 (the longest causal walk at any q_offset)
+//      first, dealt in a snake to as many CTAs as keep the rounds per CTA
+//      at their least, so each CTA's sum of walk lengths is about the
+//      same.  A key tile past every row's position (a shard whose
+//      q_offset is below Skv - Sq) walks no q tile and writes zeros.
+//      A CTA is two consumer warpgroups of 64 keys each and a producer
+//      warpgroup, which hands its registers to the consumers
+//      (setmaxnreg).  One
 //      producer thread loads the tile's K and V once and keeps the 64-row
 //      q and dO tiles of the G query heads in flight through a ring in
 //      shared memory, all by TMA (64-column boxes, the 128-byte swizzle;
@@ -136,7 +142,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                                const float* __restrict__ dd,
                                bf16* __restrict__ dk, bf16* __restrict__ dv,
                                int B, int Sq, int Skv, int Hq, int Hkv,
-                               int causal, float scale, float scale_log2) {
+                               int causal, float scale, float scale_log2,
+                               int q_offset) {
   constexpr int kQTile = tile_bytes<D, kRows>();
   constexpr int kKTile = tile_bytes<D, kKeys>();
   constexpr int kO = D / 2;          // dK, dV registers a thread (m64nD)
@@ -152,11 +159,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t kv_full = bars, kv_empty = bars + 8;
   auto full = [&](int s) { return bars + 8 * (2 + s); };
   auto empty = [&](int s) { return bars + 8 * (2 + kStagesQ + s); };
-  const int G = Hq / Hkv, off = Skv - Sq;
+  const int G = Hq / Hkv, off = q_offset;   // q row i sits at i + off
   const int n_kt = (Skv + kKeys - 1) / kKeys;
   const int n_qt = (Sq + kRows - 1) / kRows;
   const int n_tiles = n_kt * Hkv * B;
-  // q tiles whose rows see key tile kt's first key
+  // q tiles whose rows see key tile kt's first key (n_qt or more: none,
+  // and the tile's dk and dv are stored as the zeros they start at)
   auto q_first = [&](int kt) {
     return causal ? max(0, kt * kKeys - off) / kRows : 0;
   };
@@ -337,7 +345,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                              const float* __restrict__ dd,
                              bf16* __restrict__ dq, int B, int Sq, int Skv,
                              int Hq, int Hkv, int causal, float scale,
-                             float scale_log2) {
+                             float scale_log2, int q_offset) {
   constexpr int kQT = tile_bytes<D, kQRows>();
   constexpr int kKT = tile_bytes<D, kRows>();
   constexpr int kO = D / 2;
@@ -350,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t full_q = bars, empty_q = bars + 8;
   auto full_kv = [&](int s) { return bars + 8 * (2 + s); };
   auto empty_kv = [&](int s) { return bars + 8 * (2 + kStagesKV + s); };
-  const int group = Hq / Hkv, off = Skv - Sq;
+  const int group = Hq / Hkv, off = q_offset;
   const int n_qt = (Sq + kQRows - 1) / kQRows;
   const int n_tiles = n_qt * Hq * B;
   // tile i: the last q tiles (the longest causal walks) first, neighbours
@@ -515,7 +523,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const float* out,
            const void* dout, const float* lse, float* dd, void* dq,
            void* dk, void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
-           int causal, float scale, cudaStream_t stream) {
+           int causal, float scale, int q_offset, cudaStream_t stream) {
   const int64_t rows = (int64_t)B * Sq * Hq;
   const int per = kDotThreads / 32;
   flash_bwd_dot_sm90_kernel<<<(unsigned)((rows + per - 1) / per),
@@ -549,14 +557,14 @@ int launch(const void* q, const void* k, const void* v, const float* out,
       <<<persistent_ctas(kv_tiles), kThreads, dkdv_smem<D>(), stream>>>(
           tq, tk, tv, tdo, lse, dd, static_cast<bf16*>(dk),
           static_cast<bf16*>(dv), B, Sq, Skv, Hq, Hkv, causal, scale,
-          scale_log2);
+          scale_log2, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int q_tiles = (Sq + kQRows - 1) / kQRows * Hq * B;
   flash_bwd_dq_sm90_kernel<D>
       <<<persistent_ctas(q_tiles), kThreads, dq_smem<D>(), stream>>>(
           tq, tk, tv, tdo, lse, dd, static_cast<bf16*>(dq), B, Sq, Skv, Hq,
-          Hkv, causal, scale, scale_log2);
+          Hkv, causal, scale, scale_log2, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -567,15 +575,16 @@ int launch(const void* q, const void* k, const void* v, const float* out,
 // and dout (B, Sq, Hq, D), contiguous bfloat16 (dtype 1) with 16-byte
 // aligned q, k, v and dout (read by TMA), the forward's float32 output
 // out (B, Sq, Hq, D) and its lse (B, Hq, Sq) -> dq, dk, dv of the inputs'
-// shapes in bfloat16, using dd (B, Hq, Sq) float32 as scratch.  Requires
-// D 64, 80 or 128, B, Sq >= 1, Hq % Hkv == 0 and, if causal, Sq <= Skv.
-// Returns the first launch error (0 on success).
+// shapes in bfloat16, using dd (B, Hq, Sq) float32 as scratch.  Query row
+// i sits at position i + q_offset, the forward's (q_offset comes last,
+// after the stream).  Requires D 64, 80 or 128, B, Sq >= 1, Hq % Hkv == 0
+// and q_offset >= 0.  Returns the first launch error (0 on success).
 extern "C" int flash_attention_bwd_sm90_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* dd, void* dq, void* dk,
     void* dv, int B, int Sq, int Skv, int Hq, int Hkv, int D, int dtype,
-    int causal, float scale, void* stream) {
-  if (dtype != 1 || B < 1 || Sq < 1)
+    int causal, float scale, void* stream, int q_offset) {
+  if (dtype != 1 || B < 1 || Sq < 1 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* o = static_cast<const float*>(out);
@@ -583,12 +592,12 @@ extern "C" int flash_attention_bwd_sm90_launch(
   float* d = static_cast<float*>(dd);
   if (D == 128)
     return launch<128>(q, k, v, o, dout, l, d, dq, dk, dv, B, Sq, Skv, Hq,
-                       Hkv, causal, scale, st);
+                       Hkv, causal, scale, q_offset, st);
   if (D == 80)
     return launch<80>(q, k, v, o, dout, l, d, dq, dk, dv, B, Sq, Skv, Hq,
-                      Hkv, causal, scale, st);
+                      Hkv, causal, scale, q_offset, st);
   if (D == 64)
     return launch<64>(q, k, v, o, dout, l, d, dq, dk, dv, B, Sq, Skv, Hq,
-                      Hkv, causal, scale, st);
+                      Hkv, causal, scale, q_offset, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -171,6 +171,24 @@ def _current() -> Optional[Tuple[Mesh, ShardingRules]]:
     return _CTX.stack[-1] if _CTX.stack else None
 
 
+def carry_ctx(fn):
+    """``fn`` bound to the (mesh, rules) open now, re-entered around each
+    call: the context is per thread, as the JAX package's, and autograd
+    runs a CUDA graph's backward (a ``torch.utils.checkpoint``
+    recompute included) on its device thread, where the caller's
+    ``sharding_ctx`` is not open.  Without the context the recompute
+    would take the unsharded paths.  ``fn`` itself outside any
+    context."""
+    ctx = _current()
+    if ctx is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with sharding_ctx(*ctx):
+            return fn(*args, **kwargs)
+    return run
+
+
 def active_mesh() -> Optional[Mesh]:
     c = _current()
     return c[0] if c else None

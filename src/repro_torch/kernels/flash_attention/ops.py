@@ -28,11 +28,10 @@ A causal call masks the keys past each query row's position, row i
 sitting at ``i + q_offset``: by default ``Skv - Sq`` (the last Sq of Skv
 positions, the model's prefill), or the ``q_offset >= 0`` the caller
 gives (a context-parallel shard's first position, its keys all-gathered
-over the whole sequence); both kernels take it, the plain version too.
-A negative ``q_offset`` raises.  The backward kernels take only the
-default, so a call on the card that autograd records raises on any other
-offset (:func:`q_offset_of`) rather than return a wrong gradient; the
-CPU path's autograd takes any.
+over the whole sequence); every kernel takes it, forward and backward,
+and so does the plain version.  A negative ``q_offset`` raises.  At an
+offset below ``Skv - Sq`` the keys past the last row's position are seen
+by no query: the backward writes their dk and dv as zeros.
 
 When grad mode is on and an input requires grad, the call goes through
 one ``torch.autograd.Function``: the forward kernel also writes each
@@ -56,7 +55,7 @@ _SIG = {"flash_attention_launch": (P, P, P, P, P, P, I, I, I, I, I, I, I,
                                    I, F, P, I)}
 _SIG_SM90 = {"flash_attention_sm90_launch": (P, P, P, P, P, P, I, I, I, I,
                                              I, I, I, F, P, I)}
-_BWD_ARGS = (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P)
+_BWD_ARGS = (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P, I)
 _SIG_BWD = {"flash_attention_bwd_launch": _BWD_ARGS}
 _SIG_BWD_SM90 = {"flash_attention_bwd_sm90_launch": _BWD_ARGS}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -88,29 +87,22 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _check(q, k, v, causal, _instance, q_offset)
     grad = torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v))
-    off = q_offset_of(q, k, causal, q_offset, backward=grad)
+    off = q_offset_of(q, k, causal, q_offset)
     if grad:
-        return _FlashAttention.apply(q, k, v, causal, _instance)
+        return _FlashAttention.apply(q, k, v, causal, _instance, off)
     return _forward(q, k, v, causal, None, _instance=_instance, q_offset=off)
 
 
-def q_offset_of(q, k, causal: bool, q_offset: int | None = None, *,
-                backward: bool = False) -> int:
+def q_offset_of(q, k, causal: bool, q_offset: int | None = None) -> int:
     """The position of query row 0 that a call's causal mask takes:
     ``q_offset``, or ``Skv - Sq`` by default; 0 for a call that is not
-    causal (it masks nothing).  Raises on a negative ``q_offset`` and,
-    with ``backward`` (a call on the card that autograd records, whose
-    backward kernels take only the default), on any other offset."""
+    causal (it masks nothing).  Raises on a negative ``q_offset``.  The
+    backward kernels read the forward's offset."""
     if q_offset is not None and q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     if not causal:
         return 0
-    default = k.shape[1] - q.shape[1]
-    if backward and q_offset is not None and q_offset != default:
-        raise NotImplementedError(
-            f"flash_attention: the backward kernels take only the default "
-            f"q_offset Skv - Sq = {default}, got {q_offset}")
-    return default if q_offset is None else int(q_offset)
+    return k.shape[1] - q.shape[1] if q_offset is None else int(q_offset)
 
 
 def _forward(q, k, v, causal, lse, o32=None, _instance=None, q_offset=None):
@@ -143,14 +135,15 @@ def _forward(q, k, v, causal, lse, o32=None, _instance=None, q_offset=None):
 
 
 def flash_attention_bwd(q, k, v, o32, lse, dout, *, causal: bool,
+                        q_offset: int | None = None,
                         _instance: str | None = None):
     """The backward kernel: (dq, dk, dv) of the inputs' shapes and dtype
     from the forward's inputs, its output in float32 ``o32`` (the output
     itself for float32 inputs, else its values before rounding), its row
     log-sum-exps ``lse`` (B, Hq, Sq) and the output's gradient
-    ``dout``.  The instance is :func:`instance`'s; ``_instance``
-    ("general") takes the general one instead, for timing the two
-    against each other."""
+    ``dout``, with the forward's ``q_offset`` (default ``Skv - Sq``).
+    The instance is :func:`instance`'s; ``_instance`` ("general") takes
+    the general one instead, for timing the two against each other."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     rt.require(dout, "dout", q.dtype, q.device, 4)
@@ -160,6 +153,7 @@ def flash_attention_bwd(q, k, v, o32, lse, dout, *, causal: bool,
             or lse.shape != (B, Hq, Sq)):
         raise ValueError("flash_attention_bwd: shapes disagree")
     inst = bwd_instance(q, k, v, dout, _instance)
+    off = q_offset_of(q, k, causal, q_offset)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
@@ -167,7 +161,7 @@ def flash_attention_bwd(q, k, v, o32, lse, dout, *, causal: bool,
     args = (rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(o32), rt.ptr(dout),
             rt.ptr(lse), rt.ptr(dd), rt.ptr(dq), rt.ptr(dk), rt.ptr(dv), B,
             Sq, Skv, Hq, Hkv, D, DTYPES[q.dtype], int(causal), D ** -0.5,
-            rt.stream_handle(q.device))
+            rt.stream_handle(q.device), off)
     if inst == "sm90":
         lib = rt.load("flash_attention_bwd_sm90", _SIG_BWD_SM90)
         rc = lib.flash_attention_bwd_sm90_launch(*args)
@@ -201,13 +195,13 @@ def _forced(forced, what):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, forced):
+    def forward(ctx, q, k, v, causal, forced, q_offset):
         B, Sq, Hq, _ = q.shape
         lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
         o32 = (None if q.dtype == torch.float32 else
                torch.empty(q.shape, dtype=torch.float32, device=q.device))
-        out = _forward(q, k, v, causal, lse, o32, forced)
-        ctx.causal, ctx.forced = causal, forced
+        out = _forward(q, k, v, causal, lse, o32, forced, q_offset)
+        ctx.causal, ctx.forced, ctx.q_offset = causal, forced, q_offset
         ctx.save_for_backward(q, k, v, out if o32 is None else o32, lse)
         return out
 
@@ -218,8 +212,9 @@ class _FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, o32, lse,
                                          dout.contiguous(),
                                          causal=ctx.causal,
+                                         q_offset=ctx.q_offset,
                                          _instance=ctx.forced)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def _check(q, k, v, causal, forced=None, q_offset=None):

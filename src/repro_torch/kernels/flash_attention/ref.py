@@ -39,7 +39,8 @@ def flash_attention_ref(q, k, v, *, causal: bool,
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
-def flash_attention_grad_budget(q, k, v, dout, *, causal: bool):
+def flash_attention_grad_budget(q, k, v, dout, *, causal: bool,
+                                q_offset: int | None = None):
     """How far a kernel's bfloat16 gradients may lie from those of this
     plain version's autograd through the two sides' roundings of the
     softmax gradient alone, element by element: (bq, bk, bv) float32 of
@@ -55,8 +56,9 @@ def flash_attention_grad_budget(q, k, v, dout, *, causal: bool):
       bk_j = 2^-8 scale sum_i P_ij (|dP_ij| + |D_i|) |q_i|,
       bv_j = 2^-8 sum_i P_ij |dO_i|,
     bk and bv summed over the G query heads of the KV head; P is the
-    softmax, dP_ij = <dO_i, v_j>, D_i = sum_j P_ij dP_ij.  The plain
-    version subtracts each row's max score, and its autograd sends the
+    softmax (query row i at i + ``q_offset``, default Skv - Sq),
+    dP_ij = <dO_i, v_j>, D_i = sum_j P_ij dP_ij.  The plain version
+    subtracts each row's max score, and its autograd sends the
     gradient of that max, zero but for the same roundings, to the row's
     largest score: that key's term also gets the row's whole sum.  Where
     a row's gradient is a near-cancelling sum (a causal row with a few
@@ -72,7 +74,8 @@ def flash_attention_grad_budget(q, k, v, dout, *, causal: bool):
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
     if causal:
         kpos = torch.arange(Skv, device=q.device)
-        qpos = torch.arange(Sq, device=q.device) + (Skv - Sq)
+        qpos = torch.arange(Sq, device=q.device) + (
+            Skv - Sq if q_offset is None else q_offset)
         s = s.masked_fill(kpos[None, :] > qpos[:, None], float("-inf"))
     p = torch.softmax(s, dim=-1).nan_to_num_(0.0)
     top = s.argmax(dim=-1, keepdim=True)                  # the max's key

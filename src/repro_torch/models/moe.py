@@ -9,8 +9,19 @@ it are dropped (their residual passes through) and land on a dummy row
 of the ``(B, E * C + 1, d)`` buffer, which the expert product never
 reads.  The expert FFN is one batched product over experts
 (``torch.einsum``, cuBLAS on the card), as the JAX package computes it
-outside any Pallas kernel; the weighted combine back to token order is
-an ``index_add_``, which on the card adds in no fixed order.
+outside any Pallas kernel.
+
+Dispatch and combine are deterministic on the card, forward and
+backward: the sort's inverse permutation gives each (token, choice)
+slot its buffer row in the slots' own token-major order
+(:func:`_slots`), so the dispatch writes each token's row k times
+(its backward a gather of the buffer's gradient, then a sum over the k
+choices) and the combine gathers each token's k slot outputs and sums
+them in choice order (its backward writes each kept row once; dropped
+slots carry weight 0).  No ``index_add_`` and no gather with repeated
+indices under autograd, so no atomics decide the order of a sum: two
+train steps give the same bits.  The JAX package's combine is an
+``.at[].add`` in the sorted order; the sums differ only in order.
 
 Two paths, chosen as the JAX package chooses them (:func:`moe_apply`):
 under an active mesh (``dist.sharding.sharding_ctx``) whose ``expert``
@@ -112,6 +123,26 @@ def _top_k(probs: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
+def _slots(e_flat: torch.Tensor, E: int, C: int) -> torch.Tensor:
+    """e_flat (..., Tk): each (token, choice) slot's expert, token-major.
+    Returns each slot's row of the ``(E * C + 1)``-row expert buffer in
+    the same order: a stable sort by expert (ties keep token order, as
+    the JAX package's), the slot's position in its expert's segment, and
+    ``E * C`` (the dummy row) for a slot past capacity ``C``; then the
+    sort's inverse permutation back to the slots' order."""
+    dev = e_flat.device
+    order = torch.sort(e_flat, dim=-1, stable=True).indices
+    e_sorted = e_flat.gather(-1, order)
+    experts = torch.arange(E, device=dev).expand(*e_flat.shape[:-1], E)
+    seg_start = torch.searchsorted(e_sorted, experts.contiguous(),
+                                   side="left")
+    pos = (torch.arange(e_flat.shape[-1], device=dev)
+           - seg_start.gather(-1, e_sorted))
+    slot = torch.where(pos < C, e_sorted * C + pos,
+                       torch.full_like(pos, E * C))          # drop -> dummy
+    return torch.empty_like(slot).scatter_(-1, order, slot)
+
+
 def moe_apply(params: dict, x: torch.Tensor, moe: MoEConfig, act: str
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (out (B, S, d), aux metrics incl. the load-balance
@@ -145,40 +176,23 @@ def _moe_apply_dense(params: dict, x: torch.Tensor, moe: MoEConfig,
     gate, expert_idx = _top_k(probs, k)                      # (B, S, k)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    # ---- per-row dispatch bookkeeping ----
+    # ---- per-row dispatch bookkeeping: (B, Tk) slots, token-major ----
     Tk = S * k
     e_flat = expert_idx.reshape(B, Tk)
-    g_flat = gate.reshape(B, Tk)
-    tok_of_slot = torch.arange(S, device=dev).repeat_interleave(k)
+    slot = _slots(e_flat, E, C)
+    keep = slot < E * C
 
-    order = torch.sort(e_flat, dim=-1, stable=True).indices  # (B, Tk)
-    e_sorted = e_flat.gather(-1, order)
-    g_sorted = g_flat.gather(-1, order)
-    tok_sorted = tok_of_slot[order]                          # (B, Tk)
-
-    # position of each sorted slot within its expert segment
-    experts = torch.arange(E, device=dev).expand(B, E).contiguous()
-    seg_start = torch.searchsorted(e_sorted, experts, side="left")
-    pos = (torch.arange(Tk, device=dev)[None, :]
-           - seg_start.gather(-1, e_sorted))
-    keep = pos < C
-    slot = torch.where(keep, e_sorted * C + pos,
-                       torch.full_like(pos, E * C))          # drop -> dummy
-
-    # ---- scatter tokens into expert buffers (B, E*C+1, d) ----
+    # ---- each token's k rows into the expert buffers (B, E*C+1, d) ----
     rows = torch.arange(B, device=dev)[:, None]
     buf = x.new_zeros((B, E * C + 1, d))
-    buf[rows, slot] = x[rows, tok_sorted]
+    buf[rows, slot] = x[:, :, None].expand(B, S, k, d).reshape(B, Tk, d)
     out_buf = _expert_ffn(params, buf[:, :E * C].reshape(B, E, C, d), act)
     out_buf = torch.cat([out_buf.reshape(B, E * C, d),
                          x.new_zeros((B, 1, d))], dim=1)     # dummy row
 
-    # ---- gather back to token order, weighted combine ----
-    w = (g_sorted * keep).to(x.dtype)[..., None]
-    y = x.new_zeros((B * S, d))
-    y.index_add_(0, (rows * S + tok_sorted).reshape(-1),
-                 (out_buf[rows, slot] * w).reshape(B * Tk, d))
-    y = y.reshape(B, S, d)
+    # ---- each token's k outputs, weighted, summed in choice order ----
+    w = (gate.reshape(B, Tk) * keep).to(x.dtype)[..., None]
+    y = (out_buf[rows, slot] * w).reshape(B, S, k, d).sum(2)
 
     # ---- shared expert (always-on) ----
     if "shared" in params:
@@ -205,16 +219,15 @@ def _moe_local_shard(params, x, moe: MoEConfig, act: str, ep_names,
     collectives).
 
     x: (B_loc, S_loc, d) local tokens; expert weights local (E_loc, ...).
-    Dispatch is local (top-k, sort, scatter), then ONE tiled all-to-all
-    moves each expert's slots to its owner and one moves the results
-    back.  Returns (y, balance loss, drop fraction), the last two
+    Dispatch is local (top-k, sort, :func:`_slots`), then ONE tiled
+    all-to-all moves each expert's slots to its owner and one moves the
+    results back.  Returns (y, balance loss, drop fraction), the last two
     averaged over every shard.
     """
     Bl, Sl, d = x.shape
     E, k = moe.num_experts, moe.top_k
     T = Bl * Sl
     C = max(4, math.ceil(k * T * moe.capacity_factor / E))
-    dev = x.device
 
     xt = x.reshape(T, d)
     logits = (xt @ params["router"].to(x.dtype)).float()
@@ -223,20 +236,11 @@ def _moe_local_shard(params, x, moe: MoEConfig, act: str, ep_names,
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
 
     e_flat = expert_idx.reshape(T * k)
-    g_flat = gate.reshape(T * k)
-    tok_of_slot = torch.arange(T, device=dev).repeat_interleave(k)
-    order = torch.sort(e_flat, stable=True).indices
-    e_sorted, g_sorted = e_flat[order], g_flat[order]
-    tok_sorted = tok_of_slot[order]
-    seg_start = torch.searchsorted(e_sorted, torch.arange(E, device=dev),
-                                   side="left")
-    pos = torch.arange(T * k, device=dev) - seg_start[e_sorted]
-    keep = pos < C
-    slot = torch.where(keep, e_sorted * C + pos,
-                       torch.full_like(pos, E * C))          # drop -> dummy
+    slot = _slots(e_flat, E, C)                              # token-major
+    keep = slot < E * C
 
     buf = x.new_zeros((E * C + 1, d))
-    buf[slot] = xt[tok_sorted]
+    buf[slot] = xt[:, None].expand(T, k, d).reshape(T * k, d)
     recv = buf[:E * C].reshape(E, C, d)
 
     # ---- all-to-all: each expert's slots to its owner ----
@@ -262,10 +266,8 @@ def _moe_local_shard(params, x, moe: MoEConfig, act: str, ep_names,
                                tiled=True)
     out = torch.cat([out.reshape(E * C, d), x.new_zeros((1, d))])
 
-    w = (g_sorted * keep).to(x.dtype)[:, None]
-    y = x.new_zeros((T, d))
-    y.index_add_(0, tok_sorted, out[slot] * w)
-    y = y.reshape(Bl, Sl, d)
+    w = (gate.reshape(T * k) * keep).to(x.dtype)[:, None]
+    y = (out[slot] * w).reshape(T, k, d).sum(1).reshape(Bl, Sl, d)
 
     if "shared" in params:
         y = y + mlp_apply(x, params["shared"], act)

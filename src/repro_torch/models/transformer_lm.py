@@ -59,7 +59,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve
 from repro_torch.dist.sharding import (P, active_mesh, all_gather,
                                        axis_for, axis_index, axis_size_of,
-                                       shard_map)
+                                       carry_ctx, shard_map)
 from repro_torch.models import mamba as M
 from repro_torch.models.layers import (apply_rope, blocked_attention,
                                        decode_attention, dense_init,
@@ -330,9 +330,13 @@ def _remat(cfg: ArchConfig, block):
     """``block`` under non-reentrant ``torch.utils.checkpoint`` when the
     config asks for block remat and autograd records the call; else
     ``block`` itself.  The blocks draw no random numbers, so no RNG state
-    is kept for the recompute."""
+    is kept for the recompute.  The recompute re-enters the sharding
+    context of the forward (``carry_ctx``): on the card it runs on
+    autograd's device thread, and a mesh block must take the same
+    context-parallel and expert-parallel paths again."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return block
+    block = carry_ctx(block)
     return lambda *args: checkpoint(block, *args, use_reentrant=False,
                                     preserve_rng_state=False)
 

@@ -587,9 +587,10 @@ def test_flash_attention_q_offset_matches_plain(card, B, Sq, Skv, Hq, Hkv,
     """Query row i at i + q_offset, for offsets from 0 (the first
     context-parallel shard) through the default Skv - Sq to past it (the
     last rows see every key), on both instances: within 1e-5 in float32
-    and at the bf16 row bars; one launch a call.  Under autograd a
-    non-default offset raises (the backward kernels take only the
-    default) and the default passes."""
+    and at the bf16 row bars; one launch a call.  Under autograd any
+    offset passes (the backward kernels take the forward's; their
+    gradients at offsets are held by
+    ``test_flash_attention_backward_at_q_offsets``)."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          instance)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -610,13 +611,10 @@ def test_flash_attention_q_offset_matches_plain(card, B, Sq, Skv, Hq, Hkv,
         else:
             _assert_bf16_rows_close(got, want)
     qg = q.detach().clone().requires_grad_(True)
-    if causal:
-        with pytest.raises(NotImplementedError, match="backward"):
-            flash_attention(qg, k, v, causal=True, q_offset=0,
-                            _instance=forced)
-    out = flash_attention(qg, k, v, causal=causal, q_offset=Skv - Sq,
-                          _instance=forced)
-    assert out.requires_grad
+    for off in (0, Skv - Sq):
+        out = flash_attention(qg, k, v, causal=causal, q_offset=off,
+                              _instance=forced)
+        assert out.requires_grad
     with pytest.raises(ValueError, match="q_offset -1"):
         flash_attention(q, k, v, causal=causal, q_offset=-1)
 
@@ -844,6 +842,63 @@ def test_flash_attention_backward_matches_plain_autograd(card, B, S, Hq,
         else:
             rel = grad_rows_beyond_budget(g, r, b)
             assert rel <= BF16_GRAD_ROW, f"{name}: {rel} of a row's max"
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,dtype,inst", [
+    # a context-parallel shard: Skv = 4 Sq, qwen3-moe's heads (G 16)
+    (1, 512, 2048, 64, 4, 128, torch.bfloat16, "sm90"),
+    (1, 512, 2048, 64, 4, 128, torch.bfloat16, "general"),
+    (2, 200, 800, 32, 32, 80, torch.bfloat16, "sm90"),    # the tail box
+    (1, 300, 1000, 4, 2, 64, torch.bfloat16, "sm90"),     # ragged tiles
+    (1, 300, 1000, 4, 2, 64, torch.bfloat16, "general"),
+    (2, 150, 700, 8, 2, 80, torch.float32, "general"),    # ragged, f32
+    (1, 70, 200, 4, 1, 192, torch.float32, "general")])   # D past 128
+def test_flash_attention_backward_at_q_offsets(card, B, Sq, Skv, Hq, Hkv,
+                                               D, dtype, inst):
+    """The backward at each context-parallel shard's q_offset (0, Sq, 2
+    Sq, ... up to the default Skv - Sq) and past the default, on both
+    instances, against the plain version's autograd at the same offset:
+    float32 within 1e-5 of max(1, max |grad|), bfloat16 each row within
+    BF16_GRAD_ROW beyond its rounding budget.  At offset 0 the keys past
+    the last row's position are seen by no query: their dk and dv must
+    be exactly 0 (the dk/dv pass starts from uninitialised memory).
+    One forward and one backward launch a call."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         instance)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_grad_budget, flash_attention_ref,
+        grad_rows_beyond_budget)
+
+    assert inst == "general" or instance(dtype, D) == "sm90"
+    forced = "general" if inst == "general" else None
+    q, k, v = _attn_inputs(card, B, Sq, Skv, Hq, Hkv, D, dtype, Sq + Skv)
+    w = torch.randn((B, Sq, Hq, D), device=card,
+                    generator=torch.Generator(device=card).manual_seed(Sq))
+    offsets = sorted(set(range(0, Skv - Sq + 1, Sq)) | {Skv - Sq,
+                                                       Skv - Sq + 7})
+    for off in offsets:
+        kern = lambda *a, causal: flash_attention(
+            *a, causal=causal, q_offset=off, _instance=forced)
+        plain = lambda *a, causal: flash_attention_ref(*a, causal=causal,
+                                                       q_offset=off)
+        runtime.reset_launch_counts()
+        _, got = _flash_grads(kern, q, k, v, True, w)
+        assert runtime.launch_counts() == {"flash_attention": 1,
+                                           "flash_attention_bwd": 1}
+        _, want = _flash_grads(plain, q, k, v, True, w)
+        torch.cuda.synchronize()
+        if off + Sq < Skv:       # keys past the last row: exactly zero
+            for g in got[1:]:
+                assert not bool(g[:, off + Sq:].any()), off
+        if dtype == torch.float32:
+            for name, g, r in zip(("dq", "dk", "dv"), got, want):
+                _grad_close(g, r, f"{name} q_offset {off}", 1e-5)
+            continue
+        budgets = flash_attention_grad_budget(q, k, v, w.to(dtype),
+                                              causal=True, q_offset=off)
+        for name, g, r, b in zip(("dq", "dk", "dv"), got, want, budgets):
+            rel = grad_rows_beyond_budget(g, r, b)
+            assert rel <= BF16_GRAD_ROW, (name, off, rel)
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
@@ -1156,6 +1211,39 @@ def test_moe_apply_on_the_card_matches_the_cpu(card, shared, cf):
         <= 1e-6
     assert float(aux_g["moe_drop_frac"]) == float(aux_c["moe_drop_frac"])
     assert (float(aux_c["moe_drop_frac"]) > 0) == (cf < 1)
+
+
+@pytest.mark.parametrize("shared,cf,dtype", [
+    (False, 1.25, torch.bfloat16), (True, 0.5, torch.bfloat16),
+    (False, 2.0, torch.float32)])
+def test_moe_backward_is_deterministic(card, shared, cf, dtype):
+    """Two backward runs of the MoE layer on the same inputs give the
+    same bits, gradients of x and of every weight (each token's k rows
+    are written and gathered without repeated indices, and summed over
+    the choices in a fixed order); with drops and the shared expert."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as M
+
+    cfg = MoEConfig(num_experts=16, top_k=4, expert_d_ff=128,
+                    capacity_factor=cf, shared_expert_d_ff=192 * shared)
+    params = _to(M.moe_init(torch.Generator().manual_seed(5), cfg, 256,
+                            "swiglu", dtype), card)
+    names = sorted(n for n in params if n != "shared")
+    g = torch.Generator(device=card).manual_seed(6)
+    x = torch.randn((2, 512, 256), device=card, generator=g).to(dtype)
+    w = torch.randn((2, 512, 256), device=card, generator=g)
+
+    def grads():
+        ins = [params[n].detach().clone().requires_grad_(True)
+               for n in names] + [x.clone().requires_grad_(True)]
+        y, _ = M.moe_apply(dict(params, **dict(zip(names, ins))), ins[-1],
+                           cfg, "swiglu")
+        return torch.autograd.grad((y.float() * w).sum(), ins)
+
+    first, again = grads(), grads()
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def _ref_without_the_diagonal(q, k, v, *, causal):

@@ -6,8 +6,10 @@ made outside it):
 
 * ``direct_attention``, and ``blocked_attention`` with ``q_offset``
   (the plain flash version on the CPU), within 1e-5; the flash
-  wrapper's offset check (a negative offset raises, and so does a
-  non-default one under autograd on the card);
+  wrapper's offset check (a negative offset raises; any other passes,
+  under autograd too); the shards' gradients at their offsets, summed
+  as the all-gather's transpose sums them, equal to the whole
+  sequence's within 1e-5;
 * ``_cp_attention_shard_map``, both the direct and the blocked branch
   (``blocked`` is JAX's own argument: a small S never reaches the
   blocked branch through ``attn_full``): forward within 1e-5, q/k/v
@@ -120,26 +122,60 @@ def test_blocked_attention_q_offset_matches_jax(q_offset):
 
 
 def test_flash_q_offset_check():
-    """The wrapper's check: the default offset is Skv - Sq; a negative
-    one raises on any device; under autograd on the card (``backward``)
-    only the default passes, since the backward kernels take no offset;
-    a call that is not causal masks nothing and takes any."""
+    """The wrapper's check: the default offset is Skv - Sq and any other
+    offset >= 0 passes (both backward kernels take the forward's); a
+    negative one raises on any device, under autograd too; a call that
+    is not causal masks nothing and takes any."""
     q, k = torch.zeros(1, 4, 2, 8), torch.zeros(1, 10, 2, 8)
     check = flash_ops.q_offset_of
     assert check(q, k, True) == 6 and check(q, k, True, 2) == 2
-    assert check(q, k, True, 6, backward=True) == 6
-    assert check(q, k, True, None, backward=True) == 6
-    assert check(q, k, False, 3, backward=True) == 0
-    with pytest.raises(NotImplementedError, match="backward"):
-        check(q, k, True, 2, backward=True)
+    assert check(q, k, True, 6) == 6 and check(q, k, False, 3) == 0
+    assert check(q, k, True, 0) == 0 and check(q, k, True, 9) == 9
     with pytest.raises(ValueError, match="q_offset -1"):
         check(q, k, True, -1)
     with pytest.raises(ValueError, match="q_offset -1"):
         flash_ops.flash_attention(q, k, k, causal=True, q_offset=-1)
+    with pytest.raises(ValueError, match="q_offset -1"):
+        flash_ops.flash_attention(q.requires_grad_(), k, k, causal=True,
+                                  q_offset=-1)
     # an explicit offset lifts the causal Sq <= Skv check
     flash_ops._check(k, q, q, True, None, 0)
     with pytest.raises(ValueError, match="Sq <= Skv"):
         flash_ops._check(k, q, q, True)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 2), (8, 1)])
+def test_flash_shard_offsets_sum_to_the_whole_gradient(shards, Hq, Hkv):
+    """Each context-parallel shard's queries at its ``q_offset`` against
+    the whole K/V, through the flash wrapper's autograd (the plain
+    version on the CPU): dq of the shards concatenated, and dk, dv summed
+    over the shards (the all-gather's transpose), equal the causal
+    gradient of the whole sequence in one call within 1e-5.  Shard 0's
+    keys past its last row get exactly zero from it."""
+    B, S, D = 2, 48, 16
+    q, k, v = (_t(a) for a in _qkv(B, S, S, Hq, Hkv, D, seed=8))
+    w = _t(np.random.default_rng(9).normal(size=(B, S, Hq, D)).astype(
+        np.float32))
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    whole = torch.autograd.grad(
+        (flash_ops.flash_attention(*ins, causal=True) * w).sum(), ins)
+    Sl = S // shards
+    dq, dk, dv = [], torch.zeros_like(k), torch.zeros_like(v)
+    for i in range(shards):
+        sl = slice(i * Sl, (i + 1) * Sl)
+        part = [q[:, sl].clone().requires_grad_(True),
+                k.clone().requires_grad_(True),
+                v.clone().requires_grad_(True)]
+        out = flash_ops.flash_attention(*part, causal=True,
+                                        q_offset=i * Sl)
+        g = torch.autograd.grad((out * w[:, sl]).sum(), part)
+        if i == 0:
+            assert not g[1][:, Sl:].any() and not g[2][:, Sl:].any()
+        dq.append(g[0])
+        dk, dv = dk + g[1], dv + g[2]
+    for got, want in zip((torch.cat(dq, 1), dk, dv), whole):
+        _close(got, want.numpy())
 
 
 # ---------------------------------------------------------------------------
