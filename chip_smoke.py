@@ -237,7 +237,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    on the card, both within 1e-4; ``LMTrainer``'s save, restore and
    continue on the card equal to an uninterrupted run, exactly, for
    Yi-6B's and Qwen3-MoE's reduced configs; and ``python -m
-   repro_torch.launch.train lm`` in a subprocess.
+   repro_torch.launch.train lm`` in a subprocess;
+11. dry-run phase: ``repro_torch.launch.dryrun.run_cell`` traces, on the
+   ``meta`` device under a (1, 1) mesh (the context-parallel rule off,
+   as the measured steps run off any mesh), the two Yi-6B steps the LM
+   phases measured: the 8-layer train step at B 2 x 4,096 (phase 10)
+   and the 32-layer prefill at 2 x 4,096 (phase 9).  Beside each
+   prediction it prints the card's reading and holds it: argument bytes
+   equal to the state's and batch's and within 512 B a leaf of the
+   memory they hold; argument + temp bytes within 10 % of the step's
+   peak above that; the trace's kernel calls per name equal to one
+   step's launches; the roofline bound no longer than the measured step
+   (the ratio printed).  Then one production cell, Yi-6B x decode_32k x
+   the 16 x 16 mesh, traced on meta (train_4k takes about three minutes
+   of host time there), its roofline line and wall time printed.
 
 The second-to-last line is the JSON ``kernels`` record, the last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -1025,8 +1038,10 @@ def main() -> int:
     dist_phase(torch, dev, args, stream)
     del stream
     multihost_phase(torch, dev, args)
-    rows += lm_phase(torch, dev, args)
-    rows += lm_train_phase(torch, dev, args)
+    measured = {}
+    rows += lm_phase(torch, dev, args, measured)
+    rows += lm_train_phase(torch, dev, args, measured)
+    dryrun_phase(torch, args, measured)
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2230,15 +2245,26 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def lm_serve(torch, dev, args, cfg):
+def tree_leaf_count(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_leaf_count(v) for v in tree.values())
+    return 1
+
+
+def lm_serve(torch, dev, args, cfg, measured=None):
     """Init, prefill and decode at full size; returns the kernel's launch
-    count over the prefill and the decode, and the compute tree."""
+    count over the prefill and the decode, and the compute tree.  For an
+    arch of ``DRYRUN_OF``, its prefill's readings go into ``measured``
+    (the dry-run phase's): the tree's and the tokens' bytes, the memory
+    they hold and the prefill's peak above what was allocated before the
+    init, the launches and the time."""
     from repro_torch.kernels import runtime
     from repro_torch.models import lm_zoo as Z
     from repro_torch.models import transformer_lm as T
 
     kernel = "selective_scan" if cfg.family == "ssm" else "flash_attention"
     launches = T.attention_layers(cfg) or cfg.n_layers
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     if cfg.name in LM_SERVE_ARCHS:
@@ -2258,6 +2284,7 @@ def lm_serve(torch, dev, args, cfg):
     rng = np.random.default_rng(args.seed)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
         np.int32)).to(dev)
+    args_allocated = torch.cuda.memory_allocated() - base
     prefill, serve = Z.make_prefill_step(cfg), Z.make_serve_step(cfg)
     prefill(cp, {"tokens": toks})                      # warm-up
     drops = ""
@@ -2283,6 +2310,12 @@ def lm_serve(torch, dev, args, cfg):
             torch.isfinite(logits).all()):
         raise AssertionError(f"{cfg.name}: bad prefill logits")
     pre_peak = torch.cuda.max_memory_allocated()
+    if measured is not None and (cfg.name, "prefill") in DRYRUN_OF:
+        measured[cfg.name, "prefill"] = {
+            "args": tree_bytes(cp) + toks.numel() * toks.element_size(),
+            "allocated": args_allocated, "peak": pre_peak - base,
+            "leaves": tree_leaf_count(cp) + 1, "launches": counts,
+            "ms": pre_s * 1e3, "depth": cfg.n_layers, "B": B, "S": S}
 
     Bd = LM_DECODE[cfg.name]
     if cfg.family == "ssm":          # the prefill state continues
@@ -3133,7 +3166,7 @@ def mesh_cut_holds(torch, dev, cut, params, cpu, x, pos) -> str:
             f"mesh vs no mesh {err_b:.3g} (tol {ATOL_SERVED})")
 
 
-def lm_phase(torch, dev, args):
+def lm_phase(torch, dev, args, measured=None):
     """Yi-6B, then Falcon-Mamba-7B: serve at full size, hold the kernel
     against its plain version (and at the shapes past its old limits),
     check the depth cut; then the same for Qwen3-MoE and Llama-4-Scout
@@ -3151,7 +3184,7 @@ def lm_phase(torch, dev, args):
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     for arch in LM_ARCHS:
         cfg = get_arch(arch)
-        launches = lm_serve(torch, dev, args, cfg)[0]
+        launches = lm_serve(torch, dev, args, cfg, measured)[0]
         torch.cuda.empty_cache()
         row = (scan_row if cfg.family == "ssm" else flash_row)(
             torch, dev, cfg, flush, args.ab)
@@ -3349,7 +3382,7 @@ def same_grads_twice(torch, cut, params, batch) -> int:
     return len(first)
 
 
-def lm_train_steps(torch, dev, args, cfg) -> dict:
+def lm_train_steps(torch, dev, args, cfg, measured=None) -> dict:
     """Full width, depth, B and S cut as ``LM_TRAIN_OF`` says, with its
     optimizer (AdamW from ``make_optimizer``, or Adafactor for the moe
     layers): 3 steps of ``make_train_step`` on one seeded batch, block
@@ -3370,6 +3403,7 @@ def lm_train_steps(torch, dev, args, cfg) -> dict:
         if inst != "sm90":
             raise AssertionError(f"{cfg.name}: its attention takes the "
                                  f"{inst} instances, forward and backward")
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     opt = Z.make_optimizer(cut)
     box = {"state": Z.init_train_state(
@@ -3380,10 +3414,21 @@ def lm_train_steps(torch, dev, args, cfg) -> dict:
     step = Z.make_train_step(cut, opt)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    args_allocated = torch.cuda.memory_allocated() - base
+    # the state's and the batch's bytes and leaves (no name may keep the
+    # initial state alive past its step: ``timed_steps``)
+    held = [(t.numel() * t.element_size()) for t in
+            tree_leaves(box["state"]) if torch.is_tensor(t)] \
+        + [tree_bytes(batch)]
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms, busy = timed_steps(
         torch, step, box, batch, want, cfg.name, LM_TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated()
+    if measured is not None and (cfg.name, "train") in DRYRUN_OF:
+        measured[cfg.name, "train"] = {
+            "args": sum(held), "allocated": args_allocated,
+            "peak": peak - base, "leaves": len(held), "launches": want,
+            "ms": step_ms[1], "depth": depth, "B": B, "S": S}
     same = ""
     if cut.moe is not None:
         n = same_grads_twice(torch, cut, box["state"]["params"], batch)
@@ -4213,7 +4258,7 @@ def lm_launcher():
         f"{' | '.join(p.stdout.strip().splitlines())}")
 
 
-def lm_train_phase(torch, dev, args):
+def lm_train_phase(torch, dev, args, measured=None):
     """Every arch of ``LM_TRAIN_OF``: train steps at full width; the mesh
     train step; then the two backward kernels against the plain autograd
     (flash also at the mesh step's context-parallel offsets); the
@@ -4225,7 +4270,8 @@ def lm_train_phase(torch, dev, args):
     t0 = time.perf_counter()
     launches = {}
     for arch in LM_TRAIN_OF:
-        launches[arch] = lm_train_steps(torch, dev, args, get_arch(arch))
+        launches[arch] = lm_train_steps(torch, dev, args, get_arch(arch),
+                                        measured)
         torch.cuda.empty_cache()
     mesh = mesh_train_steps(torch, dev, args, get_arch(MESH_ARCH))
     torch.cuda.empty_cache()
@@ -4252,6 +4298,87 @@ def lm_train_phase(torch, dev, args):
         f"backward kernel rows {t2 - t1:.1f}, card-vs-CPU cuts "
         f"{t3 - t2:.1f})")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# dry-run phase
+# ---------------------------------------------------------------------------
+
+# the measured steps the dry run's (1, 1) predictions are held against:
+# (arch, kind) -> its phase's cut (layers, B, S); Yi-6B's 8-layer train
+# step (``LM_TRAIN_OF``) and its whole 32-layer prefill (``LM_PREFILL``)
+DRYRUN_OF = {("yi-6b", "train"): LM_TRAIN_OF["yi-6b"][:3],
+             ("yi-6b", "prefill"): (32,) + LM_PREFILL}
+DRYRUN_PEAK_REL = 0.10        # predicted peak within 10 % of the card's
+# one production cell traced on meta: yi-6b x train_4k x single takes
+# about 185 s of host time (its 256 logical shards' context-parallel
+# attention, 32 layers, forward, recompute and backward), past the
+# phase's 60 s for it, so the decode cell is traced instead
+DRYRUN_PRODUCTION = ("yi-6b", "decode_32k")
+
+
+def dryrun_phase(torch, args, measured):
+    """The dry run's per-device predictions on a (1, 1) mesh (its meta
+    trace of the same step: ``launch.dryrun.run_cell`` with the cut's
+    config and shape, the context-parallel rule off as the measured
+    steps run off any mesh) beside what the card measured in the LM
+    phases (``measured``): argument bytes within the allocator's
+    rounding (512 B a leaf) of the memory the state and batch hold;
+    argument + temp bytes within ``DRYRUN_PEAK_REL`` of the step's peak;
+    the trace's kernel calls equal to one step's launches; the roofline
+    bound no longer than the measured step.  Then one production cell
+    traced on meta, its line and wall time printed."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    for (arch, kind), (depth, B, S) in DRYRUN_OF.items():
+        m = measured[arch, kind]
+        if (m["depth"], m["B"], m["S"]) != (depth, B, S):
+            raise AssertionError(f"dry run {arch} {kind}: measured at "
+                                 f"{m['depth'], m['B'], m['S']}")
+        t1 = time.perf_counter()
+        res = dryrun.run_cell(
+            arch, f"{kind}_cut", False, {"seq_act": "None"}, False,
+            cfg=dataclasses.replace(get_arch(arch), n_layers=depth),
+            shape=ShapeSpec(f"{kind}_cut", S, B, kind), mesh_shape=(1, 1))
+        mem = res["memory"]
+        arg, peak = mem["argument_bytes"], mem["argument_bytes"] + \
+            mem["temp_bytes"]
+        calls = res["trace"]["kernel_calls"]
+        bound_ms = res["step_time_bound_s"] * 1e3
+        log(f"[dryrun] {arch} {kind} {depth} layers, B {B} x S {S}, (1, 1) "
+            f"mesh, traced in {time.perf_counter() - t1:.1f} s: predicted "
+            f"| card: argument bytes {arg} | {m['args']} (allocated "
+            f"{m['allocated']}, {m['leaves']} leaves); argument + temp "
+            f"{peak / 1e9:.3f} | peak {m['peak'] / 1e9:.3f} GB (ratio "
+            f"{peak / m['peak']:.4f}); kernel calls {calls} | launches "
+            f"{m['launches']}; step_time_bound {bound_ms:.1f} ms "
+            f"({res['dominant']}: compute {res['roofline']['compute_s'] * 1e3:.1f}, "
+            f"memory {res['roofline']['memory_s'] * 1e3:.1f}) | step "
+            f"{m['ms']:.1f} ms (ratio {bound_ms / m['ms']:.4f})")
+        if arg != m["args"] or abs(arg - m["allocated"]) > 512 * m["leaves"]:
+            raise AssertionError(f"dry run {arch} {kind}: argument bytes "
+                                 f"{arg}, the card's {m['args']} "
+                                 f"(allocated {m['allocated']})")
+        if abs(peak / m["peak"] - 1) > DRYRUN_PEAK_REL:
+            raise AssertionError(f"dry run {arch} {kind}: predicted peak "
+                                 f"{peak} against {m['peak']}")
+        if calls != m["launches"]:
+            raise AssertionError(f"dry run {arch} {kind}: kernel calls "
+                                 f"{calls}, launches {m['launches']}")
+        if not bound_ms <= m["ms"]:
+            raise AssertionError(f"dry run {arch} {kind}: bound {bound_ms} "
+                                 f"ms above the measured {m['ms']} ms")
+    t1 = time.perf_counter()
+    res = dryrun.run_cell(*DRYRUN_PRODUCTION, False, {}, False)
+    log(f"{dryrun.summary(res)}; wall {time.perf_counter() - t1:.1f} s, "
+        f"params {res['params_total']}, kernel calls "
+        f"{res['trace']['kernel_calls']}")
+    log(f"[dryrun] dry-run phase done in {time.perf_counter() - t0:.1f} s")
 
 
 class _Owner:

@@ -43,6 +43,12 @@ collectives are tensor ops, so autograd runs through them (the
 all-gather's transpose, a reduce-scatter of the gradient, falls out of
 ``cat``).  A shard that raises closes the others and the error
 propagates.
+
+Under the dry run's cost trace (``launch.op_cost.CostMode``) the
+executor charges each shard's body ops to that shard
+(``op_cost.in_shard``) and each collective as its on-wire bytes a shard
+(``op_cost.record_collective``; nothing over a group of one shard), not
+as the HBM traffic of the ``cat``, ``split`` and sum that compute it.
 """
 from __future__ import annotations
 
@@ -56,6 +62,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.launch import op_cost
 from repro_torch.launch.mesh import Mesh
 
 PyTree = Any
@@ -288,16 +295,21 @@ def _is_spec(x) -> bool:
 
 
 def _tree_map(fn, tree, path=(), is_leaf=lambda x: False):
-    """``fn(path, leaf)`` over nested dicts, lists and tuples; a path is
-    the tuple of dict keys and list indices, as strings."""
+    """``fn(path, leaf)`` over nested dicts, lists, tuples and named
+    tuples; a path is the tuple of dict keys and list indices, as
+    strings.  None is an empty subtree, as in ``jax.tree``."""
     if is_leaf(tree):
         return fn(path, tree)
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v, path + (str(k),), is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v, path + (str(i),), is_leaf)
-                          for i, v in enumerate(tree))
+        items = [_tree_map(fn, v, path + (str(i),), is_leaf)
+                 for i, v in enumerate(tree)]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
     return fn(path, tree)
 
 
@@ -556,7 +568,8 @@ def _assemble(mesh: Mesh, coords: list, spec: P, blocks: list):
 def _in_shard(mesh: Mesh, coords):
     _CTX.shard.append((mesh, coords))
     try:
-        yield
+        with op_cost.in_shard(tuple(coords)):
+            yield
     finally:
         _CTX.shard.pop()
 
@@ -641,9 +654,19 @@ def _collect(mesh: Mesh, coords: list, asked: dict) -> dict:
         rest = tuple(pos[a] for a in mesh.axis_names if a not in names)
         groups.setdefault(rest, []).append(s)
     sent = {}
+    trace = op_cost.active()
     for members in groups.values():
         members.sort(key=lambda s: _index(mesh, coords[s], names))
-        res = _compute(first, [asked[s].x for s in members])
+        if trace is None:
+            res = _compute(first, [asked[s].x for s in members])
+        else:      # a dry run: charged as the wire's bytes, a shard each
+            with trace.quiet():
+                res = _compute(first, [asked[s].x for s in members])
+            for s, r in zip(members, res):
+                if len(members) > 1:       # over one shard: no wire
+                    op_cost.record_collective(
+                        first.kind, op_cost.wire_bytes(first.kind, r),
+                        names, tuple(coords[s]))
         sent.update(zip(members, res))
     return sent
 

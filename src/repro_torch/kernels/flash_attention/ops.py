@@ -41,6 +41,14 @@ the plain version's autograd does), and autograd's backward launches the
 backward kernel of the same instance once, counted as
 ``flash_attention_bwd`` either way.  Otherwise (serving) neither is
 written and no autograd node is made.
+
+A ``meta`` tensor (the dry run's shape trace, ``launch.op_cost``) takes
+the same checks and autograd node as a CUDA one, but in place of each
+launch its wrapper allocates the outputs the kernel writes (the row
+LSEs and float32 output under autograd; the backward's scratch row
+sums) as meta tensors and charges the trace one call with the kernel's
+own counts (:func:`kernel_cost`).  It never launches, and a CUDA tensor
+never takes it.
 """
 from __future__ import annotations
 
@@ -115,8 +123,15 @@ def _forward(q, k, v, causal, lse, o32=None, _instance=None, q_offset=None):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    stream = rt.stream_handle(q.device)
     off = q_offset_of(q, k, causal, q_offset)
+    if q.device.type == "meta":
+        from repro_torch.launch import op_cost
+        op_cost.kernel_call(
+            "flash_attention", kernel_cost("flash_attention", q, k, causal,
+                                           off),
+            (q, k, v), (out, lse, o32), remember=lse)
+        return out
+    stream = rt.stream_handle(q.device)
     if (_instance or instance(q.dtype, D)) == "sm90":
         lib = rt.load("flash_attention_sm90", _SIG_SM90)
         rc = lib.flash_attention_sm90_launch(
@@ -158,6 +173,13 @@ def flash_attention_bwd(q, k, v, o32, lse, dout, *, causal: bool,
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     dd = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        from repro_torch.launch import op_cost
+        op_cost.kernel_call(
+            "flash_attention_bwd", kernel_cost("flash_attention_bwd", q, k,
+                                               causal, off),
+            (q, k, v, o32, lse, dout), (dq, dk, dv), recall=lse)
+        return dq, dk, dv
     args = (rt.ptr(q), rt.ptr(k), rt.ptr(v), rt.ptr(o32), rt.ptr(dout),
             rt.ptr(lse), rt.ptr(dd), rt.ptr(dq), rt.ptr(dk), rt.ptr(dv), B,
             Sq, Skv, Hq, Hkv, D, DTYPES[q.dtype], int(causal), D ** -0.5,
@@ -171,6 +193,26 @@ def flash_attention_bwd(q, k, v, o32, lse, dout, *, causal: bool,
     rt.count_launch("flash_attention_bwd")
     rt.check(lib, rc, "flash_attention_bwd")
     return dq, dk, dv
+
+
+def attended_pairs(Sq: int, Skv: int, causal: bool, q_offset: int) -> int:
+    """The (query, key) pairs a call computes: every pair, or under a
+    causal mask at ``q_offset`` row i's keys 0 .. i + q_offset."""
+    if not causal:
+        return Sq * Skv
+    full = min(max(Skv - q_offset, 0), Sq)     # rows i + q_offset < Skv
+    a = q_offset + 1
+    return full * a + full * (full - 1) // 2 + (Sq - full) * Skv
+
+
+def kernel_cost(name: str, q, k, causal: bool, q_offset: int) -> int:
+    """A call's FLOPs in ``PERF.md``'s convention: 4·D a (query, key)
+    pair under the mask and query head forward (the two products), 10·D
+    backward (its five products)."""
+    B, Sq, Hq, D = q.shape
+    per_pair = 10 * D if name == "flash_attention_bwd" else 4 * D
+    return per_pair * B * Hq * attended_pairs(Sq, k.shape[1], causal,
+                                              q_offset)
 
 
 def bwd_instance(q, k, v, dout, forced: str | None = None) -> str:

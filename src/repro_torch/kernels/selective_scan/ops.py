@@ -15,6 +15,16 @@ before every 64 steps, and autograd's backward launches the backward
 kernel once, counted as ``selective_scan_bwd``, which recomputes the
 states from them.  Otherwise (serving) nothing is stored and no autograd
 node is made.
+
+A ``meta`` tensor (the dry run's shape trace, ``launch.op_cost``) takes
+the same checks and autograd node as a CUDA one, but in place of each
+launch its wrapper allocates what the kernel writes (the stored states
+under autograd; the backward's partial sums) as meta tensors and charges
+the trace one call: 2·B·L·Din·N FLOPs forward (the output's contraction
+over the states, a multiply-add a state a step) and twice that backward
+(the gradients of C and of the state), each input read once and each
+output written once.  It never launches, and a CUDA tensor never takes
+it.
 """
 from __future__ import annotations
 
@@ -33,6 +43,9 @@ _SIG_BWD = {"selective_scan_bwd_launch": (P, P, P, P, P, P, I, P, P, I, I, I,
 # steps between the states the forward stores; both launchers take it and
 # refuse any other than their own
 CHUNK = 64
+# channels a CTA of the backward kernel (csrc/selective_scan_bwd.cu's
+# kChannels: its grid, and its partial sums' blocks, are ceil(Din / 64))
+BWD_CHANNELS = 64
 
 
 def selective_scan(dt, x, A, Bt, Ct, h0):
@@ -55,6 +68,12 @@ def _forward(dt, x, A, Bt, Ct, h0, ckpt):
     y = torch.empty_like(x)
     h_last = torch.empty_like(h0)
     if B * Din == 0:
+        return y, h_last
+    if x.device.type == "meta":
+        from repro_torch.launch import op_cost
+        op_cost.kernel_call("selective_scan", 2 * B * L * Din * N,
+                            (dt, x, A, Bt, Ct, h0), (y, h_last, ckpt),
+                            remember=ckpt)
         return y, h_last
     lib = rt.load("selective_scan", _SIG)
     rc = lib.selective_scan_launch(
@@ -84,11 +103,21 @@ def selective_scan_bwd(dt, x, A, Bt, Ct, ckpt, dy, dh_last):
         dh0.copy_(dh_last)
         return ddt.zero_(), dx.zero_(), dA.zero_(), dB.zero_(), \
             dC.zero_(), dh0
-    lib = rt.load("selective_scan_bwd", _SIG_BWD)
-    blocks = lib.selective_scan_bwd_blocks(Din, N)
+    meta = x.device.type == "meta"
+    if meta:
+        blocks = -(-Din // BWD_CHANNELS)
+    else:
+        lib = rt.load("selective_scan_bwd", _SIG_BWD)
+        blocks = lib.selective_scan_bwd_blocks(Din, N)
     part_bc = torch.empty((2, B, blocks, L, N), dtype=torch.float32,
                           device=x.device)
     part_a = torch.empty((B, Din, N), dtype=torch.float32, device=x.device)
+    if meta:
+        from repro_torch.launch import op_cost
+        op_cost.kernel_call("selective_scan_bwd", 4 * B * L * Din * N,
+                            (dt, x, A, Bt, Ct, ckpt, dy, dh_last),
+                            (ddt, dx, dA, dB, dC, dh0), recall=ckpt)
+        return ddt, dx, dA, dB, dC, dh0
     rc = lib.selective_scan_bwd_launch(
         rt.ptr(dt), rt.ptr(x), rt.ptr(A), rt.ptr(Bt), rt.ptr(Ct),
         rt.ptr(ckpt), CHUNK, rt.ptr(dy), rt.ptr(dh_last), B, L, Din, N,

@@ -11,6 +11,7 @@ device.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -41,6 +42,11 @@ class Mesh:
         """Axis name -> size, in axis order (``jax.sharding.Mesh.shape``)."""
         return dict(zip(self.axis_names, self.axis_sizes))
 
+    @property
+    def size(self) -> int:
+        """The number of shards: the product of the axis sizes."""
+        return math.prod(self.axis_sizes)
+
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The production layout's shape (16 x 16, or 2 x 16 x 16 across
@@ -67,5 +73,9 @@ HW = {
     "hbm_bw": 3.35e12,             # bytes/s per card
     "nvlink_bw": 450e9,            # bytes/s each way per card (NVLink 4:
                                    # 900 GB/s to the host's other cards)
+    "ib_bw": 50e9,                 # bytes/s each way per card between hosts:
+                                   # one 400 Gb/s NDR InfiniBand port a card
+                                   # (NVIDIA DGX H100 user guide: 8 ConnectX-7
+                                   # ports for 8 cards)
     "hbm_bytes": 80e9,
 }

@@ -25,8 +25,9 @@ Under a mesh, as in the JAX package, the same steps shard themselves:
 expert-parallel moe path; a decode step's one token does not split, so
 it takes the whole-sequence paths.  The tree needs nothing new.
 
-The JAX module's ``input_specs``/``decode_state_specs`` (stand-ins for
-XLA lowering) have no counterpart.
+``input_specs``/``decode_state_specs`` give a cell's inputs as ``meta``
+tensors (the JAX module's ``ShapeDtypeStruct`` stand-ins), which the dry
+run (``launch.dryrun``) runs the steps on.
 """
 from __future__ import annotations
 
@@ -34,12 +35,13 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.device import resolve
 from repro_torch.models.layers import chunked_softmax_xent, rms_norm
 from repro_torch.models.transformer_lm import (check_family, decode_forward,
                                                embed_input, forward_hidden,
-                                               init_lm, unembed_weight)
+                                               init_decode_state, init_lm,
+                                               unembed_weight)
 from repro_torch.train.optimizer import (OPTIMIZERS, Optimizer, tree_leaves,
                                          tree_unflatten,
                                          warmup_cosine_schedule)
@@ -244,3 +246,40 @@ def make_serve_step(cfg: ArchConfig):
         return (h[:, 0] @ w_out).float(), new_state
 
     return serve
+
+
+def decode_state_specs(cfg: ArchConfig, batch: int, max_seq: int) -> PyTree:
+    """The decode state's shapes and dtypes: ``init_decode_state`` on the
+    ``meta`` device."""
+    return init_decode_state(cfg, batch, max_seq, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# Input stand-ins for the dry run (no allocation)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """Meta stand-ins for every model input of this cell, with the JAX
+    module's keys, shapes and dtypes:
+
+    train  -> {"batch": {...}}
+    prefill-> {"batch": {...}}
+    decode -> {"tokens": (B, 1), "dstate": {...}}
+    """
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    if shape.kind in ("train", "prefill"):
+        if cfg.input_kind == "tokens":
+            batch = {"tokens": meta((B, S), torch.int32)}
+        else:
+            batch = {"frames": meta((B, S, cfg.d_model), torch.bfloat16)}
+            if shape.kind == "train":
+                batch["labels"] = meta((B, S), torch.int32)
+                batch["mask"] = meta((B, S), torch.bool)
+        return {"batch": batch}
+    # decode: one new token against a seq_len-deep state
+    return {"tokens": meta((B, 1), torch.int32),
+            "dstate": decode_state_specs(cfg, B, S)}
