@@ -226,7 +226,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the other design at the full L), timed beside the plain backward
    and, for flash, the backward of one
    ``scaled_dot_product_attention``; one train step's
-   gradients of each arch's depth cut (``LM_CUT_OF``) on the card
+   gradients of each arch's depth cut (``LM_TRAIN_CUT_OF``: Yi's and
+   Falcon's one layer) on the card
    against the CPU (float32: loss within 1e-4, each gradient leaf within
    1e-4 of its max, a moe arch's experts equal; bf16: each leaf within
    5e-2 of its max, the CPU replaying a moe arch's experts, a bar that
@@ -234,7 +235,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    both backward kernels zeroed), and on Qwen3-MoE's cut under the mesh
    with the score budget lowered (blocked at S 128): the card against
    the CPU and, at a capacity factor of E / k, the mesh against no mesh
-   on the card, both within 1e-4; ``LMTrainer``'s save, restore and
+   on the card, both within 1e-4.  Then the process mesh part
+   (``process_mesh_part``): Qwen3-MoE as four ranks of a (1, 4) process
+   mesh on the one card (``repro_torch.launch.mesh_fleet``: one OS
+   process a shard, joined over gloo, the collectives staged through
+   host memory, each rank holding 1/4 of the expert blocks): the
+   8-layer full-width prefill at 2 x 8,192 (CP blocked, EP), each rank
+   launching flash exactly once a layer at its own q_offset, the four
+   ranks' logits equal bit for bit and within 5e-2 of phase 9's logical
+   mesh, each rank's time, peak, drop fraction and collective record
+   (count, wire bytes, host-staged bytes and seconds by kind) printed
+   beside the logical mesh's; the float32 depth cut (one full-width
+   layer, B 1 x 128, the score budget lowered: CP blocked) against the
+   logical mesh on the card: the prefill's hidden state within 1e-4,
+   one train step's loss within 1e-4 and each gradient leaf within 1e-4
+   of its max, each token's experts equal, flash twice and 5b once a
+   rank (block remat); and 3 Adafactor train steps at the reduced
+   config with block remat (the full-width cut's optimizer step does not
+   fit four times on one card; each rank's RMS of an expert leaf sums
+   the four ranks' blocks), the loss falling and the same on every rank,
+   flash twice and 5b once a layer a step; ``LMTrainer``'s save, restore and
    continue on the card equal to an uninterrupted run, exactly, for
    Yi-6B's and Qwen3-MoE's reduced configs; and ``python -m
    repro_torch.launch.train lm`` in a subprocess;
@@ -2208,6 +2228,12 @@ LM_CUT_OF = {"qwen3-moe-235b-a22b": (1, 1, 128),
 # A random-init layer routes a short prompt's tokens alike, so 8 tokens
 # can already overflow a capacity of 4
 MOE_DECODE_S = 4
+# the LM training phase's card-vs-CPU train step: Yi's and Falcon's cut
+# to one layer (the serving checks' two), so that the host's passes over
+# a second layer do not push the script past 1,000 s beside the process
+# mesh part (PERF.md section 6)
+LM_TRAIN_CUT_OF = dict(LM_CUT_OF, **{"yi-6b": (1, 2, 256),
+                                     "falcon-mamba-7b": (1, 2, 256)})
 # a token routed differently by two bf16 runs must be a near-tie: each
 # expert one run picked within 2^-5 of the other's k-th router log-prob
 # (the log-probs differ as the logits do: 4 bf16 ulps of a logit in
@@ -2683,32 +2709,6 @@ def scan_row(torch, dev, cfg, flush, ab=(), N=None, L=None):
     return row
 
 
-@contextlib.contextmanager
-def routing(replay=None):
-    """Record, for each ``moe._top_k`` call inside the block, the router's
-    probabilities and the experts it picks (on the host).  With
-    ``replay`` (an earlier record, call by call) the model gets that
-    record's experts instead, with this run's own probabilities at them:
-    a bf16 comparison then holds everything but the routing, which
-    :func:`routing_note` holds."""
-    from repro_torch.models import moe
-
-    real, picked = moe._top_k, []
-
-    def record(probs, k):
-        vals, idx = real(probs, k)
-        picked.append((probs.detach().cpu(), idx.cpu()))
-        if replay is None:
-            return vals, idx
-        idx = replay[len(picked) - 1][1].to(probs.device)
-        return probs.gather(-1, idx), idx
-    moe._top_k = record
-    try:
-        yield picked
-    finally:
-        moe._top_k = real
-
-
 def routing_note(torch, ref, run, what, tol=None) -> str:
     """Tokens whose set of experts differs between two records (``ref``'s
     picks against ``run``'s own), and the largest amount by which an
@@ -2772,6 +2772,7 @@ def lm_cut_checks(torch, dev, args, cfg):
     import dataclasses
     import resource
 
+    from repro_torch.launch.mesh_fleet import routing
     from repro_torch.models import lm_zoo as Z
     from repro_torch.models import transformer_lm as T
 
@@ -2901,7 +2902,7 @@ def mesh_timed(torch, fn) -> tuple:
     return out, (time.perf_counter() - t0) * 1e3, runtime.launch_counts()
 
 
-def mesh_serve(torch, dev, args, cfg, cp):
+def mesh_serve(torch, dev, args, cfg, cp, measured=None):
     """Qwen3-MoE's full-width tree ``cp`` served under the (1, 4) mesh:
     the 2 x 8,192 prefill (CP blocked: ``flash_attention`` at 4 offsets a
     layer, exactly; EP with 32 experts a shard), timed beside the same
@@ -2910,7 +2911,9 @@ def mesh_serve(torch, dev, args, cfg, cp):
     0's q, k and v at 2 x 8,192 through ``_cp_attention_shard_map``
     (blocked, 4 launches) against ``blocked_attention`` over the whole
     sequence (1 launch), both on the card, at the per-row bf16 bar.
-    Returns the flash launches of the mesh prefill."""
+    Returns the flash launches of the mesh prefill; its time, drop
+    fraction, peak and logits go into ``measured["mesh_prefill"]`` (the
+    process mesh part holds its ranks beside them)."""
     from repro_torch.models import layers as L
     from repro_torch.models import lm_zoo as Z
     from repro_torch.models import transformer_lm as T
@@ -2945,6 +2948,11 @@ def mesh_serve(torch, dev, args, cfg, cp):
             raise AssertionError("mesh: bad prefill logits")
         aux = T.forward_hidden(cfg, cp, x, pos)[1]
         drop = float(aux["moe_drop_frac"])
+        if measured is not None:
+            measured["mesh_prefill"] = {
+                "ms": pre_ms, "flat_ms": flat_ms, "drop": drop,
+                "peak": peak, "layers": cfg.n_layers,
+                "logits": logits.float().cpu()}
 
         # decode from the prefill's state, its K/V stacks S long
         pad = lambda t: torch.nn.functional.pad(
@@ -3130,6 +3138,7 @@ def mesh_cut_holds(torch, dev, cut, params, cpu, x, pos) -> str:
     Returns the note for the cut's log line."""
     import dataclasses
 
+    from repro_torch.launch.mesh_fleet import routing
     from repro_torch.models import moe
     from repro_torch.models import transformer_lm as T
 
@@ -3203,7 +3212,7 @@ def lm_phase(torch, dev, args, measured=None):
         if arch in LM_SERVE_DEPTH:
             cfg = dataclasses.replace(cfg, n_layers=LM_SERVE_DEPTH[arch])
         launches, cp = lm_serve(torch, dev, args, cfg)
-        mesh_launches = (mesh_serve(torch, dev, args, cfg, cp)
+        mesh_launches = (mesh_serve(torch, dev, args, cfg, cp, measured)
                          if arch == MESH_ARCH else None)
         del cp
         torch.cuda.empty_cache()
@@ -3969,21 +3978,6 @@ def scan_bwd_row(torch, dev, flush, cfg, launches, ab=()):
 
 
 @contextlib.contextmanager
-def float32_compute(torch, Z, T):
-    """The loss in float32, as the CPU parity tests run it: the bf16
-    compute cast and the embedding's bf16 output set aside."""
-    import functools
-
-    saved = Z._cast_compute, Z.embed_input
-    Z._cast_compute = lambda params, dtype=None: params
-    Z.embed_input = functools.partial(T.embed_input, dtype=torch.float32)
-    try:
-        yield
-    finally:
-        Z._cast_compute, Z.embed_input = saved
-
-
-@contextlib.contextmanager
 def last_tile_dropped(torch):
     """A fault planted in both backward kernels, the control of the bf16
     train step's gradient bar: the gradients of the last FAULT_TAIL
@@ -4040,9 +4034,9 @@ def leaf_rel(got, want) -> float:
 
 
 def lm_train_cut(torch, dev, args, cfg):
-    """Full width, depth cut as ``LM_CUT_OF`` says (``LM_CUT``, 2 layers
-    at B 2, S 256, for the dense and ssm archs; the moe archs 1 layer at
-    B 1, S 128; zamba2 one superlayer): every gradient leaf of one train
+    """Full width, depth cut as ``LM_TRAIN_CUT_OF`` says (the dense and
+    ssm archs 1 layer at B 2, S 256; the moe archs 1 layer at B 1, S
+    128; zamba2 one superlayer): every gradient leaf of one train
     step on the card against the CPU.  In float32 the loss within
     ATOL_LOSS and each leaf within RTOL_GRAD of its max |grad|, a moe
     arch's experts the same for every token; in bf16 each leaf within
@@ -4052,10 +4046,10 @@ def lm_train_cut(torch, dev, args, cfg):
     backward kernels zeroed (the bf16 loss is logged: the forward is
     held by the bf16 prefill logits of ``lm_cut_checks``).  On Qwen3-MoE's
     cut, :func:`mesh_train_holds` too."""
+    from repro_torch.launch.mesh_fleet import float32_compute, routing
     from repro_torch.models import lm_zoo as Z
-    from repro_torch.models import transformer_lm as T
 
-    depth, B, S = LM_CUT_OF.get(cfg.name, LM_CUT)
+    depth, B, S = LM_TRAIN_CUT_OF.get(cfg.name, LM_CUT)
     cut = train_cut(cfg, depth)
     params = Z.init_params(cut, torch.Generator(device=dev).manual_seed(
         args.seed + 2), device=dev)
@@ -4064,7 +4058,7 @@ def lm_train_cut(torch, dev, args, cfg):
 
     t0 = time.perf_counter()
     ts = []                          # card and CPU seconds of each pass
-    with float32_compute(torch, Z, T):
+    with float32_compute():
         with routing() as r_g:
             l_g, g_g, _ = cut_loss_grads(torch, cut, params, toks, dev)
         ts.append(time.perf_counter())
@@ -4134,14 +4128,14 @@ def mesh_train_holds(torch, dev, cut, params, cpu, toks) -> str:
     import dataclasses
 
     from repro_torch.kernels import runtime
-    from repro_torch.models import lm_zoo as Z
+    from repro_torch.launch.mesh_fleet import float32_compute, routing
     from repro_torch.models import moe
     from repro_torch.models import transformer_lm as T
 
     paths, limit = [], T._CP_SCORE_BYTES_LIMIT
     T._CP_SCORE_BYTES_LIMIT = 1.0
     try:
-        with float32_compute(torch, Z, T), \
+        with float32_compute(), \
                 hooked(T, "_cp_attention_shard_map", lambda a, kw, out:
                        paths.append(("cp", kw["blocked"]))), \
                 hooked(moe, "_moe_apply_ep",
@@ -4169,7 +4163,7 @@ def mesh_train_holds(torch, dev, cut, params, cpu, toks) -> str:
         E, k = cut.moe.num_experts, cut.moe.top_k
         wide = dataclasses.replace(cut, moe=dataclasses.replace(
             cut.moe, capacity_factor=E / k, router_aux_weight=0.0))
-        with float32_compute(torch, Z, T):
+        with float32_compute():
             with mesh_ctx(dev):
                 l_m, g_m, m_m = cut_loss_grads(torch, wide, params, toks,
                                                dev)
@@ -4275,6 +4269,10 @@ def lm_train_phase(torch, dev, args, measured=None):
         torch.cuda.empty_cache()
     mesh = mesh_train_steps(torch, dev, args, get_arch(MESH_ARCH))
     torch.cuda.empty_cache()
+    tp = time.perf_counter()
+    process_mesh_part(torch, dev, args, get_arch(MESH_ARCH), measured)
+    torch.cuda.empty_cache()
+    tp = time.perf_counter() - tp
     t1 = time.perf_counter()
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     rows = flash_bwd_rows(torch, dev, flush, launches)
@@ -4294,10 +4292,247 @@ def lm_train_phase(torch, dev, args, measured=None):
         lm_resume(torch, dev, args, arch)
     lm_launcher()
     log(f"[lm_train] LM training phase done in "
-        f"{time.perf_counter() - t0:.1f} s (train steps {t1 - t0:.1f}, "
+        f"{time.perf_counter() - t0:.1f} s (train steps {t1 - t0 - tp:.1f}, "
+        f"the process mesh part {tp:.1f}, "
         f"backward kernel rows {t2 - t1:.1f}, card-vs-CPU cuts "
         f"{t3 - t2:.1f})")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the process mesh part of the LM training phase
+# ---------------------------------------------------------------------------
+
+# Qwen3-MoE's full-width prefill as four ranks of a (1, 4) process mesh
+# on the one card: the depth phase 9's mesh part serves (8 layers), each
+# rank holding 1/4 of the expert blocks (about 13.3 GB of bf16 a rank);
+# cut here, and say so, if four ranks do not fit beside each other
+PROCESS_PREFILL_DEPTH = LM_SERVE_DEPTH[MESH_ARCH]
+# 3 train steps on the process mesh: the full-width one-layer float32
+# cut does not fit four times with an optimizer (each rank holds the
+# whole embedding and head: its old and new parameters, its gradients
+# and the update's temporaries come to about 33 GB a rank), so the
+# steps run at the reduced config with block remat; the full-width cut
+# is held by one train step's loss and gradients
+PROCESS_TRAIN_STEPS = LM_TRAIN_STEPS
+PROCESS_FLEET_TIMEOUT_S = 480.0
+
+
+def process_fleet_jobs(args, tmp) -> list:
+    """The jobs of the process mesh part's one fleet (``launch.
+    mesh_fleet``): the full-width prefill, the float32 depth cut's
+    hidden state and one train step's loss and gradients (the CP blocked
+    branch: the score budget lowered), and 3 Adafactor train steps at
+    the reduced config."""
+    depth, B, S = LM_CUT_OF[MESH_ARCH]
+    cut = {"job": "lm", "mesh": list(MESH), "arch": MESH_ARCH,
+           "cfg": {"n_layers": depth}, "compute": "float32",
+           "cp_score_limit": 1.0, "dir": str(tmp),
+           "params": {"seed": args.seed + 2, "dtype": "float32"},
+           "batch": {"seed": args.seed + 2, "B": B, "S": S}}
+    Bp, Sp = MESH_PREFILL
+    return [
+        {"job": "lm", "mode": "prefill", "name": "prefill",
+         "mesh": list(MESH), "arch": MESH_ARCH,
+         "cfg": {"n_layers": PROCESS_PREFILL_DEPTH}, "save_hidden": False,
+         "params": {"seed": args.seed, "dtype": "bfloat16"},
+         "batch": {"seed": args.seed + 2, "B": Bp, "S": Sp},
+         "dir": str(tmp)},
+        dict(cut, name="cut", mode="grads"),
+        {"job": "lm", "mode": "train", "name": "train", "mesh": list(MESH),
+         "arch": MESH_ARCH, "reduced": True, "cfg": {"remat": "block"},
+         "compute": "float32", "cp_score_limit": 1.0, "dir": str(tmp),
+         "steps": PROCESS_TRAIN_STEPS,
+         "optimizer": {"name": "adafactor", "peak_lr": 1e-2, "warmup": 1},
+         "params": {"seed": args.seed + 7, "dtype": "float32"},
+         "batch": {"seed": args.seed + 7, "B": 2, "S": 64}},
+    ]
+
+
+def collective_note(rows) -> str:
+    """Count, wire bytes and host-staged seconds of a rank's record, by
+    what ran and its kind."""
+    from repro_torch.dist import spmd
+    return "; ".join(
+        f"{k}: {v['count']} x, {v['bytes'] / 1e6:.1f} MB, staged "
+        f"{v['staged'] / 1e6:.1f} MB, {v['s'] * 1e3:.1f} ms"
+        for k, v in sorted(spmd.summarize(rows).items()))
+
+
+def process_mesh_part(torch, dev, args, cfg, measured):
+    """Qwen3-MoE as four ranks of a (1, 4) process mesh on the one card
+    (``launch.mesh_fleet``: one OS process a shard over gloo, the
+    collectives staged through host memory, each rank holding 1/4 of the
+    expert blocks): (a) the full-width prefill at 2 x 8,192 (CP blocked,
+    EP): each rank launches flash exactly once a layer at its own
+    q_offset, all ranks' logits equal bit for bit and finite, within
+    ATOL_LOGITS of the logical mesh's (phase 9), each rank's time,
+    peak, drop fraction and collective record printed beside the
+    logical mesh's; (b) the float32 depth cut (one full-width layer, B 1
+    x 128, the score budget lowered: CP blocked), against the logical
+    mesh on the card: the prefill's hidden state within ATOL_SERVED,
+    one train step's loss within ATOL_LOSS and each gradient leaf within
+    RTOL_GRAD of its max (rank 0's whole leaves, every rank's expert
+    block against its rows; the whole leaves' digests the same on every
+    rank), each token's experts equal, flash twice and 5b once a layer
+    on every rank (block remat); (c) 3 Adafactor train steps at the
+    reduced config with block remat: the loss falling at every step and
+    the same on every rank, flash twice and 5b once a layer a step."""
+    import gc
+    import tempfile
+
+    from repro_torch.launch import mesh_fleet as MF
+    from repro_torch.models import lm_zoo as Z
+    from repro_torch.models import transformer_lm as T
+
+    t0 = time.perf_counter()
+    logical = measured["mesh_prefill"]
+    gc.collect()                       # the card is the four ranks' now
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[process] before the fleet: this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"({torch.cuda.memory_reserved() / 1e9:.2f} reserved), the card "
+        f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = process_fleet_jobs(args, tmp)
+        results = MF.launch(jobs, MESH[0] * MESH[1], device=dev.type,
+                            timeout_s=PROCESS_FLEET_TIMEOUT_S)
+        t1 = time.perf_counter()
+        by = {j["name"]: [next(x for x in r["jobs"] if x["name"] == j["name"])
+                          for r in results] for j in jobs}
+
+        # (a) the full-width prefill
+        ranks = by["prefill"]
+        L = PROCESS_PREFILL_DEPTH
+        logits = [np.load(r["file"])["logits"] for r in ranks]
+        for i, r in enumerate(ranks):
+            if r["launches"] != {"flash_attention": L}:
+                raise AssertionError(f"process mesh: rank {i}'s prefill "
+                                     f"launched {r['launches']}")
+            if not (logits[i].shape == (MESH_PREFILL[0], cfg.vocab)
+                    and np.isfinite(logits[i]).all()):
+                raise AssertionError(f"process mesh: rank {i}'s logits")
+            if not np.array_equal(logits[i], logits[0]):
+                raise AssertionError(f"process mesh: rank {i}'s logits "
+                                     f"differ from rank 0's")
+        vs_logical = (float(np.abs(logits[0] - logical["logits"].numpy())
+                            .max()) if logical["layers"] == L else None)
+        if vs_logical is not None and not vs_logical <= ATOL_LOGITS:
+            raise AssertionError(f"process mesh: logits {vs_logical} from "
+                                 f"the logical mesh's")
+        peaks = [r["peak_bytes"] / 1e9 for r in ranks]
+        log(f"[process] {cfg.name} ({L} layers, full width) as {MESH} "
+            f"process mesh ranks on one card: prefill "
+            f"{MESH_PREFILL[0]} x {MESH_PREFILL[1]} "
+            f"{' / '.join(f'{r['prefill_ms']:.1f}' for r in ranks)} ms a "
+            f"rank (the logical mesh {logical['ms']:.1f} ms, off the mesh "
+            f"{logical['flat_ms']:.1f}); flash launches "
+            f"{[r['launches']['flash_attention'] for r in ranks]} (one a "
+            f"layer a rank, at q_offset rank x {MESH_PREFILL[1] // MESH[1]}"
+            f"; the logical mesh {MESH[1] * L}); logits equal on all ranks, "
+            f"max|diff| from the logical mesh's "
+            f"{vs_logical if vs_logical is not None else 'n/a'} (tol "
+            f"{ATOL_LOGITS}); moe_drop_frac "
+            f"{ranks[0]['aux']['moe_drop_frac']:.6f} (the logical mesh "
+            f"{logical['drop']:.6f}); peak a rank "
+            f"{' / '.join(f'{p:.2f}' for p in peaks)} GB (the logical mesh "
+            f"{logical['peak'] / 1e9:.2f}); init in turns "
+            f"{' / '.join(f'{r['init_s']:.1f}' for r in ranks)} s")
+        for i, r in enumerate(ranks):
+            log(f"[process] prefill rank {i} collectives: "
+                f"{collective_note(r['record'])}")
+
+        # (b) the float32 depth cut against the logical mesh on the card
+        depth, B, S = LM_CUT_OF[MESH_ARCH]
+        cut = train_cut(cfg, depth)
+        params = Z.init_params(cut, torch.Generator(device=dev).manual_seed(
+            args.seed + 2), device=dev)
+        toks = seeded_tokens(torch, cut, B, S, args.seed + 2, dev)
+        limit, T._CP_SCORE_BYTES_LIMIT = T._CP_SCORE_BYTES_LIMIT, 1.0
+        try:
+            with MF.float32_compute(), mesh_ctx(dev):
+                with MF.routing() as r_h, torch.no_grad():
+                    x = Z.embed_input(cut, params, toks)
+                    pos = torch.arange(S, device=dev)[None].expand(B, S)
+                    h_ref = T.forward_hidden(cut, params, x, pos)[0]
+                with MF.routing() as r_g:
+                    l_ref, g_ref, _ = cut_loss_grads(torch, cut, params,
+                                                     toks["tokens"], dev)
+        finally:
+            T._CP_SCORE_BYTES_LIMIT = limit
+        names = [n for n, _ in MF._paths(params)]
+        del params
+        rel, l_err, h_err = 0.0, 0.0, 0.0
+        want_launch = train_launches(cut)
+        for i, r in enumerate(by["cut"]):
+            got = np.load(r["file"])
+            h_err = max(h_err, float(np.abs(got["hidden"]
+                                            - h_ref.cpu().numpy()).max()))
+            # the forward's routing (the logical mesh routes shard by
+            # shard; block remat's recompute may stop before routing)
+            for what, key, ref in (("prefill", "hidden_experts/0", r_h),
+                                   ("train", "experts/0", r_g)):
+                if not np.array_equal(got[key], ref[i][1].numpy()):
+                    raise AssertionError(f"process mesh cut: rank {i}'s "
+                                         f"{what} experts differ")
+            if r["launches"] != want_launch:
+                raise AssertionError(f"process mesh cut: rank {i} launched "
+                                     f"{r['launches']}, expected "
+                                     f"{want_launch}")
+            if r["whole_grad_digest"] != by["cut"][0]["whole_grad_digest"]:
+                raise AssertionError(f"process mesh cut: rank {i}'s whole "
+                                     f"gradients differ from rank 0's")
+            l_err = max(l_err, abs(r["metrics"]["loss"] - l_ref))
+            for name, g in zip(names, g_ref):
+                key = f"grad/{name}"
+                if key not in got.files:
+                    continue
+                mine = torch.from_numpy(got[key]).to(dev)
+                if name in r["held"]:
+                    size = mine.shape[1]
+                    g = g.narrow(1, i * size, size)
+                rel = max(rel, float((mine - g).abs().max())
+                          / max(float(g.abs().max()), 1e-30))
+            del got
+        del g_ref
+        if not (h_err <= ATOL_SERVED and l_err <= ATOL_LOSS
+                and rel <= RTOL_GRAD):
+            raise AssertionError(f"process mesh cut: hidden {h_err}, loss "
+                                 f"{l_err}, gradients {rel} of a leaf's max")
+        cut_peaks = [r["peak_bytes"] / 1e9 for r in by["cut"]]
+        log(f"[process] {cfg.name} float32 cut ({depth} layer, B {B} x S "
+            f"{S}, CP blocked, EP) as {MESH} process mesh ranks against the "
+            f"logical mesh on the card: hidden max|diff| {h_err:.3g} (tol "
+            f"{ATOL_SERVED}), one train step's loss |diff| {l_err:.3g} (tol "
+            f"{ATOL_LOSS}) and gradients {rel:.3g} of a leaf's max (tol "
+            f"{RTOL_GRAD}), each token's experts equal, launches a rank "
+            f"{want_launch} (exact), peak a rank "
+            f"{' / '.join(f'{p:.2f}' for p in cut_peaks)} GB; rank 0 "
+            f"collectives: {collective_note(by['cut'][0]['record'])}")
+
+        # (c) 3 Adafactor train steps at the reduced config
+        ranks = by["train"]
+        red = MF.arch_config(jobs[-1])
+        want = train_launches(red)
+        for i, r in enumerate(ranks):
+            losses = r["losses"]
+            if r["losses"] != ranks[0]["losses"] or not all(
+                    b < a for a, b in zip(losses, losses[1:])):
+                raise AssertionError(f"process mesh train: rank {i}'s "
+                                     f"losses {losses}")
+            if any(c != want for c in r["launches"]):
+                raise AssertionError(f"process mesh train: rank {i} "
+                                     f"launched {r['launches']}")
+        log(f"[process] reduced {cfg.name} (block remat, float32, CP "
+            f"blocked, EP, Adafactor) trained {PROCESS_TRAIN_STEPS} steps as {MESH} "
+            f"process mesh ranks on the card: losses "
+            f"{[round(x, 5) for x in ranks[0]['losses']]} on every rank, "
+            f"step ms {[round(x, 1) for x in ranks[0]['step_ms']]}, "
+            f"launches a step {want} (exact); the fleet "
+            f"{t1 - t0:.1f} s (rank 0's jobs: "
+            f"{', '.join(f'{j['name']} {j['wall_s']:.1f}' for j in results[0]['jobs'])}"
+            f" s), the part {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------

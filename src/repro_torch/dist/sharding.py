@@ -19,7 +19,8 @@ dim the mapping does not divide.
 
 The port's mesh is logical (``launch.mesh``): every shard lives on the
 mesh's one device and holds whole tensors, and there is no GSPMD to
-hint.  So ``constrain`` and ``gather_fsdp`` are the identity, and
+hint; on a process mesh every process holds whole tensors outside the
+bodies.  So ``constrain`` and ``gather_fsdp`` are the identity, and
 ``named_shardings`` returns the sanitized spec tree itself.  What a
 mesh changes is which path a model takes (``axis_for``,
 ``axis_size_of``) and the explicit ``shard_map`` bodies: context
@@ -38,11 +39,28 @@ generator that yields each collective and receives its result:
 The executor advances every shard to its next collective, checks that
 all of them asked for the same one, computes it over each group's list
 of tensors (``torch.cat``, ``split``, a sum in shard order) and sends
-each shard its result.  That is deterministic and needs no threads; the
-collectives are tensor ops, so autograd runs through them (the
-all-gather's transpose, a reduce-scatter of the gradient, falls out of
-``cat``).  A shard that raises closes the others and the error
-propagates.
+each shard its result.  That is deterministic and needs no threads.  A
+shard that raises closes the others and the error propagates.
+
+Under autograd every sum the executor implies is explicit and in shard
+order (row-major over the mesh axes), never left to autograd's
+accumulation.  The cut of the inputs is one autograd node
+(:class:`_Boundary`) that hands back, in the backward, each input's
+shards' gradient blocks put together, those of the shards that share a
+block (an input replicated over an axis) added in shard order; the
+assembly of the outputs is one node too; a collective (:class:`_Joint`)
+is one node for its whole group whose backward is its transpose (an
+all-gather's: the members' gradients added in shard order, each member
+its own piece; an all-to-all's: the inverse all-to-all; ``pmean``'s:
+the same mean).  The
+process mesh (``launch.mesh.make_process_mesh``) runs one shard a
+process and the same arithmetic over ``torch.distributed`` (``dist.spmd``,
+behind :func:`shard_map`), so the two executors give the same bits.
+
+On a process mesh an input whose spec is a :class:`Held` is this
+process's block already (the expert-stacked weights, which four ranks
+of a full-width model could not each hold whole); on the logical mesh a
+``Held`` spec is its ``P``.
 
 Under the dry run's cost trace (``launch.op_cost.CostMode``) the
 executor charges each shard's body ops to that shard
@@ -97,6 +115,15 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
+
+
+class Held(P):
+    """A ``P`` for an input the caller holds as its own block on a process
+    mesh (``dist.spmd.hold_blocks``): the executor takes it as the
+    shard's view as it is.  On the logical mesh it is the ``P`` itself."""
+
+    def __repr__(self) -> str:
+        return f"Held{tuple.__repr__(self)}"
 
 
 class ShardingRules:
@@ -284,6 +311,15 @@ def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     return x
 
 
+def held_totals(params: PyTree):
+    """The optimizer update's context for ``params``: on a process mesh
+    whose processes hold blocks of the expert-stacked leaves, the
+    update's whole-leaf sums add the other blocks' (``dist.spmd``);
+    elsewhere it changes nothing."""
+    from repro_torch.dist import spmd
+    return spmd.held_totals(params)
+
+
 def gather_fsdp(params: PyTree) -> PyTree:
     """The JAX package's per-layer un-sharding of the fsdp weight dims:
     the identity here, where every shard holds whole weights."""
@@ -462,16 +498,15 @@ def _index(mesh: Mesh, coords: Tuple[int, ...], names) -> int:
 
 def _compute(c: _Collective, xs: list) -> list:
     """Collective ``c`` over the group's tensors ``xs`` (in group order):
-    each member's result."""
+    each member's result, contiguous whatever the layouts of ``xs`` (so
+    every op after it runs on the same layout on either executor: a
+    reduction's order follows its operand's strides)."""
     a, n = dict(c.args), len(xs)
     if c.kind == "all_gather":
         out = (torch.cat if a["tiled"] else torch.stack)(xs, dim=a["axis"])
-        return [out] * n
+        return [out.contiguous()] * n
     if c.kind == "pmean":
-        total = xs[0]
-        for x in xs[1:]:
-            total = total + x
-        return [total / n] * n
+        return [(_sum_in_order(xs) / n).contiguous()] * n
     split, concat = a["split_axis"], a["concat_axis"]
     if xs[0].shape[split] % n:
         raise ValueError(f"all_to_all: dim {split} of {tuple(xs[0].shape)} "
@@ -481,10 +516,60 @@ def _compute(c: _Collective, xs: list) -> list:
                          f"{tuple(xs[0].shape)} must be the group size {n}")
     parts = [x.chunk(n, dim=split) for x in xs]
     if a["tiled"]:
-        return [torch.cat([p[i] for p in parts], dim=concat)
+        return [torch.cat([p[i] for p in parts], dim=concat).contiguous()
                 for i in range(n)]
-    return [torch.stack([p[i].squeeze(split) for p in parts], dim=concat)
+    return [torch.stack([p[i].squeeze(split) for p in parts],
+                        dim=concat).contiguous() for i in range(n)]
+
+
+def _sum_in_order(xs: list) -> torch.Tensor:
+    total = xs[0]
+    for x in xs[1:]:
+        total = total + x
+    return total
+
+
+def _inverse(c: _Collective) -> _Collective:
+    """The all-to-all that undoes the all-to-all ``c``."""
+    a = dict(c.args)
+    return _Collective("all_to_all", None, c.names,
+                       (("split_axis", a["concat_axis"]),
+                        ("concat_axis", a["split_axis"]),
+                        ("tiled", a["tiled"])))
+
+
+def _transpose(c: _Collective, gs: list) -> list:
+    """The transpose of collective ``c`` over its members' result
+    gradients ``gs`` (in group order): each member's input gradient."""
+    if c.kind == "pmean":
+        return _compute(c, gs)
+    if c.kind == "all_to_all":
+        return _compute(_inverse(c), gs)
+    a, n = dict(c.args), len(gs)
+    total = _sum_in_order(gs)
+    if not a["tiled"]:
+        return [total.select(a["axis"], i).contiguous() for i in range(n)]
+    size = total.shape[a["axis"]] // n
+    return [total.narrow(a["axis"], i * size, size).contiguous()
             for i in range(n)]
+
+
+class _Joint(torch.autograd.Function):
+    """A collective over its group's tensors as one autograd node whose
+    backward is its transpose (:func:`_transpose`)."""
+
+    @staticmethod
+    def forward(ctx, c, *xs):
+        ctx.c = c
+        seen, outs = set(), []
+        for o in _compute(c, list(xs)):
+            outs.append(o.clone() if id(o) in seen else o)  # one a member
+            seen.add(id(o))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *_transpose(ctx.c, list(gs)))
 
 
 def _spec_names(mesh: Mesh, spec: P) -> list:
@@ -539,29 +624,95 @@ def _shard_view(mesh: Mesh, coords, spec: P, x):
     return x
 
 
-def _assemble(mesh: Mesh, coords: list, spec: P, blocks: list):
+def _assemble(mesh: Mesh, coords: list, spec: P, blocks: list, *,
+              add: bool = False):
     """The global value of one output from each shard's block: blocks
     concatenated along the dims ``spec`` maps, in shard order; over the
     mesh axes it does not name, shard 0's (a ``P()`` output is shard
-    0's value, which the body made the same on every shard)."""
+    0's value, which the body made the same on every shard) or, with
+    ``add``, the sum of the shards' blocks in shard order (the gradient
+    of an input replicated over those axes)."""
     dims = _spec_names(mesh, spec)
-    used = {nm for names in dims for nm in names}
     at = {}
     for c, b in zip(coords, blocks):
-        pos = dict(zip(mesh.axis_names, c))
-        if all(pos[a] == 0 for a in mesh.axis_names if a not in used):
-            at[tuple(_index(mesh, c, names) for names in dims)] = b
-    if not dims:
-        return at[()]
+        key = tuple(_index(mesh, c, names) for names in dims)
+        if add and key in at:
+            at[key] = at[key] + b
+        elif add or _used(mesh, c, spec):
+            at[key] = b
+    out = _cat_blocks(mesh, dims, at, ())
+    return out.contiguous() if isinstance(out, torch.Tensor) else out
 
-    def cat(prefix):
-        d = len(prefix)
-        if d == len(dims):
-            return at[prefix]
-        n = math.prod(mesh.shape[nm] for nm in dims[d])
-        parts = [cat(prefix + (j,)) for j in range(n)]
-        return parts[0] if n == 1 else torch.cat(parts, dim=d)
-    return cat(())
+
+def _cat_blocks(mesh: Mesh, dims: list, at: dict, prefix: tuple):
+    """The blocks ``at`` (by their index along each dim) under ``prefix``
+    concatenated.  A module function, not a closure that calls itself:
+    such a closure is a reference cycle, and its blocks (activations, or
+    a backward's gradient blocks, GBs at full width) would live on until
+    the cyclic garbage collector ran."""
+    d = len(prefix)
+    if d == len(dims):
+        return at[prefix]
+    n = math.prod(mesh.shape[nm] for nm in dims[d])
+    parts = [_cat_blocks(mesh, dims, at, prefix + (j,)) for j in range(n)]
+    return parts[0] if n == 1 else torch.cat(parts, dim=d)
+
+
+class _Boundary(torch.autograd.Function):
+    """One autograd node for all of a ``shard_map``'s inputs that need a
+    gradient (its cut), or all of its outputs (its assembly):
+    ``fwd(xs) -> outputs``, ``bwd(output grads) -> input grads``.  One
+    node, so the shards' gradients leave a body together and the nodes
+    around it run in the same order on either executor."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *xs):
+        ctx.bwd = bwd
+        return tuple(fwd(list(xs)))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *ctx.bwd(list(gs)))
+
+
+def _needs_grad(x) -> bool:
+    return (isinstance(x, torch.Tensor) and x.requires_grad
+            and torch.is_grad_enabled())
+
+
+def _leaves(specs, trees) -> list:
+    """(spec, leaf) of every leaf of ``trees`` that needs a gradient, in
+    ``_map_specs`` order."""
+    out = []
+    for sp, t in zip(specs, trees):
+        _map_specs(sp, t, lambda spec, x: out.append((spec, x)) if
+                   _needs_grad(x) else None)
+    return out
+
+
+def _cut_all(mesh: Mesh, coords: list, in_specs, args) -> list:
+    """Each shard's views of ``args`` (a list a shard), the views of the
+    inputs that need a gradient made by one :class:`_Boundary` whose
+    backward puts each input's gradient together from the shards'
+    blocks, adding those of shards that share a block in shard order."""
+    grad = _leaves(in_specs, args)
+    n = len(coords)
+    if grad:
+        specs = [sp for sp, _ in grad]
+        flat = _Boundary.apply(
+            lambda xs: [_shard_view(mesh, c, sp, x)
+                        for sp, x in zip(specs, xs) for c in coords],
+            lambda gs: [_assemble(mesh, coords, sp, gs[j * n:(j + 1) * n],
+                                  add=True) for j, sp in enumerate(specs)],
+            *[x for _, x in grad])
+    views = []
+    for s, c in enumerate(coords):
+        it = iter(flat[s::n]) if grad else iter(())
+        views.append([_map_specs(sp, a, lambda spec, x, c=c: next(it)
+                                 if _needs_grad(x)
+                                 else _shard_view(mesh, c, spec, x))
+                      for sp, a in zip(in_specs, args)])
+    return views
 
 
 @contextmanager
@@ -585,6 +736,10 @@ def shard_map(f, *, mesh: Mesh, in_specs, out_specs):
     if mesh.device is None:
         raise ValueError("shard_map: the mesh has no device (a shape-only "
                          "mesh)")
+    if getattr(mesh, "groups", None) is not None:     # a ProcessMesh
+        from repro_torch.dist import spmd
+        return spmd.shard_map(f, mesh=mesh, in_specs=in_specs,
+                              out_specs=out_specs)
 
     def run(*args):
         if not isinstance(in_specs, (tuple, list)) or len(in_specs) != len(
@@ -595,11 +750,10 @@ def shard_map(f, *, mesh: Mesh, in_specs, out_specs):
                                           for n in mesh.axis_sizes)))
         outs = [None] * len(coords)
         gens = {}
+        per_shard = _cut_all(mesh, coords, in_specs, args)
         try:
             for s, c in enumerate(coords):
-                views = [_map_specs(sp, a, lambda spec, x, c=c:
-                                    _shard_view(mesh, c, spec, x))
-                         for sp, a in zip(in_specs, args)]
+                views = per_shard[s]
                 with _in_shard(mesh, c):
                     r = f(*views)
                 if inspect.isgenerator(r):
@@ -657,11 +811,17 @@ def _collect(mesh: Mesh, coords: list, asked: dict) -> dict:
     trace = op_cost.active()
     for members in groups.values():
         members.sort(key=lambda s: _index(mesh, coords[s], names))
+        xs = [asked[s].x for s in members]
+        if any(_needs_grad(x) for x in xs):
+            compute = lambda c, xs: list(_Joint.apply(
+                _Collective(c.kind, None, c.names, c.args), *xs))
+        else:
+            compute = _compute
         if trace is None:
-            res = _compute(first, [asked[s].x for s in members])
+            res = compute(first, xs)
         else:      # a dry run: charged as the wire's bytes, a shard each
             with trace.quiet():
-                res = _compute(first, [asked[s].x for s in members])
+                res = compute(first, xs)
             for s, r in zip(members, res):
                 if len(members) > 1:       # over one shard: no wire
                     op_cost.record_collective(
@@ -671,21 +831,53 @@ def _collect(mesh: Mesh, coords: list, asked: dict) -> dict:
     return sent
 
 
+def _walk_outputs(specs, per_shard: list, fn):
+    """``fn(spec, blocks)`` for each output leaf (its shards' blocks), in
+    one order, into the outputs' tree (a module function: see
+    :func:`_cat_blocks`)."""
+    if isinstance(specs, P):
+        return _tree_map_multi(lambda blocks: fn(specs, blocks), per_shard)
+    if isinstance(specs, dict):
+        return {k: _walk_outputs(sp, [o[k] for o in per_shard], fn)
+                for k, sp in specs.items()}
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(_walk_outputs(sp, [o[i] for o in per_shard], fn)
+                           for i, sp in enumerate(specs))
+    raise TypeError(f"shard_map: spec {specs!r}")
+
+
+def _used(mesh: Mesh, c, spec: P) -> bool:
+    """Whether the assembly takes shard ``c``'s block of an output under
+    ``spec`` (its coordinates on the axes the spec does not name are 0)."""
+    used = {nm for names in _spec_names(mesh, spec) for nm in names}
+    pos = dict(zip(mesh.axis_names, c))
+    return all(pos[a] == 0 for a in mesh.axis_names if a not in used)
+
+
 def _put_together(mesh: Mesh, coords: list, out_specs, outs: list):
-    """The outputs' global values from the shards' outputs."""
-    def walk(specs, per_shard):
-        if isinstance(specs, P):
-            return _tree_map_multi(
-                lambda blocks: _assemble(mesh, coords, specs, blocks),
-                per_shard)
-        if isinstance(specs, dict):
-            return {k: walk(sp, [o[k] for o in per_shard])
-                    for k, sp in specs.items()}
-        if isinstance(specs, (list, tuple)):
-            return type(specs)(walk(sp, [o[i] for o in per_shard])
-                               for i, sp in enumerate(specs))
-        raise TypeError(f"shard_map: spec {specs!r}")
-    return walk(out_specs, outs)
+    """The outputs' global values from the shards' outputs; those that
+    need a gradient through one :class:`_Boundary`, whose backward gives
+    each shard its block of the gradient (zeros to a shard whose block
+    the assembly did not take)."""
+    grad = []
+    _walk_outputs(out_specs, outs, lambda spec, blocks: grad.append(
+        (spec, blocks)) if any(map(_needs_grad, blocks)) else None)
+    n = len(coords)
+    shapes = [[b.shape for b in blocks] for _, blocks in grad]
+    specs = [sp for sp, _ in grad]
+
+    def back(gs):
+        return [_shard_view(mesh, c, sp, g).contiguous()
+                if _used(mesh, c, sp) else g.new_zeros(shape)
+                for sp, sh, g in zip(specs, shapes, gs)
+                for c, shape in zip(coords, sh)]
+    done = iter(_Boundary.apply(
+        lambda xs: [_assemble(mesh, coords, sp, xs[j * n:(j + 1) * n])
+                    for j, sp in enumerate(specs)],
+        back, *[b for _, blocks in grad for b in blocks]) if grad else ())
+    return _walk_outputs(out_specs, outs, lambda spec, blocks: next(done)
+                         if any(map(_needs_grad, blocks))
+                         else _assemble(mesh, coords, spec, blocks))
 
 
 def _tree_map_multi(fn, trees: list):

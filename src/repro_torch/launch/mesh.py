@@ -6,14 +6,22 @@ shards one after another on that device (``dist.sharding.shard_map``),
 as the in-process distributed trainer runs its workers, so a mesh is
 logical: a (1, 4) mesh runs on one card.
 
+A :class:`ProcessMesh` (:func:`make_process_mesh`) is the mesh as JAX
+runs it: one OS process a shard, joined in a ``torch.distributed`` gloo
+group, each holding its own coordinates, its device and one subgroup
+for every set of axes a collective can name; ``shard_map`` then runs
+only this process's shard and its collectives cross the processes
+(``dist.spmd``).
+
 Functions, not module-level constants: importing this module touches no
 device.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+import itertools
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -63,6 +71,78 @@ def make_local_mesh(data: int = 1, model: int = 1, *,
     ``len(jax.devices())``, the sizes are taken as given: the shards run
     one after another on ``device``, so any shape fits one card."""
     return Mesh(("data", "model"), (data, model), resolve(device))
+
+
+@dataclass(frozen=True, eq=False)
+class ProcessMesh(Mesh):
+    """A mesh of one process a shard: this process's ``rank`` (the
+    row-major index of its ``coords``, as ``dist.sharding._index`` orders
+    shards), its device, and ``groups``: for each set of axes, the
+    process groups that set spans, keyed by the coordinates of the other
+    axes, each with its members' ranks (:meth:`group`)."""
+    rank: int = 0
+    coords: Tuple[int, ...] = ()
+    groups: Dict = field(default_factory=dict, repr=False)
+
+    def group(self, names) -> Tuple[object, List[int]]:
+        """(process group, member ranks in rank order) of this process's
+        group over the axes ``names``."""
+        pos = dict(zip(self.axis_names, self.coords))
+        rest = tuple(pos[a] for a in self.axis_names if a not in names)
+        return self.groups[frozenset(names)][rest]
+
+    def coords_of(self, rank: int) -> Tuple[int, ...]:
+        """The coordinates of ``rank`` (row-major over every axis)."""
+        out = []
+        for n in reversed(self.axis_sizes):
+            out.append(rank % n)
+            rank //= n
+        return tuple(reversed(out))
+
+
+def make_process_mesh(data: int = 1, model: int = 1, *,
+                      device: DeviceLike = None) -> ProcessMesh:
+    """A (data, model) mesh of one process a shard over the initialised
+    ``torch.distributed`` group, whose world size must be ``data *
+    model`` (it raises otherwise, and never falls back to a logical
+    mesh).  Rank r holds the row-major coordinates of r and runs on
+    ``cuda:{r % device_count}`` (the default; it raises without a card)
+    or on the CPU when ``device="cpu"`` is asked for.  Every process
+    must call it, in the same order as its peers: it makes one gloo
+    subgroup for each group of processes that a collective over any
+    set of the axes spans (``new_group`` is collective)."""
+    import torch.distributed as tdist
+
+    if not (tdist.is_available() and tdist.is_initialized()):
+        raise RuntimeError("make_process_mesh: no initialised "
+                           "torch.distributed process group")
+    world, rank = tdist.get_world_size(), tdist.get_rank()
+    if world != data * model:
+        raise ValueError(f"make_process_mesh: a ({data}, {model}) mesh "
+                         f"needs {data * model} processes, the group has "
+                         f"{world}")
+    if device is None or torch.device(device).type == "cuda":
+        resolve("cuda")
+        dev = torch.device(f"cuda:{rank % torch.cuda.device_count()}")
+    elif torch.device(device).type == "cpu":
+        dev = torch.device("cpu")
+    else:
+        raise ValueError(f"make_process_mesh: device {device!r}: a rank "
+                         f"runs on its card or, when asked, on the CPU")
+    names, sizes = ("data", "model"), (data, model)
+    coords_of = ProcessMesh(names, sizes, None, 0, ()).coords_of
+    groups: Dict = {}
+    for k in range(1, len(names) + 1):
+        for subset in itertools.combinations(names, k):
+            by_rest: Dict = {}
+            for r in range(world):
+                pos = dict(zip(names, coords_of(r)))
+                by_rest.setdefault(tuple(pos[a] for a in names
+                                         if a not in subset), []).append(r)
+            groups[frozenset(subset)] = {
+                rest: (tdist.new_group(members, backend="gloo"), members)
+                for rest, members in sorted(by_rest.items())}
+    return ProcessMesh(names, sizes, dev, rank, coords_of(rank), groups)
 
 
 # One NVIDIA H100 SXM at its 700 W power limit (NVIDIA's data sheet; dense

@@ -150,12 +150,15 @@ def launch(n_processes: int, n_local_devices: int, *,
            run_cfg: Optional[Dict[str, Any]] = None,
            device: str = "cuda",
            extra_env: Optional[Dict[str, str]] = None,
-           timeout_s: float = 900.0) -> List[Tuple[str, str]]:
+           timeout_s: float = 900.0,
+           worker_cmd: Sequence[str] = WORKER_CMD
+           ) -> List[Tuple[str, str]]:
     """Spawn the P-process fleet and wait for it.
 
     ``run_cfg`` (the workload, see :func:`worker_main`) travels in
-    ``REPRO_MH_RUN_CFG``.  For the card the kernels are built here
-    first, so the P workers do not each run ``nvcc``.  Returns
+    ``REPRO_MH_RUN_CFG``; ``worker_cmd`` is the workers' command (this
+    module's, or ``launch.mesh_fleet``'s).  For the card the kernels are
+    built here first, so the P workers do not each run ``nvcc``.  Returns
     [(stdout, stderr)] per worker on success; on any worker failure or
     timeout the whole fleet is killed and a RuntimeError carries every
     worker's output tail (a peer stuck at a barrier is a symptom — the
@@ -176,7 +179,7 @@ def launch(n_processes: int, n_local_devices: int, *,
         if extra_env:
             env.update(extra_env)
         procs.append(subprocess.Popen(
-            list(WORKER_CMD), env=env, text=True,
+            list(worker_cmd), env=env, text=True,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE))
     # drain every worker's pipes CONCURRENTLY: a worker that fills its
     # pipe buffer while a sibling is being waited on would block on

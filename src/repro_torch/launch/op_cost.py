@@ -20,7 +20,9 @@ op, forward and backward, and charges it:
     - views and aliases (``view``, ``expand``, ``transpose``,
       ``permute``, ``slice``, ``select``, ``squeeze``, ``split``,
       ``as_strided``, ``alias``, ``detach``, ...: every op whose schema
-      says its output aliases an input) are free;
+      says its output aliases an input; and ``_unsafe_view``, which
+      shares its input's storage though its schema does not say so:
+      every 3-D ``matmul`` ends in one) are free;
     - an allocation (``empty``, ``empty_like``, ...) is free: it moves
       no byte;
     - an op with no tensor operand (``zeros``, ``arange``, ...), a fill
@@ -86,7 +88,7 @@ _FLOP_OPS = frozenset((aten.mm, aten.bmm, aten.addmm, aten.baddbmm,
                        aten.convolution_backward))
 _FREE = frozenset((aten.empty, aten.empty_like, aten.empty_strided,
                    aten.new_empty, aten.new_empty_strided, aten.detach,
-                   aten.alias, aten.lift_fresh))
+                   aten.alias, aten.lift_fresh, aten._unsafe_view))
 _WRITE_ONLY = frozenset((aten.fill_, aten.zero_, aten.zeros_like,
                          aten.ones_like, aten.full_like, aten.new_zeros,
                          aten.new_ones, aten.new_full, aten.fill))

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.device import resolve
+from repro_torch.dist.sharding import held_totals
 from repro_torch.models.layers import chunked_softmax_xent, rms_norm
 from repro_torch.models.transformer_lm import (check_family, decode_forward,
                                                embed_input, forward_hidden,
@@ -77,17 +78,20 @@ def _cast_compute(params: PyTree, dtype=COMPUTE_DTYPE) -> PyTree:
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                dtype=torch.float32, *, device=None) -> PyTree:
+                dtype=torch.float32, *, device=None, keep=None) -> PyTree:
     """The parameter tree on ``device`` (default: the card), drawn on the
     generator's device; give a generator on the target device for a
-    full-size model."""
+    full-size model.  ``keep(draw, dim)``, if given, makes each
+    expert-stacked moe leaf from its draw ``draw()`` (``dist.spmd.
+    expert_keeper``: a process mesh's block of the drawn leaf), so no
+    more than one whole such leaf is ever held."""
     device = resolve(device)
 
     def to(tree):      # a no-op for leaves already on the device
         if isinstance(tree, dict):
             return {k: to(v) for k, v in tree.items()}
         return tree.to(device)
-    return to(init_lm(cfg, generator, dtype))
+    return to(init_lm(cfg, generator, dtype, keep=keep))
 
 
 def param_specs(cfg: ArchConfig, dtype=torch.float32) -> PyTree:
@@ -188,8 +192,9 @@ def make_train_step(cfg: ArchConfig,
             loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
-        new_params, new_opt = optimizer.update(
-            tree_unflatten(params, list(grads)), state["opt"], params)
+        with held_totals(params):
+            new_params, new_opt = optimizer.update(
+                tree_unflatten(params, list(grads)), state["opt"], params)
         return ({"params": new_params, "opt": new_opt},
                 {k: v.detach() for k, v in metrics.items()})
 

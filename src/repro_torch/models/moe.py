@@ -35,8 +35,11 @@ one all-to-all sends each expert's slots to the shard that holds its
 results back.  Its balance loss and drop fraction are each shard's,
 averaged over the shards (``pmean``), not the dense path's global
 statistic.  Otherwise (off a mesh, and for decode, whose one token
-does not split) the dense path.  The port's shards run one after
-another on one device (``dist.sharding.shard_map``).
+does not split) the dense path.  On the logical mesh the shards run one
+after another on one device; on a process mesh each process runs its
+own and holds only its block of the expert weights (``sharding.Held``,
+``dist.spmd``), so there the tree must hold those blocks and a moe
+layer must take this path.
 
 Ties in top-k go to the lower expert index, as ``lax.top_k`` breaks
 them: :func:`_top_k` takes the first k of a stable descending sort
@@ -60,7 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.dist.sharding import (P, active_mesh, all_to_all,
+from repro_torch.dist.sharding import (Held, P, active_mesh, all_to_all,
                                        axis_for, axis_size_of, constrain,
                                        pmean, shard_map)
 from repro_torch.models.layers import dense_init, mlp_apply
@@ -73,10 +76,12 @@ def moe_capacity(moe: MoEConfig, seq_len: int) -> int:
 
 
 def moe_init(generator: torch.Generator, moe: MoEConfig, d_model: int,
-             act: str, dtype=torch.float32, *, lead: Tuple[int, ...] = ()
-             ) -> dict:
+             act: str, dtype=torch.float32, *, lead: Tuple[int, ...] = (),
+             keep=None) -> dict:
     """Parameters of one MoE layer, or of ``lead`` stacked layers, drawn
-    on the generator's device; the router is float32 whatever ``dtype``."""
+    on the generator's device; the router is float32 whatever ``dtype``.
+    ``keep(draw, dim)``, if given, makes each expert-stacked leaf (expert
+    dim ``dim``) from ``draw()``, the leaf's draw."""
     E, f = moe.num_experts, moe.expert_d_ff
     lead = tuple(lead)
 
@@ -84,13 +89,18 @@ def moe_init(generator: torch.Generator, moe: MoEConfig, d_model: int,
         s = scale if scale is not None else shape[-2] ** -0.5
         return dense_init(generator, lead + shape, dtype=dt, scale=s)
 
+    def experts(shape):
+        if keep is None:
+            return dense(shape)
+        return keep(lambda: dense(shape), len(lead))
+
     p = {
         "router": dense((d_model, E), torch.float32, d_model ** -0.5),
-        "w_up": dense((E, d_model, f)),
-        "w_down": dense((E, f, d_model)),
+        "w_up": experts((E, d_model, f)),
+        "w_down": experts((E, f, d_model)),
     }
     if act == "swiglu":
-        p["w_gate"] = dense((E, d_model, f))
+        p["w_gate"] = experts((E, d_model, f))
     if moe.shared_expert_d_ff:
         sf = moe.shared_expert_d_ff
         shared = {"w_up": dense((d_model, sf)), "w_down": dense((sf, d_model))}
@@ -299,7 +309,8 @@ def _moe_apply_ep(params: dict, x: torch.Tensor, moe: MoEConfig, act: str
         if name == "shared":
             pspecs[name] = {n: P(*([None] * l.dim())) for n, l in leaf.items()}
         elif name in ("w_gate", "w_up", "w_down") and leaf.dim() == 3:
-            pspecs[name] = P(ep_ax, None, None)
+            # a process mesh's processes hold only their block of these
+            pspecs[name] = Held(ep_ax, None, None)
         else:
             pspecs[name] = P(*([None] * leaf.dim()))
 

@@ -123,7 +123,8 @@ def _init_mlp(gen, cfg: ArchConfig, dtype, lead: tuple) -> dict:
     return {n: _dense(gen, lead, s, dtype) for n, s in sorted(shapes.items())}
 
 
-def _init_block(gen, cfg: ArchConfig, dtype, lead: tuple) -> dict:
+def _init_block(gen, cfg: ArchConfig, dtype, lead: tuple,
+                keep=None) -> dict:
     p = {
         "ln1": _ones(gen, lead + (cfg.d_model,), dtype),
         "ln2": _ones(gen, lead + (cfg.d_model,), dtype),
@@ -131,7 +132,7 @@ def _init_block(gen, cfg: ArchConfig, dtype, lead: tuple) -> dict:
     }
     if cfg.moe is not None:
         p["moe"] = moe_init(gen, cfg.moe, cfg.d_model, cfg.act, dtype,
-                            lead=lead)
+                            lead=lead, keep=keep)
     else:
         p["mlp"] = _init_mlp(gen, cfg, dtype, lead)
     return p
@@ -149,8 +150,9 @@ def _init_mamba_layer(gen, cfg: ArchConfig, dtype, lead: tuple) -> dict:
 
 
 def init_lm(cfg: ArchConfig, generator: torch.Generator,
-            dtype=torch.float32) -> dict:
-    """The parameter tree, drawn on the generator's device."""
+            dtype=torch.float32, *, keep=None) -> dict:
+    """The parameter tree, drawn on the generator's device (``keep``:
+    ``lm_zoo.init_params``'s)."""
     check_family(cfg)
     gen, L, d = generator, cfg.n_layers, cfg.d_model
     params: Dict[str, Any] = {}
@@ -167,7 +169,7 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
             gen, cfg, dtype, (n_super, cfg.attn_every - 1))
         params["shared"] = _init_block(gen, cfg, dtype, ())
     else:
-        params["layers"] = _init_block(gen, cfg, dtype, (L,))
+        params["layers"] = _init_block(gen, cfg, dtype, (L,), keep)
     params["final_norm"] = _ones(gen, (d,), dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, cfg.vocab), dtype=dtype,

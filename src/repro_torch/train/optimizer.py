@@ -19,10 +19,17 @@ its decoupled decay ``p - lr * (step + wd * p)``.
 A schedule takes the host-side integer step (the optimizer states count
 steps on the host, so no update syncs with the device) and returns a
 float; its arithmetic is float32, as the JAX schedules compute it.
+
+Two updates take a sum over a whole leaf: the global norm's squares and
+Adafactor's RMS.  A process of a process mesh may hold only a block of a
+leaf (``dist.spmd``); under :func:`leaf_totals` those sums add the other
+blocks' partial sums, and every other leaf's are as before.
 """
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
@@ -103,10 +110,47 @@ def linear_warmup_schedule(peak_lr: float, warmup_steps: int) -> Schedule:
     return sched
 
 
+class _Hook(threading.local):
+    totals = None
+
+
+_HOOK = _Hook()
+
+
+@contextmanager
+def leaf_totals(totals):
+    """Within: the whole-leaf sums of the updates ask ``totals`` whether
+    leaf ``i`` (in :func:`tree_leaves` order) is held as a block
+    (``totals.held(i)``), of how many blocks (``totals.blocks(i)``), and
+    for the sum over every block of this block's partial sum
+    (``totals.total(i, partial)``)."""
+    prev, _HOOK.totals = _HOOK.totals, totals
+    try:
+        yield
+    finally:
+        _HOOK.totals = prev
+
+
+def _held(i: int) -> bool:
+    return _HOOK.totals is not None and _HOOK.totals.held(i)
+
+
+def _leaf_sum(i: int, x: torch.Tensor) -> torch.Tensor:
+    s = torch.sum(x)
+    return _HOOK.totals.total(i, s) if _held(i) else s
+
+
+def _leaf_mean(i: int, x: torch.Tensor) -> torch.Tensor:
+    if not _held(i):
+        return x.mean()
+    return _HOOK.totals.total(i, torch.sum(x)) / (
+        x.numel() * _HOOK.totals.blocks(i))
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(torch.stack(
-        [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    ).sum())
+        [_leaf_sum(i, torch.square(x.float()))
+         for i, x in enumerate(tree_leaves(tree))]).sum())
 
 
 def clip_by_global_norm(tree: Tree, max_norm: float
@@ -232,6 +276,7 @@ def adafactor_lite(lr: float | Schedule, *, decay: float = 0.8,
         # beta in float32, as the JAX update computes it
         beta = float(np.float32(1) - np.power(np.float32(step),
                                               np.float32(-decay)))
+        index = {id(p): i for i, p in enumerate(tree_leaves(params))}
 
         def upd(p, g, s):
             g = g.float()
@@ -248,7 +293,8 @@ def adafactor_lite(lr: float | Schedule, *, decay: float = 0.8,
                 s = beta * s + (1 - beta) * g2
                 v = s
             u = g / (torch.sqrt(v) + 1e-8)
-            rms = torch.sqrt(torch.square(u).mean() + 1e-12)
+            rms = torch.sqrt(_leaf_mean(index[id(p)], torch.square(u))
+                             + 1e-12)
             u = u / torch.clamp(rms, min=1.0)
             p32 = p.float()
             return (p32 - lr_t * (u + weight_decay * p32)).to(p.dtype), s

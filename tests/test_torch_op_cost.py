@@ -115,7 +115,8 @@ def _charged(fn, *args):
     return trace.total_cost()
 
 
-@pytest.mark.parametrize("rule", ["views", "gather", "index_put", "add"])
+@pytest.mark.parametrize("rule", ["views", "unsafe_view", "gather",
+                                  "index_put", "add"])
 def test_byte_rules(rule):
     x, y = meta(64, 32), meta(64, 32)
     idx = meta(10, dtype=torch.int64)
@@ -123,6 +124,19 @@ def test_byte_rules(rule):
         cost = _charged(lambda: x.view(32, 64).transpose(0, 1)[3:7]
                         .unsqueeze(0).expand(2, 4, 32).split(2, dim=1))
         assert cost["bytes"] == 0
+    elif rule == "unsafe_view":
+        # a 3-D matmul is a view, an mm and an ``_unsafe_view``, whose
+        # schema does not mark it a view though it shares the mm's storage:
+        # only the mm's operands and result are charged
+        a, b = meta(2, 8, 16), meta(16, 32)
+        with CostMode() as trace:
+            a @ b
+        cost = trace.total_cost()
+        assert cost["bytes"] == (2 * 8 * 16 + 16 * 32 + 2 * 8 * 32) * 4
+        assert cost["bytes"] == 5120
+        assert cost["flops"] == 2 * 16 * 16 * 32
+        assert trace.ops["_unsafe_view"][2] == 0
+        return
     elif rule == "gather":
         cost = _charged(lambda: x[idx])
         assert cost["bytes"] == 2 * 10 * 32 * 4 + 10 * 8
