@@ -143,13 +143,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (2, 4096, 32/4 heads, 128) in bf16, the Hopper instance, within 4e-2
    and 1.6e-2 of each row's scale, timed per call in turns with one
    ``scaled_dot_product_attention``; the general instance at
-   Nemotron-4's heads of 192 in bf16 and float32, and at head dims 320
-   (bf16) and 512 (float32), timed beside SDPA; scan (2, 4096, 8192,
+   Nemotron-4's heads of 192 in bf16 and float32 (bf16 timed beside
+   SDPA), at head dims 320 (bf16) and 512 (float32) and at Yi's heads in
+   float32 (split TF32 on the tensor cores), timed beside SDPA with the
+   float32 rows' split-TF32 bound; scan (2, 4096, 8192,
    16) in float32 within 1e-5, and at d_state 32 and 64 (these wide
-   rows, as the head dims 320 and 512, count their own call's launches:
-   no prefill runs them); with ``--ab``
-   the Hopper attention and the scan at d_state 16 in turns with the
-   other design); then, at full width cut to 2 layers (B 2,
+   rows, as the head dims 192, 320 and 512 and Yi's float32 row, count
+   their own call's launches: no prefill runs them); with ``--ab``
+   the Hopper attention, the float32 flash rows and the scan at d_state
+   16 in turns with the other design); then, at full width cut to 2
+   layers (B 2,
    S 256), the card against the CPU (``forward_hidden`` in float32
    within 1e-4, bf16 prefill and decode logits within 0.1) and the
    prefill against token-by-token decode on the card (0.15, the
@@ -220,8 +223,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    last shard's offset must fail; dk and dv exactly 0 on the keys no
    query of a shard sees; timed beside SDPA's backward with the same
    boolean mask), and the general instance in float32 at those
-   offsets; at a ragged float32 shape
-   within 1e-5 of max(1, max |grad|); the scan at Falcon's with L cut to
+   offsets; at a ragged float32 shape and at Yi's heads in float32
+   within 1e-5 of max(1, max |grad|) (with ``--ab`` in turns with the
+   other design); the scan at Falcon's with L cut to
    1,024 for the oracle, within 1e-5, and with ``--ab`` in turns with
    the other design at the full L), timed beside the plain backward
    and, for flash, the backward of one
@@ -300,6 +304,7 @@ ATOL_BF16 = 4e-2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at 700 W
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM dense TF32 tensor cores
 # special-function units: 16 exp2 results per clock per SM (throughput
 # table for compute capability 9.0), 132 SMs at the 1.98 GHz boost clock
 SFU_PER_S = 16 * 132 * 1.98e9
@@ -441,6 +446,23 @@ def bound_ms(nbytes: float, ops: float,
     t_b = nbytes / HBM_BYTES_PER_S
     t_o = max(ops / ops_per_s, exps / SFU_PER_S)
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def flash_bound(nbytes: float, flops: float, pairs: float,
+                bf16: bool) -> tuple:
+    """(ms, "bytes" or "operations", note) of a flash_attention row: bf16
+    on the bf16 tensor cores; float32 as the kernels run it, split TF32,
+    three TF32 products a float32 one on the TF32 tensor cores, with the
+    float32 FMA rate's bound (the first float32 design's floor) in the
+    note.  Each (q, key) pair's exp is an operation on the special-
+    function units either way."""
+    if bf16:
+        return bound_ms(nbytes, flops, BF16_OPS_PER_S, exps=pairs) + ("",)
+    b, by = bound_ms(nbytes, 3.0 * flops, TF32_OPS_PER_S, exps=pairs)
+    fma = bound_ms(nbytes, flops, FP32_OPS_PER_S, exps=pairs)[0]
+    return b, by, (f"split TF32: 3 x {flops:.3g} FLOP at "
+                   f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s; at the float32 "
+                   f"FMA rate {fma:.4f}")
 
 
 def in_turns(torch, lib, ab, kernel, flush, what, close=None) -> list:
@@ -1068,7 +1090,8 @@ def main() -> int:
             "library_ms", "call_ms", "library_call_ms", "shape")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys}
-        | {k: r[k] for k in ("instance", "ab", "launches_of") if k in r}
+        | {k: r[k] for k in ("instance", "ab", "launches_of", "fma_bound_ms")
+           if k in r}
         | ({"launches_of": "own call"} if r.get("path") == "widened"
            else {})
         for r in rows]}), flush=True)
@@ -2399,10 +2422,7 @@ def flash_row(torch, dev, cfg, flush, ab=()):
     bf16 (the Hopper instance), timed beside one
     scaled_dot_product_attention (a yardstick, never called by the port):
     device time from the profiler, and time per call between CUDA events
-    in turns (kernel, library, library, kernel); then at Nemotron-4-340B's
-    heads of 192, the general instance's wide template, in bf16 and
-    float32."""
-    from repro_torch.configs import get_arch
+    in turns (kernel, library, library, kernel)."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          instance)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -2447,26 +2467,11 @@ def flash_row(torch, dev, cfg, flush, ab=()):
     ops = 4.0 * D * pairs
     b, by = bound_ms(nbytes, ops, BF16_OPS_PER_S, exps=pairs)
     del q, k, v, got
-
-    wide = get_arch("nemotron-4-340b")
-    shape_w = (1, 520, wide.n_heads, wide.n_kv_heads, wide.head_dim_)
-    wide_errs = []
-    for dtype in (torch.bfloat16, torch.float32):
-        qw, kw, vw = inputs(*shape_w, dtype)
-        got_w = flash_attention(qw, kw, vw, causal=True)
-        want_w = flash_attention_ref(qw, kw, vw, causal=True)
-        what = f"flash_attention D={wide.head_dim_} {dtype}"
-        if dtype == torch.bfloat16:
-            max_err(torch, got_w, want_w, what, ATOL_BF16)
-            wide_errs.append(row_rel_err(torch, got_w, want_w, what))
-        else:
-            wide_errs.append(max_err(torch, got_w, want_w, what))
     shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
     log(f"[kernel] flash_attention ({inst})   {shape:<32} ok max|err|/max|ref| "
         f"of a row {rel:.3g} (tol {ROW_REL_BF16}; SDPA vs kernel "
-        f"{lib_rel:.3g}), max|err| {err:.3g} (tol {ATOL_BF16}); at Nemotron-4's heads "
-        f"{shape_w} bf16 {wide_errs[0]:.3g} (same bar), f32 max|err| "
-        f"{wide_errs[1]:.3g} (tol {ATOL_KERNEL}) device ms: kernel {ms:.4f}"
+        f"{lib_rel:.3g}), max|err| {err:.3g} (tol {ATOL_BF16}) device ms: "
+        f"kernel {ms:.4f}"
         f"  plain {plain_ms:.4f}  bound {b:.4f} ({by}: {ops:.3g} FLOP at "
         f"bf16 peak {ops / BF16_OPS_PER_S * 1e3:.4f}, {pairs:.3g} exp on "
         f"the special-function units {pairs / SFU_PER_S * 1e3:.4f}, "
@@ -2488,6 +2493,63 @@ def flash_row(torch, dev, cfg, flush, ab=()):
                 lambda: flash_attention(q, k, v, causal=True), flush,
                 f"flash_attention ({shape})")
     return row
+
+
+def wide_head_row(torch, dev, flush):
+    """flash_attention at Nemotron-4-340B's heads (1, 520, 96/8 heads of
+    192, causal), a head dim the Hopper instance does not take: the
+    general instance's bf16 (WMMA, the wide template) and float32 routes
+    against the plain version, the bf16 one timed beside one
+    scaled_dot_product_attention with its bound.  No path of this run
+    takes the shape: the row's launches are its own call's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         instance)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    cfg = get_arch("nemotron-4-340b")
+    B, S, Hq, Hkv, D = 1, 520, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    g = torch.Generator(device=dev).manual_seed(13)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = [torch.randn(sh, generator=g, device=dev).to(dtype)
+                   for sh in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+        got = flash_attention(q, k, v, causal=True)
+        want = flash_attention_ref(q, k, v, causal=True)
+        what = f"flash_attention D={D} {dtype}"
+        if dtype == torch.bfloat16:
+            err = max_err(torch, got, want, what, ATOL_BF16)
+            errs[dtype] = row_rel_err(torch, got, want, what)
+        else:
+            errs[dtype] = max_err(torch, got, want, what)
+    kern = lambda: flash_attention(q, k, v, causal=True)
+    plain = lambda: flash_attention_ref(q, k, v, causal=True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    ms, call = timings(torch, kern, flush)
+    lib_ms, lib_call = timings(torch, library, flush)
+    plain_ms = device_ms(torch, plain, flush, reps=3)
+    pairs = B * Hq * (S * S + S) / 2
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    b, by, _ = flash_bound(nbytes, 4.0 * D * pairs, pairs, True)
+    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
+    inst = instance(torch.bfloat16, D)
+    log(f"[kernel] flash_attention ({inst}) {shape} (Nemotron-4's heads) ok "
+        f"max|err|/max|ref| of a row {errs[torch.bfloat16]:.3g} (tol "
+        f"{ROW_REL_BF16}), max|err| {err:.3g} (tol {ATOL_BF16}); float32 "
+        f"max|err| {errs[torch.float32]:.3g} (tol {ATOL_KERNEL}) device ms: "
+        f"kernel {ms:.4f}  plain {plain_ms:.4f}  bound {b:.4f} ({by})  "
+        f"library {lib_ms:.4f}; ms per call: kernel {call:.4f}  library "
+        f"{lib_call:.4f}")
+    return dict(name="flash_attention", route="cuda", instance=inst,
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/"
+                         "flash_attention.py:82",
+                max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by, library_ms=lib_ms,
+                library_call_ms=lib_call, shape=shape, path="widened",
+                launches=own_launches(torch, "flash_attention", kern))
 
 
 def arch_flash_row(torch, dev, cfg, flush, launches, ab=()):
@@ -2593,11 +2655,22 @@ def general_turns(torch, general, tree, flush, what) -> list:
     return turns
 
 
-def wide_flash_rows(torch, dev, flush):
-    """The general instance at head dims past 256 (output columns in
-    chunks, scores over slices of D), against its plain version, timed
-    beside one scaled_dot_product_attention: D 320 in bf16, causal, and
-    D 512 in float32, not causal, both GQA 4:1."""
+# float32 forward rows past the Hopper instance (B, S, Hq, Hkv, D, dtype,
+# causal): D 320 in bf16 and D 512 in float32 (head dims past the old
+# limit of 256), and Yi-6B's heads in float32 (the general instance's
+# float32 route at a model's head dim, the rows kernel)
+WIDE_FLASH_SHAPES = ((1, 2048, 8, 2, 320, "bfloat16", True),
+                     (1, 1024, 8, 2, 512, "float32", False),
+                     (2, 2048, 32, 4, 128, "float32", True))
+
+
+def wide_flash_rows(torch, dev, flush, ab=()):
+    """The general instance at WIDE_FLASH_SHAPES, against its plain
+    version, timed beside one scaled_dot_product_attention; the float32
+    rows also in turns with each ``ab`` directory's design (split TF32 on
+    the tensor cores against the scalar FMAs of earlier commits).  No
+    path of this run takes these shapes: each row's launches are its own
+    call's."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          instance)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -2605,9 +2678,8 @@ def wide_flash_rows(torch, dev, flush):
     F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(19)
     rows = []
-    for B, S, Hq, Hkv, D, dtype, causal in (
-            (1, 2048, 8, 2, 320, torch.bfloat16, True),
-            (1, 1024, 8, 2, 512, torch.float32, False)):
+    for B, S, Hq, Hkv, D, dname, causal in WIDE_FLASH_SHAPES:
+        dtype = getattr(torch, dname)
         q, k, v = [torch.randn(sh, generator=g, device=dev).to(dtype)
                    for sh in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
         kern = lambda: flash_attention(q, k, v, causal=causal)
@@ -2628,17 +2700,16 @@ def wide_flash_rows(torch, dev, flush):
         plain_ms = device_ms(torch, plain, flush, reps=3)
         pairs = B * Hq * ((S * S + S) / 2 if causal else S * S)
         nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-        b, by = bound_ms(nbytes, 4.0 * D * pairs,
-                         BF16_OPS_PER_S if dtype == torch.bfloat16
-                         else FP32_OPS_PER_S, exps=pairs)
-        shape = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
-                 f"{str(dtype).split('.')[-1]} "
+        b, by, note = flash_bound(nbytes, 4.0 * D * pairs, pairs,
+                                  dtype == torch.bfloat16)
+        shape = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} {dname} "
                  f"{'causal' if causal else 'full'}")
         log(f"[kernel] flash_attention ({instance(dtype, D)}) {shape} ok "
             f"max|err| {err:.3g} device ms: kernel {ms:.4f}  plain "
-            f"{plain_ms:.4f}  bound {b:.4f} ({by})  library {lib_ms:.4f}; "
-            f"ms per call: kernel {call:.4f}  library {lib_call:.4f}")
-        rows.append(dict(
+            f"{plain_ms:.4f}  bound {b:.4f} ({by}{'; ' + note if note else ''})"
+            f"  library {lib_ms:.4f}; ms per call: kernel {call:.4f}  "
+            f"library {lib_call:.4f}")
+        row = dict(
             name="flash_attention", route="cuda",
             instance=instance(dtype, D),
             source="src/repro_torch/csrc/flash_attention.cu",
@@ -2647,8 +2718,15 @@ def wide_flash_rows(torch, dev, flush):
             max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
             bound_ms=b, bound_by=by, library_ms=lib_ms,
             library_call_ms=lib_call, shape=shape, path="widened",
-            launches=own_launches(torch, "flash_attention", kern)))
-        del q, k, v, got, want
+            launches=own_launches(torch, "flash_attention", kern))
+        if dtype == torch.float32:
+            row["fma_bound_ms"] = bound_ms(nbytes, 4.0 * D * pairs,
+                                           FP32_OPS_PER_S, exps=pairs)[0]
+            ab_rows(torch, row, "flash_attention", ab, kern, flush,
+                    f"flash_attention ({shape})")
+        rows.append(row)
+        del q, k, v, got, want, qt, kt, vt
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -3200,7 +3278,9 @@ def lm_phase(torch, dev, args, measured=None):
         # d_state and head dims past the old limits (16 and 256)
         wide = ([scan_row(torch, dev, cfg, flush, N=32),
                  scan_row(torch, dev, cfg, flush, N=64, L=1024)]
-                if cfg.family == "ssm" else wide_flash_rows(torch, dev, flush))
+                if cfg.family == "ssm"
+                else wide_flash_rows(torch, dev, flush, args.ab)
+                + [wide_head_row(torch, dev, flush)])
         row["launches"] = launches
         rows += [row] + wide
         torch.cuda.empty_cache()
@@ -3260,15 +3340,17 @@ SCAN_ORACLE_L = 1024      # the plain scan's autograd graph, L cut from 4,096
 # launches), Zamba2-2.7B's attention in bf16 (the Hopper instance at
 # head dim 80; Zamba2's train steps' launches), Qwen3-MoE's and
 # Llama-4-Scout's train shapes in bf16 (64/4 and 40/8 heads of 128;
-# their train steps' launches), then a ragged float32 one (a shape no
-# path takes: its own call's)
+# their train steps' launches), then two float32 ones (shapes no path of
+# this run takes: their own call's): a ragged one at head dim 80 and
+# Yi-6B's train heads
 FLASH_BWD_SHAPES = ((2, 4096, 32, 4, 128, True, "bfloat16", "yi-6b"),
                     (2, 4096, 32, 32, 80, True, "bfloat16", "zamba2-2.7b"),
                     (2, 4096, 64, 4, 128, True, "bfloat16",
                      "qwen3-moe-235b-a22b"),
                     (2, 4096, 40, 8, 128, True, "bfloat16",
                      "llama4-scout-17b-a16e"),
-                    (2, 1000, 8, 2, 80, False, "float32", "own call"))
+                    (2, 1000, 8, 2, 80, False, "float32", "own call"),
+                    (2, 2048, 32, 4, 128, True, "float32", "own call"))
 # the largest float32 score block (B Hq Sq Skv x 4 B, Yi's row) whose
 # plain autograd graph is held whole beside the kernel's; past it the
 # plain version runs in (batch, KV head) slices (``plain_bwd_sliced``)
@@ -3727,7 +3809,7 @@ def mesh_flash_bwd_row(torch, dev, cfg, flush, launches):
                 library_call_ms=tot["lib_call"], shape=shape)
 
 
-def flash_bwd_rows(torch, dev, flush, launches):
+def flash_bwd_rows(torch, dev, flush, launches, ab=()):
     """The flash_attention backward against the plain version's autograd
     at Yi-6B's train shape (2, 4,096, 32/4 heads of 128), Zamba2-2.7B's
     attention (2, 4,096, 32/32 heads of 80, the tail box), Qwen3-MoE's
@@ -3742,7 +3824,10 @@ def flash_bwd_rows(torch, dev, flush, launches):
     module's private ``_instance``), which must agree with it within the
     same bar.  The bf16 rows count their archs' train steps' launches
     (``launches``, by arch); the float32 row's shape is on no card path,
-    so it counts its own call's."""
+    so it counts its own call's.  With ``ab``, each float32 row's
+    backward is also timed in turns with each directory's design of the
+    general backward (``flash_attention_bwd``), on this tree's forward
+    outputs."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          instance)
@@ -3812,9 +3897,12 @@ def flash_bwd_rows(torch, dev, flush, launches):
             del dropped, budgets
         else:
             tol = ATOL_KERNEL
-            err = max(grad_err(torch, a, w, nm, tol)
-                      for nm, a, w in zip(names, got, want))
-            held = f"of max(1, max|grad|) {err:.3g} (tol {tol})"
+            errs = [grad_err(torch, a, w, nm, tol)
+                    for nm, a, w in zip(names, got, want)]
+            err = max(errs)
+            rel = max(e / max(1.0, float(w.abs().max()))
+                      for e, w in zip(errs, want))
+            held = f"{rel:.3g} of max(1, max|grad|) (tol {tol})"
         del got, want
         lib_in = [t.detach().transpose(1, 2).requires_grad_() for t in ins]
         out_l = F.scaled_dot_product_attention(*lib_in, is_causal=causal,
@@ -3835,9 +3923,9 @@ def flash_bwd_rows(torch, dev, flush, launches):
         esize = ins[0].element_size()
         nbytes = esize * 4 * (ins[0].numel() + ins[1].numel()) \
             + 4 * B * Hq * S          # q o dO dq, k v dk dv; the lse
-        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
-        b, by = bound_ms(nbytes, ops_n, peak, exps=pairs)
-        b7 = bound_ms(nbytes, 1.4 * ops_n, peak, exps=pairs)[0]
+        bf16 = dtype == torch.bfloat16
+        b, by, note = flash_bound(nbytes, ops_n, pairs, bf16)
+        b7 = flash_bound(nbytes, 1.4 * ops_n, pairs, bf16)[0]
         slices = (f" (its {B * Hkv} (batch, KV head) slices summed)"
                   if sliced else "")
         shape = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
@@ -3848,7 +3936,8 @@ def flash_bwd_rows(torch, dev, flush, launches):
             f"{slices}  "
             f"bound {b:.4f} ({by}: {ops_n:.3g} FLOP, {pairs:.3g} exp, "
             f"{nbytes / 1e6:.1f} MB; with S and dP recomputed for dq, "
-            f"seven products: {b7:.4f})  library (SDPA backward) "
+            f"seven products: {b7:.4f}{'; ' + note if note else ''})  "
+            f"library (SDPA backward) "
             f"{lib_ms:.4f}; ms per call: kernel {call:.4f}  library "
             f"{lib_call:.4f}")
         src = ("flash_attention_bwd_sm90.cu" if inst == "sm90"
@@ -3863,6 +3952,13 @@ def flash_bwd_rows(torch, dev, flush, launches):
         if turns is not None:
             row["ab"] = {"general instance (csrc/flash_attention_bwd.cu)":
                          turns}
+        if not bf16:
+            row["fma_bound_ms"] = bound_ms(nbytes, ops_n, FP32_OPS_PER_S,
+                                           exps=pairs)[0]
+            ab_rows(torch, row, "flash_attention_bwd", ab, kernel, flush,
+                    f"flash_attention_bwd ({shape})",
+                    close=lambda a, w, what: grad_err(torch, a, w, what,
+                                                      ATOL_KERNEL))
         if launches_of in launches:
             row["launches"] = launches[launches_of]["flash_attention_bwd"]
         else:
@@ -4275,7 +4371,7 @@ def lm_train_phase(torch, dev, args, measured=None):
     tp = time.perf_counter() - tp
     t1 = time.perf_counter()
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
-    rows = flash_bwd_rows(torch, dev, flush, launches)
+    rows = flash_bwd_rows(torch, dev, flush, launches, args.ab)
     rows.append(mesh_flash_bwd_row(torch, dev, get_arch(MESH_ARCH), flush,
                                    mesh))
     rows.append(scan_bwd_row(torch, dev, flush,

@@ -35,7 +35,11 @@
 // S 4096, 32/4 heads of 128, bf16, causal) the five products (S and dP
 // twice, dv, dk, dq) are about 6.9e11 FLOP (0.70 ms at the bf16
 // tensor-core peak) against about 250 MB of q, k, v, o, dO and the three
-// gradients.
+// gradients.  In float32 each product is three TF32 products (split
+// TF32, below), so the floor is 3 x FLOP at the 495 TFLOP/s dense TF32
+// rate: 0.078 ms at (2, 1,000, 8/2 heads of 80, full), where the float32
+// FMA rate gives 0.19 ms and the first, scalar float32 design took
+// 2.2 ms.
 //
 // Design (FlashAttention-2's split into two passes, no atomics, so the
 // result is the same bit for bit on every run).  Three launches:
@@ -49,22 +53,37 @@
 //   3. dq: one CTA per (64-row q tile, q head, batch), longest causal
 //      tiles first, walking the K/V tiles its rows see.
 // Per (q tile, K/V tile) both recompute S = Q K^T and dP = dO V^T, then P
-// and dS element by element from the staged LSE and D.
+// and dS element by element from the LSE and D of the tile's rows.
 //   bfloat16: every product on the tensor cores (WMMA 16 x 16 x 16 with
 //     float32 accumulators, as the general forward), P and dS rounded to
 //     bfloat16 as the A operands of the accumulating products, the
 //     accumulators kept as fragments in registers over the whole walk;
 //     the first version, float32 on scalar FMAs, took 88 ms at Yi's train
 //     shape, more than the plain autograd;
-//   float32: the tiles staged as float32 and each product on scalar FMAs,
-//     thread (ty, tx) of a 16 x 16 grid owning 4 x 4 scores (rows
-//     ty + 16a, keys tx + 16j, read from rows of odd stride so a warp's 16
-//     keys hit 16 banks) and 4 x 8 accumulator entries (rows ty + 16a,
-//     columns tx + 16c).
-// Head dims past 128 (any D): output columns in chunks
-// of at most 128, one CTA per chunk, and S and dP over slices of 128
-// columns of D staged in turn, as the general forward does past 256.
+//   float32 (csrc/tf32.cuh): all five products on mma.sync m16n8k8 in
+//     split TF32 (hi.hi + hi.lo + lo.hi), fed by a 2-slot cp.async ring
+//     of 64-row, 64-column pieces of q, k, v and dO; the score-side
+//     operands split in registers as their fragments are loaded, P and dS
+//     split once into hi and lo planes in shared memory to be the A
+//     operands of the accumulating products.  Pass 2 runs 32-key CTAs
+//     (twice the CTAs of 64-key ones) of two groups of 4 warps, which take
+//     alternate q tiles of the walk, each with its own ring and planes
+//     (208,896 bytes), and add their dk and dv in a fixed order at the
+//     end; in a group, warp w has keys 16 (w % 2) .. + 15 against q rows
+//     32 (w / 2) .. + 31 for S^T and dP^T, and dv (w < 2) or dk (w >= 2)
+//     over all 64 rows.  Pass 3 runs 64-row CTAs of 8 warps (4 row groups
+//     x 2 key halves, 104,448 bytes).  The first float32 design ran every
+//     product on scalar FMAs, 2 a shared-memory load: bound by shared
+//     memory, 4.4x SDPA's backward at D 80.  What bounds this one is the
+//     issue of the splits and fragment loads beside the products (as the
+//     forward's note says), and at small Skv x Hkv the parallelism of
+//     pass 2.
+// Head dims past 128 (any D): output columns in chunks of at most 128,
+// one CTA per chunk, each recomputing S and dP over all of D (bfloat16:
+// over slices of 128 columns of D staged in turn, as the general forward
+// does past 256; float32: the ring's slices).
 #include "common.cuh"
+#include "tf32.cuh"
 
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -78,12 +97,7 @@ constexpr int kBQ = 64;        // q rows per tile
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // a 16 x 16 grid of threads
 constexpr int kMaxD = 128;     // widest staged slice, widest output chunk
-constexpr int kCols = 8;       // accumulator columns a thread: 16 * 8 = 128
-constexpr int kSLd = kBK + 1;  // row stride of the score tiles
 
-__host__ __device__ inline int f32_stride(int d) {
-  return (d % 2 == 0) ? d + 1 : d;
-}
 __host__ __device__ inline int pad16(int d) { return (d + 15) / 16 * 16; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -96,151 +110,6 @@ struct Shape {
   int Dc, nd;   // output chunk width and count
   int ld;       // row stride of the staged q, k, v, dO tiles
 };
-
-// Stage rows [r0, r0 + rows) of head hd of a (B, S, H, D) tensor, columns
-// [c0, c0 + n), into rows of stride ld; zero beyond S.
-__device__ __forceinline__ void stage(float* dst,
-                                      const float* __restrict__ src,
-                                      int b, int r0, int S, int H, int hd,
-                                      int D, int c0, int n, int ld,
-                                      int rows) {
-  for (int idx = threadIdx.x; idx < rows * n; idx += kThreads) {
-    const int r = idx / n, d = idx - r * n;
-    const int s = r0 + r;
-    dst[r * ld + d] =
-        s < S ? src[(((int64_t)b * S + s) * H + hd) * D + c0 + d] : 0.f;
-  }
-}
-
-// The staged tiles and score tiles of a CTA.
-struct Smem {
-  float *qs, *dos, *ks, *vs;   // (64, ld) each
-  float *ss, *dps;             // (64, kSLd): S then P, dP then dS
-  float *lse, *dd;             // (64) the q tile's LSE and D
-};
-
-__device__ __forceinline__ Smem carve(unsigned char* raw, int ld) {
-  float* f = reinterpret_cast<float*>(raw);
-  Smem m;
-  m.qs = f;
-  m.dos = m.qs + kBQ * ld;
-  m.ks = m.dos + kBQ * ld;
-  m.vs = m.ks + kBK * ld;
-  m.ss = m.vs + kBK * ld;
-  m.dps = m.ss + kBQ * kSLd;
-  m.lse = m.dps + kBQ * kSLd;
-  m.dd = m.lse + kBQ;
-  return m;
-}
-
-inline size_t smem_bytes(int ld) {
-  return sizeof(float) * (size_t)(2 * kBQ * ld + 2 * kBK * ld +
-                                  2 * kBQ * kSLd + 2 * kBQ);
-}
-
-// LSE and D of q rows [q0, q0 + 64) of head h (+inf and 0 past Sq).
-__device__ __forceinline__ void stage_rows(const Smem& m,
-                                           const float* __restrict__ lse,
-                                           const float* __restrict__ dd,
-                                           int b, int h, int q0,
-                                           const Shape& s) {
-  for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-    const int row = q0 + i;
-    const int64_t at = ((int64_t)b * s.Hq + h) * s.Sq + row;
-    m.lse[i] = row < s.Sq ? lse[at] : CUDART_INF_F;
-    m.dd[i] = row < s.Sq ? dd[at] : 0.f;
-  }
-}
-
-// acc[a][j] += sum_{d < n} A[ty + 16a][d] * B[tx + 16j][d]
-__device__ __forceinline__ void dot_tile(float (&acc)[4][4],
-                                         const float* A, const float* Bm,
-                                         int n, int ld, int ty, int tx) {
-  for (int d = 0; d < n; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) av[a] = A[(ty + 16 * a) * ld + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = Bm[(tx + 16 * j) * ld + d];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[a][j] = fmaf(av[a], bv[j], acc[a][j]);
-  }
-}
-
-// S = Q K^T and dP = dO V^T of the q tile at q0 (head h) against the K/V
-// tile at k0 (KV head hk), into ss and dps.  Unsliced (D <= 128) the four
-// tiles are already staged; sliced, each 128-column slice of D is staged
-// in turn and its part added.
-__device__ void scores(const Smem& m, const float* q, const float* k,
-                       const float* v, const float* dout, int b, int h,
-                       int hk, int q0, int k0, const Shape& s, int ty,
-                       int tx) {
-  const bool sliced = s.D > kMaxD;
-  float sc[4][4], dp[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sc[a][j] = dp[a][j] = 0.f;
-  for (int c0 = 0; c0 < s.D; c0 += kMaxD) {   // one slice unless sliced
-    const int n = min(kMaxD, s.D - c0);
-    if (sliced) {
-      __syncthreads();   // done with the slice before
-      stage(m.qs, q, b, q0, s.Sq, s.Hq, h, s.D, c0, n, s.ld, kBQ);
-      stage(m.dos, dout, b, q0, s.Sq, s.Hq, h, s.D, c0, n, s.ld, kBQ);
-      stage(m.ks, k, b, k0, s.Skv, s.Hkv, hk, s.D, c0, n, s.ld, kBK);
-      stage(m.vs, v, b, k0, s.Skv, s.Hkv, hk, s.D, c0, n, s.ld, kBK);
-      __syncthreads();
-    }
-    dot_tile(sc, m.qs, m.ks, n, s.ld, ty, tx);
-    dot_tile(dp, m.dos, m.vs, n, s.ld, ty, tx);
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      m.ss[(ty + 16 * a) * kSLd + tx + 16 * j] = sc[a][j];
-      m.dps[(ty + 16 * a) * kSLd + tx + 16 * j] = dp[a][j];
-    }
-}
-
-// P and dS of the tile, in place: ss becomes P, dps dS.  Masked
-// entries (past Sq or Skv, or above the causal diagonal) are 0.
-__device__ __forceinline__ void softmax_grad(const Smem& m, int q0, int k0,
-                                             const Shape& s) {
-  const int off = s.off;
-  for (int idx = threadIdx.x; idx < kBQ * kBK; idx += kThreads) {
-    const int r = idx / kBK, c = idx - r * kBK;
-    const int qpos = q0 + r, kpos = k0 + c;
-    const bool ok = qpos < s.Sq && kpos < s.Skv &&
-                    (!s.causal || kpos <= qpos + off);
-    const int at = r * kSLd + c;
-    const float p = ok ? expf(m.ss[at] * s.scale - m.lse[r]) : 0.f;
-    m.dps[at] = p * (m.dps[at] - m.dd[r]);
-    m.ss[at] = p;
-  }
-}
-
-// Write acc * mult to rows [r0, r0 + 64) of head hd of a (B, S, H, D)
-// tensor, columns d0 + tx + 16c below d0 + dn.
-__device__ __forceinline__ void store_tile(float* __restrict__ dst,
-                                           const float (&acc)[4][kCols],
-                                           float mult, int b, int r0, int S,
-                                           int H, int hd, int D, int d0,
-                                           int dn, int ty, int tx) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int s = r0 + ty + 16 * a;
-    if (s >= S) continue;
-    float* o = dst + (((int64_t)b * S + s) * H + hd) * D + d0;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int d = tx + 16 * c;
-      if (d < dn) o[d] = acc[a][c] * mult;
-    }
-  }
-}
 
 // --- 1. D = rowsum(dO * O) ----------------------------------------------
 template <typename T>
@@ -268,101 +137,217 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// --- 2. dk, dv (float32) ---------------------------------------------------
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkdv_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ dd,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          Shape s) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem m = carve(smem_raw, s.ld);
-  const bool sliced = s.D > kMaxD;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int k0 = blockIdx.x * kBK, hk = blockIdx.y;
+// --- 2. dk, dv (float32: split TF32 on the tensor cores, csrc/tf32.cuh) ---
+// One CTA per (32-key tile, KV head, batch, output chunk): 32 keys, not
+// 64, so that the grid has twice the CTAs (at (2, 1,000, 8/2 heads)
+// 64-key tiles made only 64).  Its work is the walk over the G query
+// heads of its KV head and, for each, the 64-row q tiles that see its
+// keys; two groups of 4 warps take alternate steps of that walk, each
+// with its own ring and tiles (so an SM runs 8 warps on 32 keys), and
+// their dk and dv are added in a fixed order at the end.  Per q tile, in
+// a group:
+//   S^T = K Q^T and dP^T = V dO^T, from ceil(D / 64) stage pairs
+//     [k slice | q slice], [v slice | dO slice]: warp w's keys
+//     16 (w % 2) .. + 15 against q rows 32 (w / 2) .. + 31;
+//   P^T = exp(S^T scale - LSE) and dS^T = P^T (dP^T - D) element by
+//     element (each thread's LSE and D of its 8 q rows read from device
+//     memory as the tile starts, under the score stages), split into hi
+//     and lo planes of two shared (32, 64) tiles;
+//   dv += P^T dO (warps 0, 1) and dk += dS^T Q (warps 2, 3) for keys
+//     16 (w % 2) .. + 15, from ceil(Dc / 64) stages [dO columns | q
+//     columns] over all 64 q rows, into accumulators kept in registers
+//     across the walk (32 floats a thread a stage).
+constexpr int kGroupKV = 128;   // threads of a group, 2 groups a CTA
+constexpr int kBKT = 32;   // keys a CTA of the float32 dk/dv pass
+// floats of a group's share of shared memory: its ring and four (32, 64)
+// planes (P^T and dS^T, hi and lo)
+constexpr int kGroupFloats =
+    tf32::kStages * tf32::kSlot + 4 * kBKT * tf32::kPLd;
+template <int kNV>   // 64-column stages at most: Dc <= 64 kNV
+__global__ void __launch_bounds__(2 * kGroupKV, 1)
+    flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ dd,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              Shape s, int vec) {
+  using tf32::kPiece;
+  using tf32::kPLd;
+  using tf32::kSlotLd;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int grp = threadIdx.x / kGroupKV;
+  float* ring_base = reinterpret_cast<float*>(smem_raw) + grp * kGroupFloats;
+  float* pt_hi = ring_base + tf32::kStages * tf32::kSlot;   // (32, kPLd)
+  float* pt_lo = pt_hi + kBKT * kPLd;                       // P^T
+  float* ds_hi = pt_lo + kBKT * kPLd;                       // dS^T
+  float* ds_lo = ds_hi + kBKT * kPLd;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int kg = warp & 1, qg = warp >> 1;   // keys 16 kg, q rows 32 qg
+  const int k0 = blockIdx.x * kBKT, hk = blockIdx.y;
   const int b = blockIdx.z / s.nd;
   const int d0 = blockIdx.z % s.nd * s.Dc, dn = min(s.Dc, s.D - d0);
   const int G = s.Hq / s.Hkv, off = s.off;
   const int n_qt = (s.Sq + kBQ - 1) / kBQ;
   // q tiles whose rows see this tile's first key
-  const int qt_first = s.causal ? max(0, k0 - off) / kBQ : 0;
+  const int qt_first = s.causal ? min(n_qt, max(0, k0 - off) / kBQ) : 0;
+  const int nq = n_qt - qt_first, iters = G * nq;
+  // this group's steps of the walk: grp, grp + 2, ...
+  const int my_iters = (iters - grp + 1) / 2;
+  const int nd = (s.D + kPiece - 1) / kPiece;
+  const int nv = (dn + kPiece - 1) / kPiece;
+  const int per = 2 * nd + nv, total = my_iters * per;
+  const int cend = d0 + dn;
 
-  if (!sliced) {
-    stage(m.ks, k, b, k0, s.Skv, s.Hkv, hk, s.D, 0, s.D, s.ld, kBK);
-    stage(m.vs, v, b, k0, s.Skv, s.Hkv, hk, s.D, 0, s.D, s.ld, kBK);
-  }
-  float acc_k[4][kCols], acc_v[4][kCols];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc_k[a][c] = acc_v[a][c] = 0.f;
-
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    for (int qt = qt_first; qt < n_qt; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();   // the previous tile is done with every buffer
-      if (!sliced) {
-        stage(m.qs, q, b, q0, s.Sq, s.Hq, h, s.D, 0, s.D, s.ld, kBQ);
-        stage(m.dos, dout, b, q0, s.Sq, s.Hq, h, s.D, 0, s.D, s.ld, kBQ);
-      }
-      stage_rows(m, lse, dd, b, h, q0, s);
-      __syncthreads();
-      scores(m, q, k, v, dout, b, h, hk, q0, k0, s, ty, tx);
-      __syncthreads();
-      softmax_grad(m, q0, k0, s);
-      if (sliced) {   // this CTA's output columns of q and dO
-        __syncthreads();
-        stage(m.qs, q, b, q0, s.Sq, s.Hq, h, s.D, d0, dn, s.ld, kBQ);
-        stage(m.dos, dout, b, q0, s.Sq, s.Hq, h, s.D, d0, dn, s.ld, kBQ);
-      }
-      __syncthreads();
-      // dv += P^T dO, dk += dS^T Q over the tile's rows
-      const int rn = min(kBQ, s.Sq - q0);
-      for (int r = 0; r < rn; ++r) {
-        float pv[4], sv[4], ov[kCols], qv[kCols];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          pv[a] = m.ss[r * kSLd + ty + 16 * a];
-          sv[a] = m.dps[r * kSLd + ty + 16 * a];
-        }
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const int d = tx + 16 * c;
-          ov[c] = d < dn ? m.dos[r * s.ld + d] : 0.f;
-          qv[c] = d < dn ? m.qs[r * s.ld + d] : 0.f;
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            acc_v[a][c] = fmaf(pv[a], ov[c], acc_v[a][c]);
-            acc_k[a][c] = fmaf(sv[a], qv[c], acc_k[a][c]);
-          }
-      }
+  auto ring = tf32::make_ring<kGroupKV>(ring_base, [=](int st, float* slot) {
+    if (st >= total) return;
+    const int it = grp + 2 * (st / per), r = st % per;
+    const int h = hk * G + it / nq, q0 = (qt_first + it % nq) * kBQ;
+    if (r < 2 * nd) {
+      const int c0 = (r >> 1) * kPiece;
+      const bool sv = r & 1;   // the dP^T stage
+      tf32::load_piece<kGroupKV>(slot, 0, sv ? v : k, b, k0, s.Skv,
+                                   s.Hkv, hk, s.D, c0, s.D, vec, kBKT);
+      tf32::load_piece<kGroupKV>(slot, 1, sv ? dout : q, b, q0, s.Sq,
+                                   s.Hq, h, s.D, c0, s.D, vec);
+    } else {
+      const int c0 = d0 + (r - 2 * nd) * kPiece;
+      tf32::load_piece<kGroupKV>(slot, 0, dout, b, q0, s.Sq, s.Hq, h, s.D,
+                                   c0, cend, vec);
+      tf32::load_piece<kGroupKV>(slot, 1, q, b, q0, s.Sq, s.Hq, h, s.D,
+                                   c0, cend, vec);
     }
+  });
+
+  float acc[8 * kNV][4];   // dv (warps 0, 1) or dk (warps 2, 3)
+#pragma unroll
+  for (int n = 0; n < 8 * kNV; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // the A operand of this warp's gradient, rows of its 16 keys
+  const float* a_hi = (qg == 0 ? pt_hi : ds_hi) + kg * 16 * kPLd;
+  const float* a_lo = (qg == 0 ? pt_lo : ds_lo) + kg * 16 * kPLd;
+
+  for (int my = 0; my < my_iters; ++my) {
+    const int it = grp + 2 * my;
+    const int h = hk * G + it / nq, q0 = (qt_first + it % nq) * kBQ;
+    float lse_c[4][2], dd_c[4][2];   // of q rows q0 + 32 qg + 8 n + 2 tq + e
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qc = q0 + qg * 32 + n * 8 + 2 * tq + e;
+        const int64_t at = ((int64_t)b * s.Hq + h) * s.Sq + qc;
+        lse_c[n][e] = qc < s.Sq ? lse[at] : CUDART_INF_F;
+        dd_c[n][e] = qc < s.Sq ? dd[at] : 0.f;
+      }
+    float sct[4][4] = {}, dpt[4][4] = {};
+    for (int i = 0; i < nd; ++i) {
+      const float* slot = ring.next();
+      tf32::dot_nt(sct, slot + kg * 16 * kSlotLd, kSlotLd,
+                   slot + kPiece + qg * 32 * kSlotLd, g, tq);
+      slot = ring.next();
+      tf32::dot_nt(dpt, slot + kg * 16 * kSlotLd, kSlotLd,
+                   slot + kPiece + qg * 32 * kSlotLd, g, tq);
+    }
+    // P^T and dS^T; masked entries (past Sq or Skv, above the causal
+    // diagonal) are 0.  The next stage's barrier publishes them.
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + kg * 16 + g + 8 * (e >> 1);
+        const int qpos = q0 + qg * 32 + n * 8 + 2 * tq + (e & 1);
+        const bool ok = qpos < s.Sq && kpos < s.Skv &&
+                        (!s.causal || kpos <= qpos + off);
+        p[e] = ok ? expf(sct[n][e] * s.scale - lse_c[n][e & 1]) : 0.f;
+        ds[e] = p[e] * (dpt[n][e] - dd_c[n][e & 1]);
+      }
+      const int at = (kg * 16 + g) * kPLd + qg * 32 + n * 8 + 2 * tq;
+      tf32::store_split(pt_hi, pt_lo, at, p[0], p[1]);
+      tf32::store_split(pt_hi, pt_lo, at + 8 * kPLd, p[2], p[3]);
+      tf32::store_split(ds_hi, ds_lo, at, ds[0], ds[1]);
+      tf32::store_split(ds_hi, ds_lo, at + 8 * kPLd, ds[2], ds[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < kNV; ++j)
+      if (j < nv) {
+        const float* slot = ring.next();
+        tf32::dot_nn(acc + 8 * j, a_hi, a_lo, slot + qg * kPiece, g, tq);
+      }
   }
-  store_tile(dk, acc_k, s.scale, b, k0, s.Skv, s.Hkv, hk, s.D, d0, dn, ty,
-             tx);
-  store_tile(dv, acc_v, 1.f, b, k0, s.Skv, s.Hkv, hk, s.D, d0, dn, ty, tx);
+
+  // group 1 hands its sums to group 0 through slot 0 of its own ring,
+  // which group 0 adds to its own: the same order every run.  The group's
+  // barrier comes first: when the group's stage count is odd, its last
+  // stage sits in slot 0, and a warp still reading it must be done
+  // before any warp of the group overwrites it.
+  float* xfer = reinterpret_cast<float*>(smem_raw) + kGroupFloats +
+                (threadIdx.x % kGroupKV) * (32 * kNV);
+  if (grp == 1) {
+    tf32::group_sync<kGroupKV>();
+#pragma unroll
+    for (int n = 0; n < 8 * kNV; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xfer[4 * n + e] = acc[n][e];
+  }
+  __syncthreads();
+  if (grp == 1) return;
+#pragma unroll
+  for (int n = 0; n < 8 * kNV; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += xfer[4 * n + e];
+  float* out = qg == 0 ? dv : dk;
+  const float mult = qg == 0 ? 1.f : s.scale;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + kg * 16 + g + 8 * i;
+    if (key >= s.Skv) continue;
+    float* o = out + (((int64_t)b * s.Skv + key) * s.Hkv + hk) * s.D;
+#pragma unroll
+    for (int j = 0; j < kNV; ++j)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = d0 + j * kPiece + n * 8 + 2 * tq + e;
+          if (d < cend) o[d] = acc[8 * j + n][2 * i + e] * mult;
+        }
+  }
 }
 
-// --- 3. dq (float32) --------------------------------------------------------
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ dd,
-                        float* __restrict__ dq, Shape s) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem m = carve(smem_raw, s.ld);
-  const bool sliced = s.D > kMaxD;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+// --- 3. dq (float32: split TF32 on the tensor cores) ------------------------
+// One CTA of 8 warps per (64-row q tile, q head, batch, output chunk),
+// longest causal tiles first, walking the K/V tiles its rows see.  Warp
+// (rg, cg) = (warp % 4, warp / 4) owns q rows 16 rg .. 16 rg + 15.  Per
+// K/V tile: S = Q K^T and dP = dO V^T from stage pairs [q slice |
+// k slice], [dO slice | v slice] (its rows against keys 32 cg .. + 31),
+// dS = P (dP - D) (the rows' LSE and D held in registers), split into the
+// hi and lo planes of a shared (64, 64) tile, then dq += dS K from
+// ceil(Dc / 128) stages of 128 k columns, the warp's 64 of each.
+template <int kNV>   // 128-column K stages at most: Dc <= 128 kNV
+__global__ void __launch_bounds__(tf32::kThreads, 2)
+    flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ dd,
+                            float* __restrict__ dq, Shape s, int vec) {
+  using tf32::kPiece;
+  using tf32::kPLd;
+  using tf32::kSlotLd;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* ring_base = reinterpret_cast<float*>(smem_raw);
+  float* ds_hi = ring_base + tf32::kStages * tf32::kSlot;   // (64, kPLd)
+  float* ds_lo = ds_hi + tf32::kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rg = warp & 3, cg = warp >> 2;
+  const int row0 = rg * 16 + g;                        // rows row0, +8
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // longest first
   const int h = blockIdx.y, hk = h / (s.Hq / s.Hkv);
   const int b = blockIdx.z / s.nd;
@@ -370,53 +355,134 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int last_row = min(q0 + kBQ, s.Sq) - 1;
   const int k_end = s.causal ? min(s.Skv, last_row + s.off + 1) : s.Skv;
   const int n_kt = (k_end + kBK - 1) / kBK;
+  const int nd = (s.D + kPiece - 1) / kPiece, nv = (dn + 127) / 128;
+  const int per = 2 * nd + nv, total = n_kt * per;
+  const int cend = d0 + dn;
 
-  if (!sliced) {
-    stage(m.qs, q, b, q0, s.Sq, s.Hq, h, s.D, 0, s.D, s.ld, kBQ);
-    stage(m.dos, dout, b, q0, s.Sq, s.Hq, h, s.D, 0, s.D, s.ld, kBQ);
+  auto ring = tf32::make_ring(ring_base, [=](int st, float* slot) {
+    if (st >= total) return;
+    const int kt = st / per, r = st - kt * per, k0 = kt * kBK;
+    if (r < 2 * nd) {
+      const int c0 = (r >> 1) * kPiece;
+      const bool sv = r & 1;   // the dP stage
+      tf32::load_piece(slot, 0, sv ? dout : q, b, q0, s.Sq, s.Hq, h, s.D,
+                       c0, s.D, vec);
+      tf32::load_piece(slot, 1, sv ? v : k, b, k0, s.Skv, s.Hkv, hk, s.D,
+                       c0, s.D, vec);
+    } else {
+      const int c0 = d0 + (r - 2 * nd) * 2 * kPiece;
+      tf32::load_piece(slot, 0, k, b, k0, s.Skv, s.Hkv, hk, s.D, c0, cend,
+                       vec);
+      tf32::load_piece(slot, 1, k, b, k0, s.Skv, s.Hkv, hk, s.D,
+                       c0 + kPiece, cend, vec);
+    }
+  });
+
+  float lse_r[2], dd_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + row0 + 8 * i;
+    const int64_t at = ((int64_t)b * s.Hq + h) * s.Sq + row;
+    lse_r[i] = row < s.Sq ? lse[at] : CUDART_INF_F;
+    dd_r[i] = row < s.Sq ? dd[at] : 0.f;
   }
-  stage_rows(m, lse, dd, b, h, q0, s);
-  float acc[4][kCols];
+  float acc[8 * kNV][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int n = 0; n < 8 * kNV; ++n)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[a][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
-    __syncthreads();   // the previous tile is done with every buffer
-    if (!sliced) {
-      stage(m.ks, k, b, k0, s.Skv, s.Hkv, hk, s.D, 0, s.D, s.ld, kBK);
-      stage(m.vs, v, b, k0, s.Skv, s.Hkv, hk, s.D, 0, s.D, s.ld, kBK);
+    float sc[4][4] = {}, dp[4][4] = {};
+    for (int i = 0; i < nd; ++i) {
+      const float* slot = ring.next();
+      tf32::dot_nt(sc, slot + rg * 16 * kSlotLd, kSlotLd,
+                   slot + kPiece + cg * 32 * kSlotLd, g, tq);
+      slot = ring.next();
+      tf32::dot_nt(dp, slot + rg * 16 * kSlotLd, kSlotLd,
+                   slot + kPiece + cg * 32 * kSlotLd, g, tq);
     }
-    __syncthreads();
-    scores(m, q, k, v, dout, b, h, hk, q0, k0, s, ty, tx);
-    __syncthreads();
-    softmax_grad(m, q0, k0, s);
-    if (sliced) {   // this CTA's output columns of k
-      __syncthreads();
-      stage(m.ks, k, b, k0, s.Skv, s.Hkv, hk, s.D, d0, dn, s.ld, kBK);
-    }
-    __syncthreads();
-    // dq += dS K over the tile's keys
-    const int kn = min(kBK, s.Skv - k0);
-    for (int j = 0; j < kn; ++j) {
-      float sv[4], kv[kCols];
+    // dS; masked entries 0.  The next stage's barrier publishes it.
 #pragma unroll
-      for (int a = 0; a < 4; ++a) sv[a] = m.dps[(ty + 16 * a) * kSLd + j];
+    for (int n = 0; n < 4; ++n) {
+      float ds[4];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int d = tx + 16 * c;
-        kv[c] = d < dn ? m.ks[j * s.ld + d] : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + cg * 32 + n * 8 + 2 * tq + (e & 1);
+        const int qpos = q0 + row0 + 8 * (e >> 1);
+        const bool ok = qpos < s.Sq && kpos < s.Skv &&
+                        (!s.causal || kpos <= qpos + s.off);
+        const float p =
+            ok ? expf(sc[n][e] * s.scale - lse_r[e >> 1]) : 0.f;
+        ds[e] = p * (dp[n][e] - dd_r[e >> 1]);
       }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          acc[a][c] = fmaf(sv[a], kv[c], acc[a][c]);
+      const int at = row0 * kPLd + cg * 32 + n * 8 + 2 * tq;
+      tf32::store_split(ds_hi, ds_lo, at, ds[0], ds[1]);
+      tf32::store_split(ds_hi, ds_lo, at + 8 * kPLd, ds[2], ds[3]);
     }
+#pragma unroll
+    for (int j = 0; j < kNV; ++j)
+      if (j < nv) {
+        const float* slot = ring.next();
+        tf32::dot_nn(acc + 8 * j, ds_hi + rg * 16 * kPLd,
+                     ds_lo + rg * 16 * kPLd, slot + cg * kPiece, g, tq);
+      }
   }
-  store_tile(dq, acc, s.scale, b, q0, s.Sq, s.Hq, h, s.D, d0, dn, ty, tx);
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + row0 + 8 * i;
+    if (row >= s.Sq) continue;
+    float* o = dq + (((int64_t)b * s.Sq + row) * s.Hq + h) * s.D;
+#pragma unroll
+    for (int j = 0; j < kNV; ++j)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = d0 + j * 128 + cg * 64 + n * 8 + 2 * tq + e;
+          if (d < cend) o[d] = acc[8 * j + n][2 * i + e] * s.scale;
+        }
+  }
+}
+
+// The float32 passes: D, then dk and dv (32-key CTAs of two 4-warp
+// groups, each with its ring and four (32, 64) planes: 208,896 bytes),
+// then dq (64-row CTAs of 8 warps, the ring and two (64, 64) planes:
+// 104,448 bytes).
+template <typename KV, typename Q>
+int launch_f32(KV kv_kernel, Q q_kernel, int& set_kv, int& set_q,
+               const float* q, const float* k, const float* v,
+               const float* out, const float* dout, const float* lse,
+               float* dd, float* dq, float* dk, float* dv, Shape s,
+               int vec, cudaStream_t stream) {
+  const size_t smem = tf32::kRingBytes + 2 * sizeof(float) * tf32::kTile;
+  const size_t smem_kv = 2 * sizeof(float) * kGroupFloats;
+  const int64_t rows = (int64_t)s.B * s.Sq * s.Hq;
+  const int per = kThreads / 32;
+  flash_bwd_dot_kernel<float><<<(unsigned)((rows + per - 1) / per),
+                                kThreads, 0, stream>>>(out, dout, dd, s.B,
+                                                       s.Sq, s.Hq, s.D);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = allow_smem(reinterpret_cast<const void*>(kv_kernel), (int)smem_kv,
+                     set_kv);
+  if (err == cudaSuccess)
+    err = allow_smem(reinterpret_cast<const void*>(q_kernel), (int)smem,
+                     set_q);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (s.Skv > 0) {
+    const dim3 grid((s.Skv + kBKT - 1) / kBKT, s.Hkv, s.B * s.nd);
+    kv_kernel<<<grid, 2 * kGroupKV, smem_kv, stream>>>(q, k, v, dout, lse,
+                                                       dd, dk, dv, s, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((s.Sq + kBQ - 1) / kBQ, s.Hq, s.B * s.nd);
+  q_kernel<<<grid, tf32::kThreads, smem, stream>>>(q, k, v, dout, lse, dd,
+                                                   dq, s, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 
@@ -853,9 +919,29 @@ extern "C" int flash_attention_bwd_launch(
                         smem_bytes_bf16(s.ld), set_kv, set_q, q, k, v, out,
                         dout, l, d, dq, dk, dv, s, st, vec);
   }
+  const int vec = D % 4 == 0 &&
+                  ((reinterpret_cast<uintptr_t>(q) |
+                    reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v) |
+                    reinterpret_cast<uintptr_t>(dout)) & 15) == 0;
+  s.ld = 0;   // unused: the float32 kernels stage through the ring
+  const float *fq = static_cast<const float*>(q),
+              *fk = static_cast<const float*>(k),
+              *fv = static_cast<const float*>(v),
+              *fo = static_cast<const float*>(out),
+              *fdo = static_cast<const float*>(dout);
+  float *fdq = static_cast<float*>(dq), *fdk = static_cast<float*>(dk),
+        *fdv = static_cast<float*>(dv);
+  // chunks of at most kMaxD = 128 columns: one or two 64-column dk/dv
+  // stages, one 128-column dq stage
+  if (s.Dc <= 64) {
+    static int set_kv = 0, set_q = 0;
+    return launch_f32(flash_bwd_dkdv_f32_kernel<1>,
+                      flash_bwd_dq_f32_kernel<1>, set_kv, set_q, fq, fk, fv,
+                      fo, fdo, l, d, fdq, fdk, fdv, s, vec, st);
+  }
   static int set_kv = 0, set_q = 0;
-  s.ld = f32_stride(sw);
-  return launch<float>(flash_bwd_dkdv_kernel, flash_bwd_dq_kernel,
-                       smem_bytes(s.ld), set_kv, set_q, q, k, v, out, dout,
-                       l, d, dq, dk, dv, s, st);
+  return launch_f32(flash_bwd_dkdv_f32_kernel<2>, flash_bwd_dq_f32_kernel<1>,
+                    set_kv, set_q, fq, fk, fv, fo, fdo, l, d, fdq, fdk, fdv,
+                    s, vec, st);
 }

@@ -4,7 +4,10 @@ in two instances: the Hopper ones (``csrc/flash_attention_sm90.cu`` and
 memory) for bfloat16 with head dim 64, 80 or 128 (80 as a 64-column box
 and a 16-column tail box), and the general ones
 (``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``) for
-every other dtype and head dim.
+every other dtype and head dim.  The general ones run float32 on the
+tensor cores in split TF32 (``csrc/tf32.cuh``: each float32 product as
+three TF32 products, hi.hi + hi.lo + lo.hi, within the float32 bar of
+1e-5), bfloat16 on WMMA.
 
 A CPU tensor takes the plain version (``ref.py``), whose gradient is
 PyTorch's autograd of the same expression.  A CUDA tensor launches one
@@ -12,9 +15,10 @@ forward kernel, the instance :func:`instance` picks from the dtype and
 head dim before the launch, counted as ``flash_attention`` either way,
 or raises on what the kernel does not take: q, k and v must be
 contiguous float32 or bfloat16 tensors of one dtype, (B, S, H, D) with
-Hq % Hkv == 0 and any head dim D (the general instance takes D > 256 in
-chunks of output columns), and a causal call needs Sq <= Skv (every
-query row then has at least one key) unless it gives ``q_offset``.  The
+Hq % Hkv == 0 and any head dim D (the general instance takes wide D in
+chunks of output columns: past 256 in bfloat16, past 512 in float32),
+and a causal call needs Sq <= Skv (every query row then has at least one
+key) unless it gives ``q_offset``.  The
 Hopper instance reads q, k and v by TMA, which needs them 16-byte
 aligned; its backward reads q, k, v and the output's gradient so too,
 and raises if one is not (the rows' strides, D * 2 and H * D * 2 bytes,

@@ -901,6 +901,95 @@ def test_flash_attention_backward_at_q_offsets(card, B, Sq, Skv, Hq, Hkv,
             assert rel <= BF16_GRAD_ROW, (name, off, rel)
 
 
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,q_offset", [
+    (2, 150, 700, 8, 2, 80, True, 0),       # keys past row 149: no query
+    (1, 77, 77, 4, 4, 80, False, None),     # ragged, MHA
+    (1, 200, 333, 8, 1, 128, True, 50),     # ragged, offset below default
+    (1, 130, 260, 4, 2, 128, True, 130),    # a shard's offset
+    (2, 100, 100, 4, 2, 128, False, None),  # ragged tiles, full
+    (2, 65, 90, 4, 1, 512, False, None),    # D 512: the column pair
+    (1, 40, 200, 4, 2, 512, True, 0),       # D 512, keys no query sees
+    (1, 64, 64, 2, 1, 20, True, None),      # D % 8 != 0: 4-byte copies
+    (1, 64, 64, 4, 2, 16, True, None),      # one piece, mostly padding
+    (2, 57, 57, 4, 2, 16, False, None),
+    (1, 5, 70, 2, 1, 80, True, None),       # Sq < Skv, default offset
+    (1, 33, 40, 2, 2, 20, True, None),
+    (1, 7, 9, 2, 1, 1, False, None),        # D 1
+    (2, 130, 130, 8, 1, 128, True, None),   # G 8
+    (1, 70, 70, 12, 1, 192, True, None),    # Nemotron-4's head dim
+    (1, 40, 40, 2, 2, 300, True, None),     # column pair, ragged pieces
+    (1, 40, 72, 4, 2, 136, False, None),    # chunks of 80 and 56 columns
+    (1, 30, 30, 2, 1, 600, True, None),     # past 512: chunks
+    (2, 150, 700, 8, 2, 80, True, 300),     # an offset past 0
+    (1, 70, 200, 4, 1, 192, True, 0),       # column pair, unseen keys
+    (1, 512, 2048, 16, 4, 128, True, 1024), # a CP shard's offset
+    (2, 1000, 1000, 8, 2, 80, False, None)])  # the 5b row's shape
+def test_flash_attention_float32_split_tf32_route(card, B, Sq, Skv, Hq,
+                                                  Hkv, D, causal,
+                                                  q_offset):
+    """The general instance's float32 route (split TF32 on the tensor
+    cores: the rows kernel up to D 128, the column-pair kernel past it;
+    the backward's two passes), forward and backward, against the plain
+    version and its autograd: the output within 1e-5, each gradient
+    within 1e-5 of max(1, max |grad|), one counted launch each way, and
+    dk and dv exactly 0 on keys that no query of the call sees."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    q, k, v = _attn_inputs(card, B, Sq, Skv, Hq, Hkv, D, torch.float32,
+                           Sq + Skv + D)
+    w = torch.randn((B, Sq, Hq, D), device=card,
+                    generator=torch.Generator(device=card).manual_seed(D))
+    given = {} if q_offset is None else {"q_offset": q_offset}
+    kern = lambda *a, causal: flash_attention(*a, causal=causal, **given)
+    plain = lambda *a, causal: flash_attention_ref(*a, causal=causal,
+                                                   **given)
+    runtime.reset_launch_counts()
+    out, got = _flash_grads(kern, q, k, v, causal, w)
+    assert runtime.launch_counts() == {"flash_attention": 1,
+                                       "flash_attention_bwd": 1}
+    ref, want = _flash_grads(plain, q, k, v, causal, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    for name, g, r in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        _grad_close(g, r, name, 1e-5)
+    if causal and q_offset is not None and q_offset + Sq < Skv:
+        for g in got[1:]:
+            assert not bool(g[:, q_offset + Sq:].any())
+
+
+@pytest.mark.parametrize("D", [64, 136, 20])
+def test_flash_attention_float32_backward_same_bits_every_run(card, D):
+    """The float32 backward's dk/dv pass gives the same bits on every run.
+    Its two warp groups take alternate q tiles and group 1 hands its sums
+    to group 0 through its own ring's first slot; at these shapes (G 2,
+    3 q tiles) group 1 walks 3 tiles of an odd number of stages each, so
+    its last stage sits in that slot (D 64 and 20: one 64-column output
+    stage; D 136: a last chunk of 56 columns).  20 backward calls on the
+    same inputs: dq, dk and dv equal bit for bit, and within 1e-5 of
+    max(1, max |grad|) of the plain version's autograd."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    q, k, v = _attn_inputs(card, 2, 160, 160, 4, 2, D, torch.float32, D)
+    w = torch.randn((2, 160, 4, D), device=card,
+                    generator=torch.Generator(device=card).manual_seed(1))
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = flash_attention(qs, ks, vs, causal=False)
+    first = torch.autograd.grad((out * w).sum(), (qs, ks, vs),
+                                retain_graph=True)
+    for _ in range(19):
+        again = torch.autograd.grad((out * w).sum(), (qs, ks, vs),
+                                    retain_graph=True)
+        for name, a, b in zip(("dq", "dk", "dv"), again, first):
+            assert torch.equal(a, b), name
+    _, want = _flash_grads(flash_attention_ref, q, k, v, False, w)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dq", "dk", "dv"), first, want):
+        _grad_close(g, r, name, 1e-5)
+
+
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
                                      (torch.bfloat16, 80),
                                      (torch.float32, 80)])
