@@ -142,9 +142,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    kernel against its plain version at the model's shape (attention
    (2, 4096, 32/4 heads, 128) in bf16, the Hopper instance, within 4e-2
    and 1.6e-2 of each row's scale, timed per call in turns with one
-   ``scaled_dot_product_attention``; the general instance at
-   Nemotron-4's heads of 192 in bf16 and float32 (bf16 timed beside
-   SDPA), at head dims 320 (bf16) and 512 (float32) and at Yi's heads in
+   ``scaled_dot_product_attention``; at Nemotron-4's heads of 192 (1,
+   520) the Hopper instance in bf16 (112-key tiles), timed beside SDPA
+   and in turns with the general instance, which must agree with it,
+   and the general one in float32; the general instance at head dims 320
+   (bf16) and 512 (float32) and at Yi's heads in
    float32 (split TF32 on the tensor cores), timed beside SDPA with the
    float32 rows' split-TF32 bound; scan (2, 4096, 8192,
    16) in float32 within 1e-5, and at d_state 32 and 64 (these wide
@@ -158,18 +160,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    prefill against token-by-token decode on the card (0.15, the
    reference's bar; for Falcon also prefill(S) + one decode step against
    prefill(S + 1)); then the same serving for Qwen3-MoE-235B-A22B and
-   Llama-4-Scout-17B-16E (moe: full width, cut to 8 layers) and
-   Zamba2-2.7B (hybrid: whole, 54 layers), one at a time, each
-   initialised straight in bf16: the prefill launches ``flash_attention``
-   exactly once a layer (8, 8) or a superlayer (9), the moe prefill's
-   ``moe_drop_frac`` is printed, 32 decode steps at B 8 against a fresh
-   4,096-deep cache; flash_attention against its plain version at each
-   one's prefill shape in bf16 (Hopper at GQA groups 16 and 5, and at
-   zamba2's heads of 80 with a 16-column tail box, also timed in turns
-   with the general instance, which must agree with it), timed beside
-   SDPA; and the
+   Llama-4-Scout-17B-16E (moe: full width, cut to 8 layers),
+   Zamba2-2.7B (hybrid: whole, 54 layers) and Nemotron-4-340B (dense:
+   full width, cut to 4 layers, a 46.5 GB bf16 tree), one at a time,
+   each initialised straight in bf16: the prefill launches
+   ``flash_attention`` exactly once a layer (8, 8, 4) or a superlayer
+   (9), the moe prefill's ``moe_drop_frac`` is printed, 32 decode steps
+   at B 8 against a fresh 4,096-deep cache; flash_attention against its
+   plain version at each one's prefill shape in bf16 (Hopper at GQA
+   groups 16 and 5, at zamba2's heads of 80 with a 16-column tail box
+   and at Nemotron-4's 96/8 heads of 192 with 112-key tiles, the last
+   two also timed in turns with the general instance, which must agree
+   with it), timed beside SDPA; and the
    depth cut (the moe archs at 1 layer, B 1, S 128, which puts 15-17 GB
-   of float32 on the host; zamba2 at one superlayer, B 2, S 256): each
+   of float32 on the host; Nemotron-4 at 1 layer, B 1, S 128, with its
+   vocabulary cut to 4,096, 14.4 GB of float32 on the host; zamba2 at
+   one superlayer, B 2, S 256): each
    token's experts the same on the card and the CPU in float32,
    ``forward_hidden`` within 1e-4, bf16 logits within 5e-2 (zamba2's
    within 0.1, a bar that must fail a planted fault; in bf16 the CPU
@@ -218,7 +224,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and dv zeroed, and timed in turns with the general instance, which
    must agree with it within the same bar; the same at Zamba2's
    attention (2, 4,096, 32/32 heads of 80, causal: the Hopper instance
-   with its tail box); at the mesh step's context-parallel shape at
+   with its tail box); the general instance at Nemotron-4's heads (1,
+   520, 96/8 heads of 192, causal: its backward after the Hopper
+   forward; the same bar and planted fault, timed beside SDPA's
+   backward, its own call's launches); at the mesh step's
+   context-parallel shape at
    each shard's q_offset (the same bar, which shard 0's gradient at the
    last shard's offset must fail; dk and dv exactly 0 on the keys no
    query of a shard sees; timed beside SDPA's backward with the same
@@ -2232,19 +2242,30 @@ def multihost_phase(torch, dev, args):
 LM_ARCHS = ("yi-6b", "falcon-mamba-7b")
 # served after Yi and Falcon (the LM training phase trains them too):
 # the moe archs cut in depth (qwen3-moe's bf16 tree takes 5 GB a layer),
-# zamba2 whole
+# zamba2 whole, nemotron-4 at full width cut to 4 layers (3.45 B
+# parameters a layer and 2 x 4.72 B of untied embedding and head: a
+# 46.5 GB bf16 tree)
 LM_SERVE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e",
-                  "zamba2-2.7b")
-LM_SERVE_DEPTH = {"qwen3-moe-235b-a22b": 8, "llama4-scout-17b-a16e": 8}
+                  "zamba2-2.7b", "nemotron-4-340b")
+LM_SERVE_DEPTH = {"qwen3-moe-235b-a22b": 8, "llama4-scout-17b-a16e": 8,
+                  "nemotron-4-340b": 4}
 LM_PREFILL = (2, 4096)        # prompts x tokens (prefill_32k: 32 x 32,768)
 LM_DECODE = {"yi-6b": 8, "falcon-mamba-7b": 2, "qwen3-moe-235b-a22b": 8,
-             "llama4-scout-17b-a16e": 8, "zamba2-2.7b": 8}  # sequences
+             "llama4-scout-17b-a16e": 8, "zamba2-2.7b": 8,
+             "nemotron-4-340b": 8}                          # sequences
 LM_DECODE_STEPS = 32          # (decode_32k: 128 x 32,768)
 LM_CUT = (2, 2, 256)          # layers, B, S of the card-vs-CPU checks
 # the moe archs' cut holds a 15-17 GB float32 layer on the host; zamba2's
-# is one superlayer
+# is one superlayer; nemotron-4's one layer with its vocabulary cut
+# (LM_CUT_VOCAB)
 LM_CUT_OF = {"qwen3-moe-235b-a22b": (1, 1, 128),
-             "llama4-scout-17b-a16e": (1, 1, 128), "zamba2-2.7b": (6, 2, 256)}
+             "llama4-scout-17b-a16e": (1, 1, 128), "zamba2-2.7b": (6, 2, 256),
+             "nemotron-4-340b": (1, 1, 128)}
+# the cut's vocabulary, where it is cut: nemotron-4's untied embedding and
+# head of 256,000 x 18,432 would add 37.7 GB of float32 to its 13.8 GB
+# layer on the host; at 4,096 the cut holds 14.4 GB there (width, heads
+# and d_ff stay full)
+LM_CUT_VOCAB = {"nemotron-4-340b": 4096}
 # the moe archs' prefill against token-by-token decode: a length at which
 # the prefill cannot drop a slot (a token's k experts are distinct, so an
 # expert gets at most S slots a row, and capacity is at least 4; asserted).
@@ -2284,8 +2305,12 @@ MESH_DIRECT = (2, 4096)       # 2.1e9 B: the direct branch, no flash launch
 MESH_DECODE_STEPS = 4
 # head dims whose arch row is also timed in turns with the general
 # flash_attention instance: 80, which the Hopper instance takes through
-# its 16-column tail box
-FLASH_TURNS_HEAD_DIMS = (80,)
+# its 16-column tail box, and 192, through its 112-key tiles
+FLASH_TURNS_HEAD_DIMS = (80, 192)
+# the largest float32 score block (B Hq Sq Skv x 4 B; qwen3-moe's prefill
+# row) whose plain forward runs whole beside the kernel's output; past it
+# (nemotron-4's 12.9 GB) the plain version runs one batch row at a time
+PLAIN_FWD_WHOLE_SCORES = 2 ** 33
 
 
 def tree_bytes(tree) -> int:
@@ -2313,6 +2338,14 @@ def lm_serve(torch, dev, args, cfg, measured=None):
 
     kernel = "selective_scan" if cfg.family == "ssm" else "flash_attention"
     launches = T.attention_layers(cfg) or cfg.n_layers
+    via = ""
+    if kernel == "flash_attention":   # every served arch's heads: Hopper's
+        from repro_torch.kernels.flash_attention.ops import instance
+        inst = instance(torch.bfloat16, cfg.head_dim_)
+        if inst != "sm90":
+            raise AssertionError(f"{cfg.name}: its prefill attention takes "
+                                 f"the {inst} instance")
+        via = f" ({inst} instance)"
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -2403,7 +2436,7 @@ def lm_serve(torch, dev, args, cfg, measured=None):
     d_busy = profiled_busy(torch, steps)
     log(f"[lm] {cfg.name} prefill {B} x {S}: {pre_s * 1e3:.1f} ms "
         f"({B * S / pre_s:.0f} tokens/s), peak {pre_peak / 1e9:.2f} GB; "
-        f"{kernel} launches {counts[kernel]} (one per "
+        f"{kernel} launches {counts[kernel]}{via} (one per "
         f"{'superlayer' if cfg.family == 'hybrid' else 'layer'}){drops}; "
         f"profiled prefill: device busy {busy[0]:.4f} of "
         f"{busy[1] * 1e3:.1f} ms, top device ops (ms) {busy[2]}")
@@ -2497,11 +2530,15 @@ def flash_row(torch, dev, cfg, flush, ab=()):
 
 def wide_head_row(torch, dev, flush):
     """flash_attention at Nemotron-4-340B's heads (1, 520, 96/8 heads of
-    192, causal), a head dim the Hopper instance does not take: the
-    general instance's bf16 (WMMA, the wide template) and float32 routes
-    against the plain version, the bf16 one timed beside one
-    scaled_dot_product_attention with its bound.  No path of this run
-    takes the shape: the row's launches are its own call's."""
+    192, causal): in bf16 the Hopper instance (three 64-column boxes,
+    112-key tiles) against the plain version, timed beside one
+    scaled_dot_product_attention with its bound and in turns with the
+    general instance (WMMA, the wide template; through the ops module's
+    private ``_instance``), which must hold the same bars and agree with
+    it; in float32 the general instance (split TF32) against the plain
+    version.  No path of this run takes the shape (Nemotron-4's prefill
+    row is :func:`arch_flash_row`'s): the row's launches are its own
+    call's."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          instance)
@@ -2516,13 +2553,23 @@ def wide_head_row(torch, dev, flush):
                    for sh in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
         got = flash_attention(q, k, v, causal=True)
         want = flash_attention_ref(q, k, v, causal=True)
-        what = f"flash_attention D={D} {dtype}"
+        what = f"flash_attention D={D} {dtype} ({instance(dtype, D)})"
         if dtype == torch.bfloat16:
             err = max_err(torch, got, want, what, ATOL_BF16)
             errs[dtype] = row_rel_err(torch, got, want, what)
         else:
             errs[dtype] = max_err(torch, got, want, what)
+    inst = instance(torch.bfloat16, D)
+    if inst != "sm90":
+        raise AssertionError(f"flash_attention takes the {inst} instance "
+                             f"at bf16 head dim {D}")
+    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
     kern = lambda: flash_attention(q, k, v, causal=True)
+    general = lambda: flash_attention(q, k, v, causal=True,
+                                      _instance="general")
+    held, turns = general_held(torch, general, kern, got, want, flush,
+                               f"flash_attention ({shape})")
+    del got, want
     plain = lambda: flash_attention_ref(q, k, v, causal=True)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library = lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -2533,23 +2580,25 @@ def wide_head_row(torch, dev, flush):
     pairs = B * Hq * (S * S + S) / 2
     nbytes = 2 * (2 * q.numel() + 2 * k.numel())
     b, by, _ = flash_bound(nbytes, 4.0 * D * pairs, pairs, True)
-    shape = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
-    inst = instance(torch.bfloat16, D)
     log(f"[kernel] flash_attention ({inst}) {shape} (Nemotron-4's heads) ok "
         f"max|err|/max|ref| of a row {errs[torch.bfloat16]:.3g} (tol "
-        f"{ROW_REL_BF16}), max|err| {err:.3g} (tol {ATOL_BF16}); float32 "
-        f"max|err| {errs[torch.float32]:.3g} (tol {ATOL_KERNEL}) device ms: "
+        f"{ROW_REL_BF16}), max|err| {err:.3g} (tol {ATOL_BF16}){held}; "
+        f"float32 (general) max|err| {errs[torch.float32]:.3g} (tol "
+        f"{ATOL_KERNEL}) device ms: "
         f"kernel {ms:.4f}  plain {plain_ms:.4f}  bound {b:.4f} ({by})  "
         f"library {lib_ms:.4f}; ms per call: kernel {call:.4f}  library "
         f"{lib_call:.4f}")
-    return dict(name="flash_attention", route="cuda", instance=inst,
-                source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/"
-                         "flash_attention.py:82",
-                max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=lib_ms,
-                library_call_ms=lib_call, shape=shape, path="widened",
-                launches=own_launches(torch, "flash_attention", kern))
+    row = dict(name="flash_attention", route="cuda", instance=inst,
+               source="src/repro_torch/csrc/flash_attention_sm90.cu",
+               replaces="src/repro/kernels/flash_attention/"
+                        "flash_attention.py:82",
+               max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms,
+               bound_ms=b, bound_by=by, library_ms=lib_ms,
+               library_call_ms=lib_call, shape=shape, path="widened",
+               launches=own_launches(torch, "flash_attention", kern))
+    row["ab"] = {"general instance (csrc/flash_attention.cu)": turns}
+    del q, k, v, qt, kt, vt
+    return row
 
 
 def arch_flash_row(torch, dev, cfg, flush, launches, ab=()):
@@ -2557,14 +2606,17 @@ def arch_flash_row(torch, dev, cfg, flush, launches, ab=()):
     a served-only arch in bf16, on the Hopper instance (qwen3-moe's 64/4
     heads of 128 and llama4-scout's 40/8, at GQA groups 16 and 5;
     zamba2's 32/32 heads of 80, a 64-column box and a 16-column tail
-    box), timed beside one scaled_dot_product_attention.  At a head dim
+    box; nemotron-4's 96/8 heads of 192, three boxes and 112-key tiles),
+    timed beside one scaled_dot_product_attention.  At a head dim
     in FLASH_TURNS_HEAD_DIMS it is also timed in turns with the general
-    instance (the route such heads took before the tail box, through
-    the ops module's private ``_instance``: general, Hopper, Hopper,
-    general), which must hold the same bars against the plain version
-    and agree with the Hopper one within them.  ``launches`` is the
-    arch's prefill count; with ``--ab``, the Hopper instance is also
-    timed in turns with each directory's design of it."""
+    instance (the route such heads took before the tail box or the
+    112-key tiles, through the ops module's private ``_instance``:
+    general, Hopper, Hopper, general), which must hold the same bars
+    against the plain version and agree with the Hopper one within
+    them.  Past PLAIN_FWD_WHOLE_SCORES the plain version runs one batch
+    row at a time.  ``launches`` is the arch's prefill count; with
+    ``--ab``, the Hopper instance is also timed in turns with each
+    directory's design of it."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          instance)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -2579,7 +2631,13 @@ def arch_flash_row(torch, dev, cfg, flush, launches, ab=()):
     q, k, v = [torch.randn(sh, generator=g, device=dev).to(torch.bfloat16)
                for sh in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
     kern = lambda: flash_attention(q, k, v, causal=True)
-    plain = lambda: flash_attention_ref(q, k, v, causal=True)
+    rows_of = B * Hq * S * S * 4 > PLAIN_FWD_WHOLE_SCORES
+    if rows_of:
+        plain = lambda: torch.cat([flash_attention_ref(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True)
+            for b in range(B)])
+    else:
+        plain = lambda: flash_attention_ref(q, k, v, causal=True)
     got, want = kern(), plain()
     torch.cuda.synchronize()
     what = f"flash_attention {cfg.name}"
@@ -2590,17 +2648,8 @@ def arch_flash_row(torch, dev, cfg, flush, launches, ab=()):
     if D in FLASH_TURNS_HEAD_DIMS:
         general = lambda: flash_attention(q, k, v, causal=True,
                                           _instance="general")
-        other = general()
-        torch.cuda.synchronize()
-        g_what = f"{what} (the general instance)"
-        g_rel = row_rel_err(torch, other, want, g_what)
-        max_err(torch, other, want, g_what, ATOL_BF16)
-        agree = row_rel_err(torch, other, got, f"{g_what} vs the Hopper one")
-        del other
-        g_turns = general_turns(torch, general, kern, flush,
-                                f"flash_attention {cfg.name} ({shape})")
-        held = (f"; the general instance {g_rel:.3g} against the plain "
-                f"version, {agree:.3g} against the Hopper one (same bar)")
+        held, g_turns = general_held(torch, general, kern, got, want, flush,
+                                     f"flash_attention {cfg.name} ({shape})")
     del got, want
     F = torch.nn.functional
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -2620,7 +2669,8 @@ def arch_flash_row(torch, dev, cfg, flush, launches, ab=()):
         f"max|err|/max|ref| of a row {rel:.3g} (tol {ROW_REL_BF16}), "
         f"max|err| {err:.3g} (tol {ATOL_BF16}){held} device ms: kernel "
         f"{ms:.4f}  "
-        f"plain {plain_ms:.4f}  bound {b:.4f} ({by})  library {lib_ms:.4f}; "
+        f"plain {plain_ms:.4f}{' (a batch row at a time)' if rows_of else ''}"
+        f"  bound {b:.4f} ({by})  library {lib_ms:.4f}; "
         f"ms per call, in turns (kernel, library, library, kernel): "
         f"{' '.join(f'{t:.4f}' for t in turns)}; launches {launches} a "
         f"prefill")
@@ -2637,6 +2687,24 @@ def arch_flash_row(torch, dev, cfg, flush, launches, ab=()):
             f"flash_attention {cfg.name} ({shape})")
     del q, k, v, qt, kt, vt
     return row
+
+
+def general_held(torch, general, tree, got, want, flush, what) -> tuple:
+    """The general instance (``general``) at a head dim the Hopper one
+    (``tree``, whose output is ``got``) takes: within the bf16 bars of the
+    plain version's ``want`` and of the Hopper output, then the two timed
+    in turns (:func:`general_turns`).  Returns (the log note, the
+    turns)."""
+    other = general()
+    torch.cuda.synchronize()
+    g_what = f"{what}, the general instance"
+    g_rel = row_rel_err(torch, other, want, g_what)
+    max_err(torch, other, want, g_what, ATOL_BF16)
+    agree = row_rel_err(torch, other, got, f"{g_what} vs the Hopper one")
+    del other
+    return (f"; the general instance {g_rel:.3g} against the plain "
+            f"version, {agree:.3g} against the Hopper one (same bar)",
+            general_turns(torch, general, tree, flush, what))
 
 
 def general_turns(torch, general, tree, flush, what) -> list:
@@ -2838,8 +2906,9 @@ def one_longer(torch, state):
 
 
 def lm_cut_checks(torch, dev, args, cfg):
-    """Full width, depth cut: the card against the CPU, and the prefill
-    against token-by-token decode on the card.  For a moe arch each
+    """Full width, depth cut (and, for an arch of LM_CUT_VOCAB, the
+    vocabulary): the card against the CPU, and the prefill against
+    token-by-token decode on the card.  For a moe arch each
     token's experts must be the same on the card and the CPU in float32;
     in bf16, where the router's logits are rounded and near-ties are
     common, a token routed differently must be a near-tie (its experts
@@ -2855,7 +2924,8 @@ def lm_cut_checks(torch, dev, args, cfg):
     from repro_torch.models import transformer_lm as T
 
     depth, B, S = LM_CUT_OF.get(cfg.name, LM_CUT)
-    cut = dataclasses.replace(cfg, n_layers=depth)
+    cut = dataclasses.replace(cfg, n_layers=depth,
+                              vocab=LM_CUT_VOCAB.get(cfg.name, cfg.vocab))
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     params = Z.init_params(cut, gen, device=dev)
     cpu = _to_cpu(params)
@@ -2950,7 +3020,10 @@ def lm_cut_checks(torch, dev, args, cfg):
         err_n = max_err(torch, o.cpu(), l_n.cpu(), f"{cfg.name} prefill(S) "
                         f"+ decode vs prefill(S+1)", ATOL_DECODE)
         extra = f"; prefill(S) + 1 decode step vs prefill(S+1) {err_n:.3g}"
-    log(f"[lm] {cfg.name} cut to {depth} layers, B {B} S {S}: card vs CPU "
+    vocab = (f", vocabulary {cut.vocab}" if cut.vocab != cfg.vocab
+             else "")
+    log(f"[lm] {cfg.name} cut to {depth} layers{vocab}, B {B} S {S}: card "
+        f"vs CPU "
         f"forward_hidden f32 {err_f:.3g} (tol {ATOL_SERVED}){routed}, bf16 "
         f"prefill logits {err_p:.3g}, 4 decode steps {err_d:.3g} (tol "
         f"{atol}) in {cpu_s:.1f} s, host peak RSS {rss:.1f} GB; "
@@ -3257,8 +3330,9 @@ def lm_phase(torch, dev, args, measured=None):
     """Yi-6B, then Falcon-Mamba-7B: serve at full size, hold the kernel
     against its plain version (and at the shapes past its old limits),
     check the depth cut; then the same for Qwen3-MoE and Llama-4-Scout
-    (cut to 8 layers) and Zamba2 (whole), with a flash_attention row at
-    each one's prefill shape, and for Qwen3-MoE the mesh part
+    (cut to 8 layers), Zamba2 (whole) and Nemotron-4 (cut to 4 layers),
+    with a flash_attention row at each one's prefill shape, and for
+    Qwen3-MoE the mesh part
     (:func:`mesh_serve` on its tree, then :func:`mesh_flash_row`; the
     depth cut adds :func:`mesh_cut_holds`).  Returns the rows of
     flash_attention and selective_scan."""
@@ -3340,15 +3414,18 @@ SCAN_ORACLE_L = 1024      # the plain scan's autograd graph, L cut from 4,096
 # launches), Zamba2-2.7B's attention in bf16 (the Hopper instance at
 # head dim 80; Zamba2's train steps' launches), Qwen3-MoE's and
 # Llama-4-Scout's train shapes in bf16 (64/4 and 40/8 heads of 128;
-# their train steps' launches), then two float32 ones (shapes no path of
-# this run takes: their own call's): a ragged one at head dim 80 and
-# Yi-6B's train heads
+# their train steps' launches), Nemotron-4's heads in bf16 (96/8 of 192:
+# the general backward after the Hopper forward; no path trains it, so
+# its own call's), then two float32 ones (shapes no path of this run
+# takes: their own call's): a ragged one at head dim 80 and Yi-6B's
+# train heads
 FLASH_BWD_SHAPES = ((2, 4096, 32, 4, 128, True, "bfloat16", "yi-6b"),
                     (2, 4096, 32, 32, 80, True, "bfloat16", "zamba2-2.7b"),
                     (2, 4096, 64, 4, 128, True, "bfloat16",
                      "qwen3-moe-235b-a22b"),
                     (2, 4096, 40, 8, 128, True, "bfloat16",
                      "llama4-scout-17b-a16e"),
+                    (1, 520, 96, 8, 192, True, "bfloat16", "own call"),
                     (2, 1000, 8, 2, 80, False, "float32", "own call"),
                     (2, 2048, 32, 4, 128, True, "float32", "own call"))
 # the largest float32 score block (B Hq Sq Skv x 4 B, Yi's row) whose
@@ -3489,9 +3566,11 @@ def lm_train_steps(torch, dev, args, cfg, measured=None) -> dict:
     cut = train_cut(cfg, depth, opt_name)
     want = train_launches(cut)
     if cfg.family != "ssm":
-        from repro_torch.kernels.flash_attention.ops import instance
-        inst = instance(torch.bfloat16, cfg.head_dim_)
-        if inst != "sm90":
+        from repro_torch.kernels.flash_attention.ops import (
+            backward_instance, instance)
+        inst = (instance(torch.bfloat16, cfg.head_dim_),
+                backward_instance(torch.bfloat16, cfg.head_dim_))
+        if inst != ("sm90", "sm90"):
             raise AssertionError(f"{cfg.name}: its attention takes the "
                                  f"{inst} instances, forward and backward")
     base = torch.cuda.memory_allocated()
@@ -3814,7 +3893,9 @@ def flash_bwd_rows(torch, dev, flush, launches, ab=()):
     at Yi-6B's train shape (2, 4,096, 32/4 heads of 128), Zamba2-2.7B's
     attention (2, 4,096, 32/32 heads of 80, the tail box), Qwen3-MoE's
     (64/4 heads of 128) and Llama-4-Scout's (40/8) in bf16, causal (the
-    Hopper instances, forward and backward), and at (2, 1,000, 8/2, 80)
+    Hopper instances, forward and backward), at Nemotron-4's heads (1,
+    520, 96/8 heads of 192) in bf16, causal (the Hopper forward, the
+    general backward), and at (2, 1,000, 8/2, 80)
     in float32, not causal (the general ones), timed beside the plain
     autograd backward (in (batch, KV head) slices past
     PLAIN_WHOLE_SCORES) and the autograd backward of one
@@ -3823,13 +3904,14 @@ def flash_bwd_rows(torch, dev, flush, launches, ab=()):
     the general instance's (its WMMA route, taken through the ops
     module's private ``_instance``), which must agree with it within the
     same bar.  The bf16 rows count their archs' train steps' launches
-    (``launches``, by arch); the float32 row's shape is on no card path,
-    so it counts its own call's.  With ``ab``, each float32 row's
+    (``launches``, by arch); Nemotron-4's and the float32 rows' shapes
+    are on no card path, so they count their own call's.  With ``ab``, each float32 row's
     backward is also timed in turns with each directory's design of the
     general backward (``flash_attention_bwd``), on this tree's forward
     outputs."""
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+    from repro_torch.kernels.flash_attention.ops import (backward_instance,
+                                                         flash_attention,
                                                          instance)
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_grad_budget, flash_attention_ref,
@@ -3857,12 +3939,9 @@ def flash_bwd_rows(torch, dev, flush, launches, ab=()):
         torch.cuda.synchronize()
         names = [f"flash_attention_bwd {nm} D={D}" for nm in ("dq", "dk",
                                                               "dv")]
-        inst = instance(dtype, D)
+        inst = backward_instance(dtype, D)
         turns = None
         if dtype == torch.bfloat16:
-            if inst != "sm90":
-                raise AssertionError(f"flash_attention_bwd D={D} bf16 takes "
-                                     f"the {inst} instance")
             tol = BF16_GRAD_ROW
             if budgets is None:
                 budgets = flash_attention_grad_budget(
@@ -3890,10 +3969,12 @@ def flash_bwd_rows(torch, dev, flush, launches, ab=()):
             held = (f"per row beyond the rounding budget {rel:.3g} (tol "
                     f"{tol}; the last KV tile's dk and dv zeroed: "
                     f"{fault:.3g})")
-            turns, agree = route_turns(torch, ops, ins, dout, causal, got,
-                                       budgets, flush, f"D={D} Hkv={Hkv}")
-            held += (f"; the general instance against the Hopper one "
-                     f"{agree:.3g} (tol {tol})")
+            if inst == "sm90":
+                turns, agree = route_turns(torch, ops, ins, dout, causal,
+                                           got, budgets, flush,
+                                           f"D={D} Hkv={Hkv}")
+                held += (f"; the general instance against the Hopper one "
+                         f"{agree:.3g} (tol {tol})")
             del dropped, budgets
         else:
             tol = ATOL_KERNEL
@@ -3928,9 +4009,11 @@ def flash_bwd_rows(torch, dev, flush, launches, ab=()):
         b7 = flash_bound(nbytes, 1.4 * ops_n, pairs, bf16)[0]
         slices = (f" (its {B * Hkv} (batch, KV head) slices summed)"
                   if sliced else "")
+        fwd = instance(dtype, D)
         shape = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
                  f"{str(dtype).split('.')[-1]} "
-                 f"{'causal' if causal else 'full'} ({inst})")
+                 f"{'causal' if causal else 'full'} ({inst}"
+                 f"{f', after the {fwd} forward' if fwd != inst else ''})")
         log(f"[kernel] flash_attention_bwd {shape} ok max|err| {err:.3g}, "
             f"{held} device ms: kernel {ms:.4f}  plain {plain_ms:.4f}"
             f"{slices}  "

@@ -1,5 +1,5 @@
 // Causal or non-causal GQA attention with an online softmax (forward):
-// the Hopper instance, for bfloat16 with head dim 64, 80 or 128.
+// the Hopper instance, for bfloat16 with head dim 64, 80, 128 or 192.
 //
 // Replaces, beside csrc/flash_attention.cu (which keeps every other dtype
 // and head dim), the Pallas TPU kernel
@@ -24,26 +24,32 @@
 // on the tensor cores (0.278 ms at the bf16 peak) against 151 MB of q, k,
 // v and output (0.045 ms) and 5.4e8 exps (0.128 ms on the
 // special-function units).  At Zamba2-2.7B's (32/32 heads of 80) the
-// products shrink to 1.72e11 FLOP (0.174 ms) and the exps stay.
+// products shrink to 1.72e11 FLOP (0.174 ms) and the exps stay.  At
+// Nemotron-4-340B's (96/8 heads of 192) they are 1.24e12 FLOP (1.25 ms)
+// against 1.6e9 exps (0.385 ms) and 654 MB (0.195 ms).
 //
 // Design (FlashAttention-3's shape).  A persistent grid, one CTA of 384
 // threads per SM, walks the (128-row q tile, q head, batch) tiles,
 // longest causal tiles first.  A CTA is two consumer warpgroups of 64 q
 // rows each and a producer warpgroup, which hands its registers to the
 // consumers (setmaxnreg: 24 against 240 a thread).  One producer thread
-// loads each tile's q once and keeps 128-key K and V tiles in flight
+// loads each tile's q once and keeps BK-key K and V tiles in flight
 // through a ring in shared memory, all by TMA: 4-D maps over (D, H, S,
 // B), one head per box, 64 columns a box with the 128-byte swizzle, so a
-// 128-wide head is two boxes; rows past S come back as zeros.  A head of
-// 80 (Zamba2, HuBERT) is one 64-column box and a 16-column tail box with
-// the 32-byte swizzle, whose atom is exactly one 16-deep k step: a
-// 128-row tile is 16 + 4 KB (sm90.cuh, tile_bytes), and the ring takes 3
-// stages in 140 KB with q; D 64 and 128 keep 2 (160 KB with q at D
-// 128).  Full and empty mbarriers guard q and each K and V
-// stage; the ring runs on across tiles, so the next tile's loads overlap
-// this one's last products and epilogue.  Each consumer warpgroup, per
-// K/V tile:
-//   S = Q K^T by wgmma.m64n128k16 over D / 16 k steps, both operands
+// 128-wide head is two boxes and a 192-wide one three; rows past S come
+// back as zeros.  A head of 80 (Zamba2, HuBERT) is one 64-column box and
+// a 16-column tail box with the 32-byte swizzle, whose atom is exactly
+// one 16-deep k step.  The shared-memory plan (sm90.cuh, tile_bytes; at
+// most 227 KB a block):
+//   D 64, 128: BK 128, 2 stages (160 KB with q at D 128);
+//   D 80:      BK 128 (16 + 4 KB a tile), 3 stages in 140 KB with q;
+//   D 192:     BK 112 (key_tile: a 128-key tile is 48 KB, and q with two
+//              K and two V stages would be 240 KB), 42 KB a tile, 2
+//              stages: 48 + 4 x 42 = 216 KB with q.
+// Full and empty mbarriers guard q and each K and V stage; the ring runs
+// on across tiles, so the next tile's loads overlap this one's last
+// products and epilogue.  Each consumer warpgroup, per K/V tile:
+//   S = Q K^T by wgmma.m64nBKk16 over D / 16 k steps, both operands
 //     from shared memory by descriptor (at D 80 four steps over the
 //     128-byte boxes and one over the tail's 32-byte ones), float32
 //     accumulator in registers.  The accumulator's
@@ -51,22 +57,26 @@
 //     row max and sum are quad shuffles and no score touches shared
 //     memory;
 //   the softmax runs in registers with ex2.approx, scale * log2 e folded
-//     into one FMA; only tiles that cross the causal diagonal or the
-//     ragged key edge are masked;
+//     into one FMA; only tiles that cross the causal diagonal of one of
+//     the warpgroup's rows or the ragged key edge are masked (with BK
+//     112 a 128-row tile's diagonal crosses two or three key tiles);
 //   P is packed to bfloat16 pairs in registers: the accumulator layout of
 //     S is the register layout of wgmma's A operand, so O += P V is
 //     wgmma.m64nDk16 with A from registers and V (keys, D) from shared
-//     memory as the MN-major B operand (the descriptor's transpose bit);
+//     memory as the MN-major B operand (the descriptor's transpose bit),
+//     BK / 16 k steps;
 //     at D 80 each k step is an n64 over the 64-column box and an n16
 //     over the tail box into O's last 8 registers (columns 64-79), so O
 //     keeps the m64nD layout and the epilogue stores it as one.
-//     O stays in registers and is rescaled there.
+//     O stays in registers and is rescaled there: at D 192, 96 float32 a
+//     thread beside S's 56 and P's 28.
 // Overlap: S of tile kt is issued with P.V of tile kt - 1, and the
 // softmax of tile kt runs while the tensor cores do that P.V (and the
 // other warpgroup's products).
 // Training: when the caller gives an lse buffer, the epilogue also writes
-// each row's log-sum-exp for the backward (csrc/flash_attention_bwd_sm90.cu);
-// serving passes none and skips the store.
+// each row's log-sum-exp for the backward (csrc/flash_attention_bwd_sm90.cu,
+// or at D 192 csrc/flash_attention_bwd.cu, which reads the same lse and
+// float32 output); serving passes none and skips the store.
 #include "sm90.cuh"   // TMA, wgmma, descriptors, the tensor-map encoder
 
 namespace {
@@ -74,21 +84,34 @@ namespace {
 using namespace sm90;
 
 constexpr int kBQ = 128;             // q rows per tile
-constexpr int kBK = 128;             // keys per K/V tile
 constexpr int kConsumers = 256;      // two warpgroups of 64 q rows
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+constexpr int kSmemMax = 232448;     // dynamic shared memory a block may have
+constexpr int kBK192 = 112;          // keys per K/V tile at D 192
 
-// K/V ring depth: the tail's smaller tiles leave room for a third stage
+// Keys per K/V tile: 128, but at D 192 kBK192 (FlashAttention-3's 112),
+// since a 128-key tile of 192 columns is 48 KB and q with two K and two V
+// stages would be 240 KB.
+template <int D>
+__host__ __device__ constexpr int key_tile() {
+  return D == 192 ? kBK192 : 128;
+}
+
+// K/V ring depth: the tail's smaller tiles leave room for a third stage;
+// at D 192 as many stages as fit beside q (up to 3)
 template <int D>
 __host__ __device__ constexpr int stages() {
-  return has_tail<D>() ? 3 : 2;
+  constexpr int fit = (kSmemMax - 1024 - 8 * 14 - tile_bytes<D, kBQ>()) /
+                      (2 * tile_bytes<D, key_tile<D>()>());
+  return D == 192 ? (fit < 3 ? fit : 3) : has_tail<D>() ? 3 : 2;
 }
 
 template <int D>
 constexpr size_t smem_bytes() {
   // q, the K and V rings, 2 + 4 stages mbarriers, and slack to align the
   // base to 1024 bytes (the 128-byte swizzle's period)
-  return (size_t)(1 + 2 * stages<D>()) * tile_bytes<D, kBQ>() +
+  return (size_t)tile_bytes<D, kBQ>() +
+         (size_t)2 * stages<D>() * tile_bytes<D, key_tile<D>()>() +
          8 * (2 + 4 * stages<D>()) + 1024;
 }
 
@@ -112,13 +135,15 @@ __device__ __forceinline__ bool tile_at(int round, int n_qt, int Hq, int B,
   return true;
 }
 
-// K/V tiles q tile qt walks: all, or up to its last real row's diagonal
-// (row i sits at position i + off)
+// K/V tiles of BK keys that q tile qt (kBQ rows) walks: all, or up to
+// its last real row's diagonal (row i sits at position i + off), the last
+// one partial where Skv or the diagonal ends inside it
+template <int BK>
 __device__ __forceinline__ int kv_tiles(int qt, int Sq, int Skv, int causal,
                                         int off) {
   const int last_row = min((qt + 1) * kBQ, Sq) - 1;
   const int k_end = causal ? min(Skv, last_row + off + 1) : Skv;
-  return (k_end + kBK - 1) / kBK;
+  return (k_end + BK - 1) / BK;
 }
 
 template <int D>
@@ -131,12 +156,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 float* __restrict__ o32, int B, int Sq,
                                 int Skv, int Hq, int Hkv, int causal,
                                 float scale_log2, int off) {
+  constexpr int kBK = key_tile<D>();
   constexpr int kStages = stages<D>();
-  constexpr int kTile = tile_bytes<D, kBQ>();   // kBQ == kBK
+  constexpr int kQTile = tile_bytes<D, kBQ>();
+  constexpr int kTile = tile_bytes<D, kBK>();   // a K or V stage
   constexpr int kO = D / 2;          // O registers a thread (m64nD)
+  constexpr int kS = kBK / 2;        // S registers a thread (m64nBK)
   extern __shared__ unsigned char smem_raw[];
   const uint32_t s_q = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t s_k = s_q + kTile;                // kStages tiles
+  const uint32_t s_k = s_q + kQTile;               // kStages tiles
   const uint32_t s_v = s_k + kStages * kTile;      // kStages tiles
   const uint32_t bars = s_v + kStages * kTile;
   const uint32_t full_q = bars, empty_q = bars + 8;
@@ -171,9 +199,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       int it = 0;                                // K/V tiles issued so far
       for (int round = 0; tile_at(round, n_qt, Hq, B, t); ++round) {
         mbar_wait(empty_q, (round & 1) ^ 1);
-        mbar_expect_tx(full_q, kTile);
+        mbar_expect_tx(full_q, kQTile);
         load_tile<D, kBQ, kBQ>(s_q, tq, full_q, t.h, t.qt * kBQ, t.b);
-        const int n_kt = kv_tiles(t.qt, Sq, Skv, causal, off);
+        const int n_kt = kv_tiles<kBK>(t.qt, Sq, Skv, causal, off);
         for (int kt = 0; kt < n_kt; ++kt, ++it) {
           const int s = it % kStages;
           const uint32_t parity = ((it / kStages) & 1) ^ 1;
@@ -201,17 +229,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   float m0, m1, l0, l1;
   int lim0, lim1, wg_pos;
 
-  // S = Q K^T of stage s into sc (64 x 128 per warpgroup), committed
-  auto issue_s = [&](float (&sc)[64], int s) {
+  // S = Q K^T of stage s into sc (64 x kBK per warpgroup), committed
+  auto issue_s = [&](float (&sc)[kS], int s) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n128(sc, kmajor<D, kBQ>(s_q, wg * 64, kk),
+      wgmma_ss<kBK>(sc, kmajor<D, kBQ>(s_q, wg * 64, kk),
                     kmajor<D, kBK>(s_k + s * kTile, 0, kk), kk > 0);
     wgmma_commit();
   };
   // O += P V of stage s, committed
-  auto issue_pv = [&](const uint32_t (&pa)[8][4], int s) {
+  auto issue_pv = [&](const uint32_t (&pa)[kBK / 16][4], int s) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
@@ -221,12 +249,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   // Online softmax of K/V tile kt's scores, in place (sc becomes p), in
   // log2 units; updates m and the thread's share of l and returns the
   // rescale factors of O's two rows in f0, f1.
-  auto softmax = [&](float (&sc)[64], int kt, float& f0, float& f1) {
+  auto softmax = [&](float (&sc)[kS], int kt, float& f0, float& f1) {
     const int k0 = kt * kBK;
-    // mask only tiles that cross the ragged key edge or the diagonal
+    // mask only tiles that cross the ragged key edge or the diagonal of
+    // one of the warpgroup's rows (its first row sees the fewest keys);
+    // with kBK < kBQ the diagonal of a q tile crosses two or more
     if (k0 + kBK > Skv || (causal && k0 + kBK - 1 > wg_pos)) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = k0 + 8 * j + cq + e;
@@ -236,7 +266,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kBK / 8; ++j) {
       mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
       mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
@@ -256,7 +286,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     m1 = n1;
     float r0 = 0.f, r1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kBK / 8; ++j) {
       sc[4 * j] = ex2(fmaf(sc[4 * j], scale_log2, -u0));
       sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale_log2, -u0));
       sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale_log2, -u1));
@@ -285,7 +315,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     lim0 = causal ? min(Skv - 1, row0 + off) : Skv - 1;
     lim1 = causal ? min(Skv - 1, row0 + 8 + off) : Skv - 1;
     wg_pos = tile.qt * kBQ + wg * 64 + off;     // first row's position
-    const int n_kt = kv_tiles(tile.qt, Sq, Skv, causal, off);
+    const int n_kt = kv_tiles<kBK>(tile.qt, Sq, Skv, causal, off);
 #pragma unroll
     for (int i = 0; i < kO; ++i) o[i] = 0.f;
     m0 = m1 = -CUDART_INF_F;
@@ -296,8 +326,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // by tile kt - 1's factors between the two), S_kt is awaited first,
     // and P_kt is packed once P_{kt-1} V_{kt-1} is done.  q is released
     // to the producer once the tile's last S is in.
-    float sc[64], f0, f1;
-    uint32_t pa[8][4];
+    float sc[kS], f0, f1;
+    uint32_t pa[kBK / 16][4];
     mbar_wait(full_q, round & 1);
     if (n_kt == 0) {
       mbar_arrive(empty_q);
@@ -310,7 +340,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(empty_k(s));
       if (n_kt == 1) mbar_arrive(empty_q);
       softmax(sc, 0, f0, f1);        // f = 0: O is still 0
-      pack_a<128>(sc, pa);
+      pack_a<kBK>(sc, pa);
     }
     for (int kt = 1; kt < n_kt; ++kt) {
       const int s = (it + kt) % kStages, sp = (it + kt - 1) % kStages;
@@ -327,7 +357,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait<0>();               // P_{kt-1} V_{kt-1} is in
       fence_regs(o);
       mbar_arrive(empty_v(sp));
-      pack_a<128>(sc, pa);
+      pack_a<kBK>(sc, pa);
     }
     if (n_kt > 0) {
       const int sp = (it + n_kt - 1) % kStages;
@@ -391,8 +421,9 @@ int launch(const void* q, const void* k, const void* v, void* out,
   // with no keys the kernel loads no K/V tile: its maps stay blank
   HeadMaps tq{}, tk{}, tv{};
   if (!encode_head<D>(fn, &tq, q, B, Sq, Hq, kBQ) ||
-      (Skv > 0 && (!encode_head<D>(fn, &tk, k, B, Skv, Hkv, kBK) ||
-                   !encode_head<D>(fn, &tv, v, B, Skv, Hkv, kBK))))
+      (Skv > 0 &&
+       (!encode_head<D>(fn, &tk, k, B, Skv, Hkv, key_tile<D>()) ||
+        !encode_head<D>(fn, &tv, v, B, Skv, Hkv, key_tile<D>()))))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -416,7 +447,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // rounding into o32 (B, Sq, Hq, D).  Query row i sits at position
 // i + q_offset (the model's default is Skv - Sq); q_offset comes last, after
 // the stream, so the arguments before it keep the positions of the
-// interface without it.  Requires D 64, 80 or 128, Hq % Hkv == 0 and
+// interface without it.  Requires D 64, 80, 128 or 192, Hq % Hkv == 0 and
 // q_offset >= 0.  Returns cudaGetLastError() after the launch (0 on
 // success), or the error that kept it from launching.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
@@ -429,6 +460,9 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
   float* l = static_cast<float*>(lse);
   float* f = static_cast<float*>(o32);
   if (q_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 192)
+    return launch<192>(q, k, v, out, l, f, B, Sq, Skv, Hq, Hkv, causal,
+                       scale, q_offset, s);
   if (D == 128)
     return launch<128>(q, k, v, out, l, f, B, Sq, Skv, Hq, Hkv, causal,
                        scale, q_offset, s);

@@ -52,13 +52,15 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// A tile of R rows of a head of D bf16 columns (D 64, 80 or 128) in
+// A tile of R rows of a head of D bf16 columns (D 64, 80, 128 or 192) in
 // shared memory, as TMA writes it: first D / 64 boxes of 64 columns, each
 // R rows of 128 bytes with the 128-byte swizzle, then, where D % 64 is 16
 // (D 80), one box of the last 16 columns, R rows of 32 bytes with the
 // 32-byte swizzle.  R * D * 2 bytes in all; with the tile 1024-byte
-// aligned and R a multiple of 64, every box is aligned to its swizzle's
-// period (1024 and 256 bytes).
+// aligned and R a multiple of 8 (one swizzle period of either kind: 8
+// rows), every box and every 8-row group is aligned to its swizzle's
+// period (1024 and 256 bytes), which the descriptors below assume.  A
+// 112-row box (the forward's key tile at D 192) is 14 periods.
 template <int D>
 __host__ __device__ constexpr bool has_tail() {
   static_assert(D % kBox == 0 || D % kBox == kTail,
@@ -67,6 +69,7 @@ __host__ __device__ constexpr bool has_tail() {
 }
 template <int D, int R>
 __host__ __device__ constexpr int tile_bytes() {
+  static_assert(R % 8 == 0, "tile rows: whole swizzle periods of 8 rows");
   return R * D * 2;
 }
 template <int D, int R>
@@ -171,6 +174,38 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 112, float32) += A (64 x 16, bf16, shared, K-major) *
+// B (16 x 112, bf16, shared, K-major), both by descriptor; scale_d 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_ss_n112(float (&d)[56], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, %56, %57, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 64, float32) += A (64 x 16, bf16, shared, K-major) *
 // B (16 x 64, bf16, shared, K-major), both by descriptor; scale_d 0
 // overwrites D.
@@ -193,6 +228,65 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// S (64 x N, float32) of one k step, by N: 128, 112 or 64 keys.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 128) {
+    wgmma_ss_n128(d, da, db, scale_d);
+  } else if constexpr (N == 112) {
+    wgmma_ss_n112(d, da, db, scale_d);
+  } else {
+    static_assert(N == 64, "key tile: 128, 112 or 64 keys");
+    wgmma_ss_n64(d, da, db, scale_d);
+  }
+}
+
+// D (64 x 192, float32) += A (64 x 16, bf16, registers) * B (16 x 192,
+// bf16, shared, MN-major: the descriptor's transpose bit).
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // D (64 x 128, float32) += A (64 x 16, bf16, registers) * B (16 x 128,
@@ -278,15 +372,18 @@ __device__ __forceinline__ auto part(float (&r)[M]) -> float (&)[N] {
 
 // acc (64 x D, float32, the m64nD accumulator layout) += A (64 x 16,
 // registers) * B (16 x D, MN-major): rows [r, r + 16) of an R-row tile of
-// D columns.  A 64-column box is one wgmma, both of D 128 one n128 (LBO
-// steps to the second box); the tail box an n16 into the accumulator's
-// last 8 registers, its columns 64-79.
+// D columns.  A 64-column box is one wgmma, the two of D 128 one n128 and
+// the three of D 192 one n192 (LBO steps from box to box, R * 128 bytes);
+// the tail box an n16 into the accumulator's last 8 registers, its
+// columns 64-79.
 template <int D, int R>
 __device__ __forceinline__ void wgmma_rs_tile(float (&acc)[D / 2],
                                               const uint32_t (&a)[4],
                                               uint32_t tile, int r) {
   const uint64_t db = smem_desc(tile + r * kBox * 2, R * kBox * 2, 1024);
-  if constexpr (D == 128) {
+  if constexpr (D == 192) {
+    wgmma_rs_n192(acc, a, db);
+  } else if constexpr (D == 128) {
     wgmma_rs_n128(acc, a, db);
   } else {
     wgmma_rs_n64(part<32, 0>(acc), a, db);

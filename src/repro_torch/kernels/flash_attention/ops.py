@@ -1,19 +1,24 @@
 """Wrapper of the flash_attention CUDA kernels, forward and backward, each
 in two instances: the Hopper ones (``csrc/flash_attention_sm90.cu`` and
 ``csrc/flash_attention_bwd_sm90.cu``: wgmma, TMA, rings in shared
-memory) for bfloat16 with head dim 64, 80 or 128 (80 as a 64-column box
-and a 16-column tail box), and the general ones
-(``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``) for
-every other dtype and head dim.  The general ones run float32 on the
-tensor cores in split TF32 (``csrc/tf32.cuh``: each float32 product as
-three TF32 products, hi.hi + hi.lo + lo.hi, within the float32 bar of
-1e-5), bfloat16 on WMMA.
+memory) for bfloat16 with a head dim in :data:`SM90_HEAD_DIMS` forward
+(64, 80, 128 and 192: 80 as a 64-column box and a 16-column tail box,
+192 as three boxes with 112-key tiles) and in
+:data:`SM90_BWD_HEAD_DIMS` backward (64, 80 and 128), and the general
+ones (``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``)
+for every other dtype and head dim.  So bfloat16 at 192 (Nemotron-4)
+runs the Hopper forward and the general backward, which reads the row
+log-sum-exps and float32 output every forward writes alike.  The
+general ones run float32 on the tensor cores in split TF32
+(``csrc/tf32.cuh``: each float32 product as three TF32 products, hi.hi +
+hi.lo + lo.hi, within the float32 bar of 1e-5), bfloat16 on WMMA.
 
 A CPU tensor takes the plain version (``ref.py``), whose gradient is
 PyTorch's autograd of the same expression.  A CUDA tensor launches one
 forward kernel, the instance :func:`instance` picks from the dtype and
 head dim before the launch, counted as ``flash_attention`` either way,
-or raises on what the kernel does not take: q, k and v must be
+or raises on what the kernel does not take (a failed build or launch
+raises too: nothing falls back to another instance): q, k and v must be
 contiguous float32 or bfloat16 tensors of one dtype, (B, S, H, D) with
 Hq % Hkv == 0 and any head dim D (the general instance takes wide D in
 chunks of output columns: past 256 in bfloat16, past 512 in float32),
@@ -42,7 +47,8 @@ one ``torch.autograd.Function``: the forward kernel also writes each
 row's log-sum-exp and, for bfloat16, its output's float32 values before
 rounding (the backward's ``D = rowsum(dO * O)`` takes the float32 O, as
 the plain version's autograd does), and autograd's backward launches the
-backward kernel of the same instance once, counted as
+backward kernel :func:`backward_instance` picks (the general one when
+the forward's was forced) once, counted as
 ``flash_attention_bwd`` either way.  Otherwise (serving) neither is
 written and no autograd node is made.
 
@@ -71,15 +77,26 @@ _BWD_ARGS = (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P, I)
 _SIG_BWD = {"flash_attention_bwd_launch": _BWD_ARGS}
 _SIG_BWD_SM90 = {"flash_attention_bwd_sm90_launch": _BWD_ARGS}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SM90_HEAD_DIMS = (64, 80, 128)
+# head dims the Hopper instances take in bfloat16: the forward's
+# (64-column TMA boxes, at 80 a 16-column tail box, at 192 112-key tiles)
+# and the backward's, which has no shared-memory plan at 192
+SM90_HEAD_DIMS = (64, 80, 128, 192)
+SM90_BWD_HEAD_DIMS = (64, 80, 128)
 
 
 def instance(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernels a CUDA call launches, forward and backward: ``"sm90"``
-    (wgmma and TMA) for bfloat16 with a head dim in
-    :data:`SM90_HEAD_DIMS` (64-column TMA boxes, and at 80 a 16-column
-    tail box), else ``"general"``."""
+    """The forward kernel a CUDA call launches: ``"sm90"`` (wgmma and TMA)
+    for bfloat16 with a head dim in :data:`SM90_HEAD_DIMS`, else
+    ``"general"``."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return "sm90"
+    return "general"
+
+
+def backward_instance(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel a call launches: ``"sm90"`` for bfloat16 with a
+    head dim in :data:`SM90_BWD_HEAD_DIMS`, else ``"general"``."""
+    if dtype == torch.bfloat16 and head_dim in SM90_BWD_HEAD_DIMS:
         return "sm90"
     return "general"
 
@@ -161,8 +178,9 @@ def flash_attention_bwd(q, k, v, o32, lse, dout, *, causal: bool,
     itself for float32 inputs, else its values before rounding), its row
     log-sum-exps ``lse`` (B, Hq, Sq) and the output's gradient
     ``dout``, with the forward's ``q_offset`` (default ``Skv - Sq``).
-    The instance is :func:`instance`'s; ``_instance`` ("general") takes
-    the general one instead, for timing the two against each other."""
+    The instance is :func:`backward_instance`'s; ``_instance``
+    ("general") takes the general one instead, for timing the two
+    against each other."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     rt.require(dout, "dout", q.dtype, q.device, 4)
@@ -220,11 +238,12 @@ def kernel_cost(name: str, q, k, causal: bool, q_offset: int) -> int:
 
 
 def bwd_instance(q, k, v, dout, forced: str | None = None) -> str:
-    """The backward kernel a call launches: :func:`instance`'s, or the
-    general one where ``forced`` says so.  The Hopper instance reads q,
-    k, v and ``dout`` by TMA: raises if one is not 16-byte aligned."""
+    """The backward kernel a call launches: :func:`backward_instance`'s,
+    or the general one where ``forced`` says so.  The Hopper instance
+    reads q, k, v and ``dout`` by TMA: raises if one is not 16-byte
+    aligned."""
     _forced(forced, "flash_attention_bwd")
-    inst = forced or instance(q.dtype, q.shape[-1])
+    inst = forced or backward_instance(q.dtype, q.shape[-1])
     if inst == "sm90" and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
         raise ValueError("flash_attention_bwd: the Hopper instance reads q, "
                          "k, v and dout by TMA and needs them 16-byte "

@@ -506,7 +506,7 @@ def _assert_bf16_rows_close(got, want):
     (1, 64, 64, 4, 2, 16), (2, 96, 96, 6, 2, 32), (2, 57, 57, 4, 2, 16),
     (2, 32, 64, 8, 4, 16), (1, 5, 70, 2, 1, 80), (2, 130, 130, 8, 1, 128),
     (1, 33, 40, 2, 2, 20),     # D % 8 != 0: element-wise staging
-    (1, 70, 70, 12, 1, 192),   # Nemotron-4's head dim: the wide instance
+    (1, 70, 70, 12, 1, 192),   # Nemotron-4's head dim: Hopper in bf16
     (1, 40, 72, 4, 2, 136), (2, 65, 65, 2, 2, 256),
     # D > 256: chunks of output columns, scores over slices of D
     (1, 70, 70, 4, 2, 320), (2, 65, 90, 4, 1, 512),
@@ -552,13 +552,22 @@ def test_flash_attention_kernel_matches_plain(card, B, Sq, Skv, Hq, Hkv, D,
     (2, 100, 333, 4, 2, 80),     # Sq < Skv: row i at i + 233
     (1, 5, 70, 2, 1, 80),        # Sq < Skv inside one tile
     (1, 2048, 2048, 4, 2, 80),   # 16 K/V tiles: many wraps of 3 stages
-    (4, 384, 384, 32, 32, 80)])  # 384 CTAs, more than the card's SMs
+    (4, 384, 384, 32, 32, 80),   # 384 CTAs, more than the card's SMs
+    # D 192 (Nemotron-4): three 64-column boxes, 112-key tiles, so a q
+    # tile's diagonal crosses two key tiles; S ragged against both sizes
+    (1, 70, 70, 12, 1, 192),     # GQA 12, inside one key tile
+    (2, 130, 130, 12, 1, 192),   # two q tiles, two key tiles
+    (1, 520, 520, 96, 8, 192),   # Nemotron-4's heads
+    (2, 100, 333, 4, 2, 192),    # Sq < Skv: row i at i + 233
+    (1, 5, 70, 2, 1, 192),       # Sq < Skv inside one tile
+    (1, 2048, 2048, 4, 2, 192),  # 19 K/V tiles: many ring wraps
+    (4, 384, 384, 32, 4, 192)])  # 384 CTAs, more than the card's SMs
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_hopper_instance_matches_plain(card, B, Sq, Skv, Hq,
                                                        Hkv, D, causal):
-    """The wgmma/TMA instance (bf16, D 64, 80 or 128): ragged edges masked
-    in the kernel, the model's causal offset, GQA, non-causal, long rings
-    and more CTAs than SMs, at the bf16 bars."""
+    """The wgmma/TMA instance (bf16, D 64, 80, 128 or 192): ragged edges
+    masked in the kernel, the model's causal offset, GQA, non-causal,
+    long rings and more CTAs than SMs, at the bf16 bars."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          instance)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -580,7 +589,9 @@ def test_flash_attention_hopper_instance_matches_plain(card, B, Sq, Skv, Hq,
     (2, 200, 700, 32, 32, 80, torch.bfloat16, "sm90"),   # the tail box
     (2, 512, 2048, 64, 4, 128, torch.bfloat16, "general"),
     (1, 300, 1000, 4, 2, 64, torch.float32, "general"),
-    (1, 70, 200, 4, 1, 192, torch.bfloat16, "general")])  # the wide one
+    (1, 70, 200, 4, 1, 192, torch.bfloat16, "general"),  # the wide one
+    (1, 70, 200, 4, 1, 192, torch.bfloat16, "sm90"),     # 112-key tiles
+    (1, 300, 1000, 12, 1, 192, torch.bfloat16, "sm90")])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_q_offset_matches_plain(card, B, Sq, Skv, Hq, Hkv,
                                                 D, dtype, inst, causal):
@@ -702,9 +713,51 @@ def test_flash_attention_general_instance_at_head_dim_80(card, B, S, Hq,
         assert rel <= BF16_GRAD_ROW, f"{name}: {rel} of a row's max"
 
 
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv", [
+    (1, 70, 70, 12, 1), (2, 130, 130, 12, 1), (1, 520, 520, 96, 8),
+    (1, 300, 1000, 12, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_hopper_head_dim_192_agrees_with_general(
+        card, B, Sq, Skv, Hq, Hkv, causal):
+    """At bf16 D 192 the forward is the Hopper instance's (112-key tiles)
+    and the backward the general one's: the Hopper output holds the bf16
+    bars against the plain version and against the general instance
+    (asked for), and its row log-sum-exps and float32 output (under
+    autograd) give the general backward the same bits whether it is
+    asked for or picked."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    D = 192
+    assert ops.instance(torch.bfloat16, D) == "sm90"
+    assert ops.backward_instance(torch.bfloat16, D) == "general"
+    q, k, v = _attn_inputs(card, B, Sq, Skv, Hq, Hkv, D, torch.bfloat16,
+                           Sq + Hq)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    general = ops.flash_attention(q, k, v, causal=causal,
+                                  _instance="general")
+    _assert_bf16_rows_close(got, flash_attention_ref(q, k, v,
+                                                     causal=causal))
+    _assert_bf16_rows_close(general, got)
+    lse = torch.empty((B, Hq, Sq), device=card)
+    o32 = torch.empty((B, Sq, Hq, D), device=card)
+    out = ops._forward(q, k, v, causal, lse, o32)
+    assert torch.equal(out, got)
+    dout = torch.randn_like(q)
+    runtime.reset_launch_counts()
+    picked = ops.flash_attention_bwd(q, k, v, o32, lse, dout, causal=causal)
+    assert runtime.launch_counts() == {"flash_attention_bwd": 1}
+    asked = ops.flash_attention_bwd(q, k, v, o32, lse, dout, causal=causal,
+                                    _instance="general")
+    torch.cuda.synchronize()
+    for a, b in zip(picked, asked):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("dtype,D,inst", [
     (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "sm90"),
-    (torch.bfloat16, 80, "sm90"), (torch.float32, 128, "general")])
+    (torch.bfloat16, 80, "sm90"), (torch.float32, 128, "general"),
+    (torch.bfloat16, 192, "sm90")])
 def test_flash_attention_one_launch_per_call(card, dtype, D, inst):
     """Either instance is one counted ``flash_attention`` launch."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
@@ -807,17 +860,23 @@ def _flash_grads(fn, q, k, v, causal, w):
     # D 80 (bf16: the Hopper instance with its tail box; G 4 above)
     (2, 200, 8, 8, 80),      # G 1
     (1, 300, 16, 2, 80),     # G 8
-    (1, (100, 333), 8, 1, 80)])  # G 8, Sq < Skv
+    (1, (100, 333), 8, 1, 80),   # G 8, Sq < Skv
+    # D 192 (bf16: the Hopper forward, then the general backward on its
+    # row log-sum-exps and float32 output)
+    (2, 130, 12, 1, 192),    # G 12, ragged against 112 and 128
+    (1, (70, 520), 12, 1, 192)])  # G 12, Sq < Skv
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_matches_plain_autograd(card, B, S, Hq,
                                                          Hkv, D, causal,
                                                          dtype):
-    """dq, dk, dv of the backward kernel (either instance, after the
-    forward of the same instance) against the plain version's autograd
-    on the same inputs: float32 within 1e-5 of max(1, max |grad|);
-    bfloat16 each row within BF16_GRAD_ROW beyond its rounding budget.
-    One counted launch each way.  ``S`` is Sq = Skv, or (Sq, Skv)."""
+    """dq, dk, dv of the backward kernel (the instance of dtype and head
+    dim, after the forward's: the same instance but at bf16 D 192, where
+    the Hopper forward hands the general backward its outputs) against
+    the plain version's autograd on the same inputs: float32 within 1e-5
+    of max(1, max |grad|); bfloat16 each row within BF16_GRAD_ROW beyond
+    its rounding budget.  One counted launch each way.  ``S`` is Sq =
+    Skv, or (Sq, Skv)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_grad_budget, flash_attention_ref,
@@ -852,7 +911,8 @@ def test_flash_attention_backward_matches_plain_autograd(card, B, S, Hq,
     (1, 300, 1000, 4, 2, 64, torch.bfloat16, "sm90"),     # ragged tiles
     (1, 300, 1000, 4, 2, 64, torch.bfloat16, "general"),
     (2, 150, 700, 8, 2, 80, torch.float32, "general"),    # ragged, f32
-    (1, 70, 200, 4, 1, 192, torch.float32, "general")])   # D past 128
+    (1, 70, 200, 4, 1, 192, torch.float32, "general"),    # D past 128
+    (1, 70, 200, 4, 1, 192, torch.bfloat16, "sm90")])     # Hopper forward
 def test_flash_attention_backward_at_q_offsets(card, B, Sq, Skv, Hq, Hkv,
                                                D, dtype, inst):
     """The backward at each context-parallel shard's q_offset (0, Sq, 2
@@ -1043,7 +1103,8 @@ def test_flash_attention_hopper_backward_refuses_misaligned(card, which, D):
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
                                      (torch.bfloat16, 64),
                                      (torch.bfloat16, 80),
-                                     (torch.float32, 320)])
+                                     (torch.float32, 320),
+                                     (torch.bfloat16, 192)])
 def test_flash_attention_lse_leaves_forward_unchanged(card, dtype, D):
     """The forward with its log-sum-exp store (grad on) gives the same
     output bits as without it (serving), for both instances."""
@@ -1059,7 +1120,7 @@ def test_flash_attention_lse_leaves_forward_unchanged(card, dtype, D):
 
 
 @pytest.mark.parametrize("D,causal", [(128, True), (64, False), (80, True),
-                                      (320, False)])
+                                      (320, False), (192, True)])
 def test_flash_attention_float32_output_rounds_to_the_output(card, D,
                                                             causal):
     """Under autograd a bfloat16 forward also writes its output's float32

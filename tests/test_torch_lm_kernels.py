@@ -139,14 +139,14 @@ def test_flash_plain_row_without_keys_is_zero():
     (torch.bfloat16, 128, "sm90"),      # Yi-6B and the other dense archs
     (torch.bfloat16, 64, "sm90"),
     (torch.bfloat16, 80, "sm90"),       # Zamba2, HuBERT: the tail box
-    (torch.bfloat16, 192, "general"),   # Nemotron-4
+    (torch.bfloat16, 192, "sm90"),      # Nemotron-4: 112-key tiles
     (torch.bfloat16, 16, "general"),    # the reduced archs
     (torch.bfloat16, 256, "general"),
     (torch.float32, 128, "general"),
     (torch.float32, 64, "general")])
 def test_flash_dispatch_rule(dtype, head_dim, want):
-    """Which kernel a CUDA call launches is decided by dtype and head dim
-    alone, before the launch."""
+    """Which forward kernel a CUDA call launches is decided by dtype and
+    head dim alone, before the launch."""
     assert flash_ops.instance(dtype, head_dim) == want
 
 
@@ -156,8 +156,11 @@ def test_flash_dispatch_rule(dtype, head_dim, want):
     (torch.float32, 128, "general")])
 @pytest.mark.parametrize("forced", [None, "general"])
 def test_flash_backward_dispatch_rule(dtype, head_dim, want, forced):
-    """The backward launches the forward's instance, from dtype and head
-    dim alone; only the general one can be asked for instead."""
+    """The backward's instance comes from dtype and head dim alone: the
+    forward's, but at D 192 (Nemotron-4) the general one, since the
+    Hopper backward has no plan there; only the general one can be asked
+    for instead."""
+    assert flash_ops.backward_instance(dtype, head_dim) == want
     q = torch.zeros((1, 8, 4, head_dim), dtype=dtype)
     k = torch.zeros((1, 8, 2, head_dim), dtype=dtype)
     got = flash_ops.bwd_instance(q, k, k, q, forced)
@@ -191,21 +194,26 @@ def _misaligned(shape, dtype):
 
 
 @pytest.mark.parametrize("dtype,head_dim", [
-    (torch.float32, 128), (torch.bfloat16, 192)])
+    (torch.float32, 128), (torch.bfloat16, 192), (torch.bfloat16, 256)])
 def test_flash_wrapper_takes_misaligned_general_inputs(dtype, head_dim):
-    """Only the TMA instance needs 16-byte aligned q, k, v."""
+    """Only the TMA instance needs 16-byte aligned q, k, v: the general
+    one takes them, as the instance of the dtype and head dim or, at
+    bf16 D 192, whose forward is the Hopper one's, asked for."""
     q = _misaligned((1, 16, 4, head_dim), dtype)
     k = _misaligned((1, 16, 2, head_dim), dtype)
     assert q.is_contiguous() and q.data_ptr() % 16
-    flash_ops._check(q, k, k, True)
+    forced = "general" if flash_ops.instance(dtype, head_dim) == "sm90" \
+        else None
+    assert forced == ("general" if head_dim == 192 else None)
+    flash_ops._check(q, k, k, True, forced)
 
 
-@pytest.mark.parametrize("head_dim", [128, 80])
+@pytest.mark.parametrize("head_dim", [128, 80, 192])
 def test_flash_forward_instance_choice(head_dim):
     """The forward's private ``_instance`` takes only None or "general",
     as the backward's does: anything else raises, on the CPU path too.
     Asked for, the general instance takes misaligned bf16 inputs that
-    the Hopper one refuses."""
+    the Hopper one refuses (at D 192 too, whose forward is Hopper's)."""
     q = _misaligned((1, 16, 4, head_dim), torch.bfloat16)
     k = _misaligned((1, 16, 2, head_dim), torch.bfloat16)
     with pytest.raises(ValueError, match="16-byte aligned"):

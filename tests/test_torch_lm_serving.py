@@ -16,9 +16,13 @@ CPU, through the public entry points ``make_prefill_step`` and
   reference's 0.15 (tests/test_lm_smoke.py), and a Mamba (Falcon's
   Mamba-1, zamba2's Mamba-2 with its shared block's K/V) prefill state
   that continues into decode;
+* reduced Nemotron-4 at its own head dim, 192 (the Hopper forward's
+  112-key tiles on the card), against JAX: prefill and decode logits
+  within 0.1, and the float32 ``forward_hidden`` within 1e-5;
 * ``_cast_compute`` is the identity on a cast tree, and the entry points
   put their state on the card unless asked for the CPU.
 """
+import dataclasses
 import functools
 
 import jax
@@ -208,6 +212,54 @@ def _state_continues(arch):
     l_j, _ = JZ.make_serve_step(jcfg)(jp, _one_longer(st_j, True),
                                       jnp.asarray(toks[:, S:]))
     assert _diff(l_next, l_j) <= BF16_TOL
+
+
+@functools.lru_cache(maxsize=None)
+def _nemotron_192(seed=1):
+    """Reduced Nemotron-4 with its full-size head dim, 192, on both
+    sides (the reduced config's is 16)."""
+    jcfg = dataclasses.replace(j_get_arch("nemotron-4-340b").reduced(),
+                               head_dim=192)
+    tcfg = dataclasses.replace(get_arch("nemotron-4-340b").reduced(),
+                               head_dim=192)
+    jp = JZ.init_params(jcfg, jax.random.PRNGKey(seed))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def test_nemotron_head_dim_192_prefill_and_decode_match_jax():
+    jcfg, tcfg, jp, tp = _nemotron_192()
+    assert tcfg.head_dim_ == 192 and jcfg.head_dim == 192
+    B, S = 2, 12
+    batch = _batch(jcfg, B, S, seed=192)
+    l_j, _ = JZ.make_prefill_step(jcfg)(
+        jp, {"tokens": jnp.asarray(batch["tokens"])})
+    l_t, st_t = TZ.make_prefill_step(tcfg)(
+        tp, {"tokens": torch.from_numpy(batch["tokens"])})
+    assert tuple(st_t["k"].shape[-2:]) == (tcfg.n_kv_heads, 192)
+    assert _diff(l_t, l_j) <= BF16_TOL
+    ds_j = JT.init_decode_state(jcfg, B, S)
+    ds_t = TT.init_decode_state(tcfg, B, S, device="cpu")
+    serve_j, serve_t = JZ.make_serve_step(jcfg), TZ.make_serve_step(tcfg)
+    for i in range(4):
+        tok = batch["tokens"][:, i:i + 1]
+        l_j, ds_j = serve_j(jp, ds_j, jnp.asarray(tok))
+        l_t, ds_t = serve_t(tp, ds_t, torch.from_numpy(tok))
+        assert _diff(l_t, l_j) <= BF16_TOL, f"decode step {i}"
+
+
+def test_nemotron_head_dim_192_float32_hidden_matches_jax():
+    """The float32 path (no cast): within one float32 op's 1e-5."""
+    jcfg, tcfg, jp, tp = _nemotron_192()
+    B, S = 2, 11
+    rng = np.random.default_rng(192)
+    x = rng.normal(size=(B, S, jcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    h_j = JT.forward_hidden(jcfg, jp, jnp.asarray(x), jnp.asarray(pos))[0]
+    h_t = TT.forward_hidden(tcfg, tp, torch.from_numpy(x),
+                            torch.from_numpy(pos.copy()))[0]
+    np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j, np.float32),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_cast_compute_is_identity_on_a_cast_tree():
