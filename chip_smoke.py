@@ -60,12 +60,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    other design) and the autograd backward of a masked
    ``scaled_dot_product_attention``; then ``ContinuousTrainer`` for TGN
    (recent, batch 4000) and TGAT (uniform, batch 600) at full width
-   ingests the first 600,000 events and runs 2 rounds of 12,000 events
-   with 2 epochs each (2 rounds, not more, to keep the whole script
-   well inside its time limit): losses finite, every kernel of the path
+   ingests the first 600,000 events, runs an unprofiled warm round of
+   one batch (one epoch), then one round of 12,000 events with 2 epochs
+   (one such round, not more, to keep the whole script well inside its
+   time limit): losses finite, every kernel of the path
    launched (the backward once per train step and layer), the per-stage
    split, the share of each train prefetch that overlaps the step before it
-   (CUDA events), and the device's busy share over one round
+   (CUDA events), and the device's busy share over that round
    (``torch.profiler``).  A card trainer and a CPU trainer agree over
    a one-batch round (2 train steps) after a 50,000-event prefix (TGN
    and TGAT with recent sampling: per-step loss, eval loss and AP
@@ -204,9 +205,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
 10. LM training phase: every family at full width takes 3 steps of
    ``make_train_step`` (block remat) on one seeded batch, each arch cut
    as ``LM_TRAIN_OF`` says: Yi-6B and Falcon-Mamba-7B to 8 layers at B 2
-   x S 4,096 with AdamW, Zamba2-2.7B whole (AdamW), and Qwen3-MoE-235B-A22B and
-   Llama-4-Scout-17B-16E at one layer with Adafactor (AdamW's moments do
-   not fit beside their 3.7 and 4.3 B parameters): the loss falls at
+   x S 4,096 with AdamW, Zamba2-2.7B whole (AdamW), and Qwen3-MoE-235B-A22B,
+   Llama-4-Scout-17B-16E and Nemotron-4-340B (its vocabulary cut to
+   4,096, ``LM_CUT_VOCAB``) at one layer with Adafactor (AdamW's moments
+   do not fit beside their 3.7, 4.3 and 3.6 B parameters): the loss falls at
    every step, each step launches the forward kernel twice an attention
    application or Mamba-1 layer and its backward kernel
    (``flash_attention_bwd``, the Hopper instance, or
@@ -224,10 +226,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and dv zeroed, and timed in turns with the general instance, which
    must agree with it within the same bar; the same at Zamba2's
    attention (2, 4,096, 32/32 heads of 80, causal: the Hopper instance
-   with its tail box); the general instance at Nemotron-4's heads (1,
-   520, 96/8 heads of 192, causal: its backward after the Hopper
-   forward; the same bar and planted fault, timed beside SDPA's
-   backward, its own call's launches); at the mesh step's
+   with its tail box); at Nemotron-4's train shape (2, 4,096, 96/8 heads
+   of 192, causal: the Hopper instance's 64-key dk/dv tiles split
+   between its warpgroups, its train steps' launches) and at (1, 520)
+   (ragged against every tile, its own call's launches), both the same
+   bar, planted fault and turns with the general instance; at the mesh step's
    context-parallel shape at
    each shard's q_offset (the same bar, which shard 0's gradient at the
    last shard's offset must fail; dk and dv exactly 0 on the keys no
@@ -240,8 +243,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the other design at the full L), timed beside the plain backward
    and, for flash, the backward of one
    ``scaled_dot_product_attention``; one train step's
-   gradients of each arch's depth cut (``LM_TRAIN_CUT_OF``: Yi's and
-   Falcon's one layer) on the card
+   gradients of each arch's depth cut (``LM_TRAIN_CUT_OF``: Yi's one
+   layer at B 2, Falcon's at B 1) on the card
    against the CPU (float32: loss within 1e-4, each gradient leaf within
    1e-4 of its max, a moe arch's experts equal; bf16: each leaf within
    5e-2 of its max, the CPU replaying a moe arch's experts, a bar that
@@ -1069,7 +1072,7 @@ def main() -> int:
     for name, text in build_logs.items():
         regs = [ln.strip() for ln in text.splitlines()
                 if "registers" in ln or "spill" in ln
-                or "properties for" in ln]
+                or "properties for" in ln or "wgmma" in ln]
         log(f"[build] {name}: " + (" | ".join(regs) or text.strip()))
     log(f"[build] {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1308,7 +1311,12 @@ def run(torch, dev, args, stream):
 
 WARM_EVENTS = 600_000     # ingested before the first round
 ROUND_EVENTS = 12_000     # events per continuous round
-ROUNDS, EPOCHS = 2, 2
+# one profiled round after a warm round of one batch (one epoch), so
+# that the profile sees no first call of any kernel: a second full round
+# took 66 s on the card, 57.8 of it TGAT's fetch-bound round, which the
+# LM training phase's Nemotron-4 train step, its cut and its flash
+# backward rows need (PERF.md section 6)
+ROUNDS, EPOCHS = 1, 2
 PARITY_EVENTS = 50_000    # prefix of the card-vs-CPU check
 # one batch each, 2 train steps: float noise grows with steps (see
 # card_vs_cpu)
@@ -1454,8 +1462,8 @@ class OverlapProbe:
 
 
 def train_runs(torch, dev, args, stream):
-    """TGN and TGAT at full width on the card: ingest, then ROUNDS
-    continuous rounds.  Returns the backward kernel's row (launches
+    """TGN and TGAT at full width on the card: ingest, a warm round of
+    one batch, then ROUNDS continuous rounds.  Returns the backward kernel's row (launches
     summed over both trainers' rounds) and each trainer's launch counts
     over its rounds, by name."""
     from repro_torch.configs.tgn_gdelt import tgat, tgn
@@ -1477,10 +1485,21 @@ def train_runs(torch, dev, args, stream):
             f"{tr.node_cache.capacity}, edge cache {tr.edge_cache.capacity}")
         if name == "tgat":
             row = backward_row(torch, tr, dev, args.ab)
+        t0 = time.perf_counter()
+        m = tr.train_round(stream.slice(WARM_EVENTS,
+                                        WARM_EVENTS + cfg.batch_size),
+                           epochs=1)
+        torch.cuda.synchronize()
+        if not np.isfinite(m.step_losses + [m.eval_loss]).all():
+            raise AssertionError(f"{name} warm round: non-finite loss ({m})")
+        log(f"[train] {name} warm round of {cfg.batch_size} events "
+            f"({len(m.step_losses)} train step) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        start = WARM_EVENTS + cfg.batch_size
         runtime.reset_launch_counts()
         steps = evals = 0
         for r in range(ROUNDS):
-            lo = WARM_EVENTS + r * ROUND_EVENTS
+            lo = start + r * ROUND_EVENTS
             probe = OverlapProbe(torch, tr)
             t0 = time.perf_counter()
             if r == ROUNDS - 1:
@@ -2275,9 +2294,14 @@ MOE_DECODE_S = 4
 # the LM training phase's card-vs-CPU train step: Yi's and Falcon's cut
 # to one layer (the serving checks' two), so that the host's passes over
 # a second layer do not push the script past 1,000 s beside the process
-# mesh part (PERF.md section 6)
+# mesh part.  Yi's at B 2, the one train cut with a second batch row
+# (the loss's batch chunks under remat, positions, the kernels' batch
+# strides on the model path); Falcon's and Zamba2's at B 1 (their host
+# bf16 passes took 14.6-16.8 s each at B 2), beside Nemotron-4's cut
+# (PERF.md section 6)
 LM_TRAIN_CUT_OF = dict(LM_CUT_OF, **{"yi-6b": (1, 2, 256),
-                                     "falcon-mamba-7b": (1, 2, 256)})
+                                     "falcon-mamba-7b": (1, 1, 256),
+                                     "zamba2-2.7b": (6, 1, 256)})
 # a token routed differently by two bf16 runs must be a near-tie: each
 # expert one run picked within 2^-5 of the other's k-th router log-prob
 # (the log-probs differ as the logits do: 4 bf16 ulps of a logit in
@@ -2707,17 +2731,22 @@ def general_held(torch, general, tree, got, want, flush, what) -> tuple:
             general_turns(torch, general, tree, flush, what))
 
 
-def general_turns(torch, general, tree, flush, what) -> list:
+def general_turns(torch, general, tree, flush, what, reps=30) -> list:
     """The general instance (``general``, other) and the Hopper one
     (``tree``) on the same inputs, timed in turns: general, Hopper,
-    Hopper, general.  The caller has held the two against each other."""
+    Hopper, general, each over ``reps`` calls, its device time by CUDA
+    events (:func:`burst_ms`) and its time per call (:func:`call_ms`).
+    The caller has held the two against each other."""
     turns = []
     for design, fn in (("other", general), ("tree", tree), ("tree", tree),
                        ("other", general)):
-        ms, call = timings(torch, fn, flush)
-        turns.append(dict(design=design, ms=ms, call_ms=call))
+        turns.append(dict(design=design,
+                          ms=burst_ms(torch, fn, flush, reps=reps),
+                          call_ms=call_ms(torch, fn, flush=flush, reps=reps,
+                                          warm=1)))
     log(f"[ab] {what}: the general instance (other) and the Hopper one "
-        f"(tree) agree; device ms / ms per call in turns: " + "  ".join(
+        f"(tree) agree; device ms (CUDA events) / ms per call over {reps} "
+        f"calls, in turns: " + "  ".join(
             f"{t['design']} {t['ms']:.4f}/{t['call_ms']:.4f}"
             for t in turns))
     return turns
@@ -3407,24 +3436,35 @@ LM_TRAIN_OF = {
     # factored moments hold about 14 B a parameter (52 and 60 GB) plus
     # the update's temporaries of one leaf
     "qwen3-moe-235b-a22b": (1, 2, 4096, "adafactor"),
-    "llama4-scout-17b-a16e": (1, 2, 4096, "adafactor")}
+    "llama4-scout-17b-a16e": (1, 2, 4096, "adafactor"),
+    # one layer (its config's Adafactor) with the vocabulary cut to 4,096
+    # (LM_CUT_VOCAB): at 256,000 the untied embedding and head are 9.44 B
+    # parameters, 12.9 B with the layer's 3.45 B, about 180 GB at 14 B a
+    # parameter; at 4,096 3.61 B, about 50 GB of state beside one 5.4 GB
+    # float32 MLP leaf's update temporaries and the activations.  Width,
+    # heads (96/8 of 192) and d_ff stay full: its attention backward is
+    # the Hopper instance at D 192
+    "nemotron-4-340b": (1, 2, 4096, "adafactor")}
 SCAN_ORACLE_L = 1024      # the plain scan's autograd graph, L cut from 4,096
 # the flash_attention backward rows (B, S, Hq, Hkv, D, causal, dtype,
 # whose launches): Yi-6B's train shape in bf16 (Yi's train steps'
 # launches), Zamba2-2.7B's attention in bf16 (the Hopper instance at
 # head dim 80; Zamba2's train steps' launches), Qwen3-MoE's and
 # Llama-4-Scout's train shapes in bf16 (64/4 and 40/8 heads of 128;
-# their train steps' launches), Nemotron-4's heads in bf16 (96/8 of 192:
-# the general backward after the Hopper forward; no path trains it, so
-# its own call's), then two float32 ones (shapes no path of this run
-# takes: their own call's): a ragged one at head dim 80 and Yi-6B's
-# train heads
+# their train steps' launches), Nemotron-4's train shape in bf16 (96/8
+# of 192: the Hopper instance's 64-key dk/dv tiles; its train steps'
+# launches) and its heads at S 520 (ragged against every tile; its own
+# call's), then two float32 ones (shapes no path of this run takes:
+# their own call's): a ragged one at head dim 80 and Yi-6B's train
+# heads
 FLASH_BWD_SHAPES = ((2, 4096, 32, 4, 128, True, "bfloat16", "yi-6b"),
                     (2, 4096, 32, 32, 80, True, "bfloat16", "zamba2-2.7b"),
                     (2, 4096, 64, 4, 128, True, "bfloat16",
                      "qwen3-moe-235b-a22b"),
                     (2, 4096, 40, 8, 128, True, "bfloat16",
                      "llama4-scout-17b-a16e"),
+                    (2, 4096, 96, 8, 192, True, "bfloat16",
+                     "nemotron-4-340b"),
                     (1, 520, 96, 8, 192, True, "bfloat16", "own call"),
                     (2, 1000, 8, 2, 80, False, "float32", "own call"),
                     (2, 2048, 32, 4, 128, True, "float32", "own call"))
@@ -3468,11 +3508,13 @@ def grad_err(torch, got, want, what, tol) -> float:
 
 def train_cut(cfg, depth, opt=None):
     """``cfg`` cut to ``depth`` layers (the hybrid's in whole superlayers)
-    with the optimizer ``opt`` (None: its own)."""
+    with the optimizer ``opt`` (None: its own), and, for an arch of
+    LM_CUT_VOCAB, its vocabulary cut."""
     import dataclasses
 
     return dataclasses.replace(cfg, n_layers=depth,
-                               optimizer=opt or cfg.optimizer)
+                               optimizer=opt or cfg.optimizer,
+                               vocab=LM_CUT_VOCAB.get(cfg.name, cfg.vocab))
 
 
 def train_launches(cfg, applications: int = 1) -> dict:
@@ -3494,13 +3536,21 @@ def seeded_tokens(torch, cfg, B, S, seed, dev):
         0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)}
 
 
-def timed_steps(torch, step, box, batch, want, what, n, profile=True):
+# bytes a train step may leave allocated beyond the state it returns and
+# its batch (workspaces, small caches); a tree kept alive past its step
+# by a reference cycle is GBs at every arch's cut
+STEP_KEPT_SLACK = 0.5e9
+
+
+def timed_steps(torch, step, box, batch, want, what, n, profile=True,
+                kept=None):
     """``n`` steps of ``step`` from ``box["state"]`` on ``batch``, each
     launching exactly ``want`` (the last one profiled), each new state
     put in ``box`` in place of the old, so that no caller's name keeps a
     state alive (a full-width tree and its moments are tens of GB);
     returns (losses, step ms, the profile's (busy, wall, top ops) or
-    None)."""
+    None).  With a list ``kept``, the device memory allocated after each
+    step is appended to it."""
     from repro_torch.kernels import runtime
 
     losses, step_ms, busy = [], [], None
@@ -3522,6 +3572,8 @@ def timed_steps(torch, step, box, batch, want, what, n, profile=True):
                                  f"expected {want}")
         losses.append(float(m["loss"]))
         del m
+        if kept is not None:
+            kept.append(torch.cuda.memory_allocated())
     if not all(math.isfinite(x) for x in losses) or not all(
             b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"{what}: losses {losses} do not fall")
@@ -3591,9 +3643,19 @@ def lm_train_steps(torch, dev, args, cfg, measured=None) -> dict:
             tree_leaves(box["state"]) if torch.is_tensor(t)] \
         + [tree_bytes(batch)]
     torch.cuda.reset_peak_memory_stats()
+    kept = []
     losses, step_ms, busy = timed_steps(
-        torch, step, box, batch, want, cfg.name, LM_TRAIN_STEPS)
+        torch, step, box, batch, want, cfg.name, LM_TRAIN_STEPS, kept=kept)
     peak = torch.cuda.max_memory_allocated()
+    # a step keeps nothing but the state it returns (no reference cycle
+    # holding the old tree until the cyclic collector runs)
+    state = tree_bytes(batch) + sum(
+        t.numel() * t.element_size() for t in tree_leaves(box["state"])
+        if torch.is_tensor(t))
+    extra = [k - base - state for k in kept]
+    if max(extra) > STEP_KEPT_SLACK:
+        raise AssertionError(f"{cfg.name}: allocated after the steps beyond "
+                             f"the state and batch ({state} B): {extra} B")
     if measured is not None and (cfg.name, "train") in DRYRUN_OF:
         measured[cfg.name, "train"] = {
             "args": sum(held), "allocated": args_allocated,
@@ -3604,12 +3666,17 @@ def lm_train_steps(torch, dev, args, cfg, measured=None) -> dict:
         n = same_grads_twice(torch, cut, box["state"]["params"], batch)
         same = (f"; two backward passes on the trained tree: the same "
                 f"bits in all {n} gradient leaves")
-    log(f"[lm_train] {cfg.name} cut to {depth} layers ({n_params / 1e9:.3f}"
-        f" B params), B {B} x S {S}, remat {cut.remat!r}, "
+    vocab = (f", vocabulary cut to {cut.vocab:,}" if cut.vocab != cfg.vocab
+             else "")
+    log(f"[lm_train] {cfg.name} cut to {depth} layers{vocab} "
+        f"({n_params / 1e9:.3f} B params), B {B} x S {S}, remat {cut.remat!r}, "
         f"{cut.optimizer}: init {init_s:.1f} s; losses "
         f"{[round(x, 4) for x in losses]}; step ms "
         f"{[round(x, 1) for x in step_ms]} (the last profiled); peak "
-        f"{peak / 1e9:.2f} GB; launches per step {want} (exact); profiled "
+        f"{peak / 1e9:.2f} GB; allocated after each step beyond the state "
+        f"and batch ({state / 1e9:.2f} GB) {[round(x / 1e6, 1) for x in extra]}"
+        f" MB (tol {STEP_KEPT_SLACK / 1e6:.0f}); launches per step {want} "
+        f"(exact); profiled "
         f"step: device busy {busy[0]:.4f} of {busy[1] * 1e3:.1f} ms, top "
         f"device ops (ms) {busy[2]}{same}")
     del box, batch
@@ -3893,9 +3960,10 @@ def flash_bwd_rows(torch, dev, flush, launches, ab=()):
     at Yi-6B's train shape (2, 4,096, 32/4 heads of 128), Zamba2-2.7B's
     attention (2, 4,096, 32/32 heads of 80, the tail box), Qwen3-MoE's
     (64/4 heads of 128) and Llama-4-Scout's (40/8) in bf16, causal (the
-    Hopper instances, forward and backward), at Nemotron-4's heads (1,
-    520, 96/8 heads of 192) in bf16, causal (the Hopper forward, the
-    general backward), and at (2, 1,000, 8/2, 80)
+    Hopper instances, forward and backward), at Nemotron-4's train shape
+    (2, 4,096, 96/8 heads of 192) and at (1, 520) in bf16, causal (the
+    Hopper instances; at D 192 its dk/dv pass splits 64-key tiles between
+    two warpgroups), and at (2, 1,000, 8/2, 80)
     in float32, not causal (the general ones), timed beside the plain
     autograd backward (in (batch, KV head) slices past
     PLAIN_WHOLE_SCORES) and the autograd backward of one
@@ -3904,8 +3972,8 @@ def flash_bwd_rows(torch, dev, flush, launches, ab=()):
     the general instance's (its WMMA route, taken through the ops
     module's private ``_instance``), which must agree with it within the
     same bar.  The bf16 rows count their archs' train steps' launches
-    (``launches``, by arch); Nemotron-4's and the float32 rows' shapes
-    are on no card path, so they count their own call's.  With ``ab``, each float32 row's
+    (``launches``, by arch); Nemotron-4's S 520 row and the float32 rows'
+    shapes are on no card path, so they count their own call's.  With ``ab``, each float32 row's
     backward is also timed in turns with each directory's design of the
     general backward (``flash_attention_bwd``), on this tree's forward
     outputs."""
@@ -4062,8 +4130,9 @@ def route_turns(torch, ops, ins, dout, causal, got, budgets, flush, what):
     instance's on the same forward outputs: the general one's gradients
     within BF16_GRAD_ROW of the Hopper one's per row beyond the rounding
     budget, then both timed in turns, general, Hopper, Hopper, general
-    (one backward launch each, no autograd).  Returns (turns, the
-    agreement)."""
+    (one backward launch each, no autograd, 5 calls a turn: the general
+    instance takes 15-33 ms a call at the D 64-128 train shapes and about
+    197 ms at Nemotron-4's).  Returns (turns, the agreement)."""
     from repro_torch.kernels.flash_attention.ref import (
         grad_rows_beyond_budget)
 
@@ -4085,7 +4154,7 @@ def route_turns(torch, ops, ins, dout, causal, got, budgets, flush, what):
                              f"{BF16_GRAD_ROW}")
     del other
     return general_turns(torch, run["general"], run[None], flush,
-                         f"flash_attention_bwd ({what})"), agree
+                         f"flash_attention_bwd ({what})", reps=5), agree
 
 
 def scan_bwd_row(torch, dev, flush, cfg, launches, ab=()):
@@ -4213,9 +4282,9 @@ def leaf_rel(got, want) -> float:
 
 
 def lm_train_cut(torch, dev, args, cfg):
-    """Full width, depth cut as ``LM_TRAIN_CUT_OF`` says (the dense and
-    ssm archs 1 layer at B 2, S 256; the moe archs 1 layer at B 1, S
-    128; zamba2 one superlayer): every gradient leaf of one train
+    """Full width, depth cut as ``LM_TRAIN_CUT_OF`` says (Yi 1 layer at
+    B 2, S 256, Falcon 1 layer and Zamba2 one superlayer at B 1, S 256;
+    the moe archs and Nemotron-4 1 layer at B 1, S 128): every gradient leaf of one train
     step on the card against the CPU.  In float32 the loss within
     ATOL_LOSS and each leaf within RTOL_GRAD of its max |grad|, a moe
     arch's experts the same for every token; in bf16 each leaf within
@@ -4278,8 +4347,10 @@ def lm_train_cut(torch, dev, args, cfg):
         t1 = time.perf_counter()
         routed += mesh_train_holds(torch, dev, cut, params, cpu, toks)
         split += f"; the mesh holds {time.perf_counter() - t1:.1f}"
-    log(f"[lm_train] {cfg.name} cut to {depth} layers, B {B} S {S}, one "
-        f"train step's gradients, card vs CPU, the largest leaf max|diff| "
+    vocab = (f", vocabulary cut to {cut.vocab:,}" if cut.vocab != cfg.vocab
+             else "")
+    log(f"[lm_train] {cfg.name} cut to {depth} layers{vocab}, B {B} S {S}, "
+        f"one train step's gradients, card vs CPU, the largest leaf max|diff| "
         f"/ leaf max|grad|: f32 {rel_f:.3g} (tol {RTOL_GRAD}; loss "
         f"{l_g:.6f} vs {l_c:.6f}, |diff| {d_f:.3g}, tol {ATOL_LOSS}); bf16 "
         f"{rel_b:.3g} (tol {BF16_STEP_GRAD_REL}; loss |diff| "

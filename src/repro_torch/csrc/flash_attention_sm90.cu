@@ -75,8 +75,8 @@
 // other warpgroup's products).
 // Training: when the caller gives an lse buffer, the epilogue also writes
 // each row's log-sum-exp for the backward (csrc/flash_attention_bwd_sm90.cu,
-// or at D 192 csrc/flash_attention_bwd.cu, which reads the same lse and
-// float32 output); serving passes none and skips the store.
+// which reads it with the float32 output); serving passes none and skips
+// the store.
 #include "sm90.cuh"   // TMA, wgmma, descriptors, the tensor-map encoder
 
 namespace {

@@ -4,12 +4,12 @@ in two instances: the Hopper ones (``csrc/flash_attention_sm90.cu`` and
 memory) for bfloat16 with a head dim in :data:`SM90_HEAD_DIMS` forward
 (64, 80, 128 and 192: 80 as a 64-column box and a 16-column tail box,
 192 as three boxes with 112-key tiles) and in
-:data:`SM90_BWD_HEAD_DIMS` backward (64, 80 and 128), and the general
-ones (``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``)
-for every other dtype and head dim.  So bfloat16 at 192 (Nemotron-4)
-runs the Hopper forward and the general backward, which reads the row
-log-sum-exps and float32 output every forward writes alike.  The
-general ones run float32 on the tensor cores in split TF32
+:data:`SM90_BWD_HEAD_DIMS` backward (the same four; at 192 its dk/dv
+pass splits each 64-key tile's work between its two warpgroups), and
+the general ones (``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu``) for every other dtype and head dim.
+Either backward reads the row log-sum-exps and float32 output every
+forward writes alike.  The general ones run float32 on the tensor cores in split TF32
 (``csrc/tf32.cuh``: each float32 product as three TF32 products, hi.hi +
 hi.lo + lo.hi, within the float32 bar of 1e-5), bfloat16 on WMMA.
 
@@ -79,9 +79,10 @@ _SIG_BWD_SM90 = {"flash_attention_bwd_sm90_launch": _BWD_ARGS}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the Hopper instances take in bfloat16: the forward's
 # (64-column TMA boxes, at 80 a 16-column tail box, at 192 112-key tiles)
-# and the backward's, which has no shared-memory plan at 192
+# and the backward's (at 192 64-key dk/dv tiles, each split between the
+# two warpgroups: half of S^T and dP^T, half of dK's and dV's columns)
 SM90_HEAD_DIMS = (64, 80, 128, 192)
-SM90_BWD_HEAD_DIMS = (64, 80, 128)
+SM90_BWD_HEAD_DIMS = (64, 80, 128, 192)
 
 
 def instance(dtype: torch.dtype, head_dim: int) -> str:

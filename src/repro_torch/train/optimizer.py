@@ -62,16 +62,19 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
 def tree_unflatten(tree: Tree, leaves: List[torch.Tensor]) -> Tree:
     """A tree shaped like ``tree`` holding ``leaves`` (in the order of
     :func:`tree_leaves`)."""
-    it = iter(leaves)
+    return _unflatten(tree, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
 
-    return build(tree)
+def _unflatten(t: Tree, it) -> Tree:
+    # a module function, not a closure that calls itself: such a closure
+    # is a reference cycle, and the iterator it held kept every leaf (a
+    # train step's float32 masters and gradients) alive until the cyclic
+    # garbage collector ran, a whole train state a step on the card
+    if isinstance(t, dict):
+        return {k: _unflatten(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_unflatten(v, it) for v in t)
+    return next(it)
 
 
 def constant_schedule(lr: float) -> Schedule:
@@ -278,26 +281,33 @@ def adafactor_lite(lr: float | Schedule, *, decay: float = 0.8,
                                               np.float32(-decay)))
         index = {id(p): i for i, p in enumerate(tree_leaves(params))}
 
+        # The same arithmetic as the JAX update, with the leaf-sized
+        # temporaries taken in place where no one else holds them: a
+        # full-width MLP leaf is 5.4 GB of float32 (Nemotron-4), and the
+        # update's peak is old leaves, gradients, new leaves and these.
         def upd(p, g, s):
             g = g.float()
-            g2 = torch.square(g) + eps
             if p.dim() >= 2:
+                g2 = torch.square(g).add_(eps)
                 row, col = s
                 row = beta * row + (1 - beta) * g2.mean(-1)
                 col = beta * col + (1 - beta) * g2.mean(-2)
+                del g2
                 rmean = row.mean(-1, keepdim=True)
-                v = row[..., :, None] * col[..., None, :] / (
+                u = (row[..., :, None] * col[..., None, :]).div_(
                     rmean[..., None] + eps)
                 s = (row, col)
             else:
-                s = beta * s + (1 - beta) * g2
-                v = s
-            u = g / (torch.sqrt(v) + 1e-8)
+                s = beta * s + (1 - beta) * (torch.square(g) + eps)
+                u = s.clone()
+            u = torch.div(g, u.sqrt_().add_(1e-8), out=u)
             rms = torch.sqrt(_leaf_mean(index[id(p)], torch.square(u))
                              + 1e-12)
-            u = u / torch.clamp(rms, min=1.0)
+            u.div_(torch.clamp(rms, min=1.0))
             p32 = p.float()
-            return (p32 - lr_t * (u + weight_decay * p32)).to(p.dtype), s
+            if weight_decay:
+                u.add_(weight_decay * p32)
+            return (p32 - u.mul_(lr_t)).to(p.dtype), s
 
         # walked in the parameters' structure, so a (row, col) state
         # reaches ``upd`` whole

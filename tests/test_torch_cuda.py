@@ -715,22 +715,29 @@ def test_flash_attention_general_instance_at_head_dim_80(card, B, S, Hq,
 
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv", [
     (1, 70, 70, 12, 1), (2, 130, 130, 12, 1), (1, 520, 520, 96, 8),
-    (1, 300, 1000, 12, 1)])
+    (1, 300, 1000, 12, 1),
+    (4, 384, 384, 32, 4)])   # more dq CTAs (384) than SMs
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_hopper_head_dim_192_agrees_with_general(
         card, B, Sq, Skv, Hq, Hkv, causal):
-    """At bf16 D 192 the forward is the Hopper instance's (112-key tiles)
-    and the backward the general one's: the Hopper output holds the bf16
-    bars against the plain version and against the general instance
-    (asked for), and its row log-sum-exps and float32 output (under
-    autograd) give the general backward the same bits whether it is
-    asked for or picked."""
+    """At bf16 D 192 the forward (112-key tiles) and the backward (64-key
+    dk/dv tiles split between two warpgroups, the dq pass's 128-row
+    tiles) are the Hopper instance's.  The output holds the bf16 bars
+    against the plain version and against the general instance (asked
+    for).  On the Hopper forward's row log-sum-exps and float32 output,
+    the Hopper backward (picked: one launch, the same bits twice) holds
+    each row of dq and each key of dk and dv within BF16_GRAD_ROW beyond
+    its rounding budget against the plain version's autograd and against
+    the general backward (asked for), and the same bar fails its dk and
+    dv with the last 64 keys zeroed."""
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_grad_budget, flash_attention_ref,
+        grad_rows_beyond_budget)
 
     D = 192
     assert ops.instance(torch.bfloat16, D) == "sm90"
-    assert ops.backward_instance(torch.bfloat16, D) == "general"
+    assert ops.backward_instance(torch.bfloat16, D) == "sm90"
     q, k, v = _attn_inputs(card, B, Sq, Skv, Hq, Hkv, D, torch.bfloat16,
                            Sq + Hq)
     got = ops.flash_attention(q, k, v, causal=causal)
@@ -743,15 +750,30 @@ def test_flash_attention_hopper_head_dim_192_agrees_with_general(
     o32 = torch.empty((B, Sq, Hq, D), device=card)
     out = ops._forward(q, k, v, causal, lse, o32)
     assert torch.equal(out, got)
-    dout = torch.randn_like(q)
+    w = torch.randn((B, Sq, Hq, D), device=card,
+                    generator=torch.Generator(device=card).manual_seed(Sq))
+    dout = w.to(torch.bfloat16)
     runtime.reset_launch_counts()
     picked = ops.flash_attention_bwd(q, k, v, o32, lse, dout, causal=causal)
     assert runtime.launch_counts() == {"flash_attention_bwd": 1}
+    again = ops.flash_attention_bwd(q, k, v, o32, lse, dout, causal=causal)
     asked = ops.flash_attention_bwd(q, k, v, o32, lse, dout, causal=causal,
                                     _instance="general")
+    want = _flash_grads(flash_attention_ref, q, k, v, causal, w)[1]
+    budgets = flash_attention_grad_budget(q, k, v, dout, causal=causal)
     torch.cuda.synchronize()
-    for a, b in zip(picked, asked):
-        assert torch.equal(a, b)
+    for name, a, b, g, r, bud in zip(("dq", "dk", "dv"), picked, again,
+                                     asked, want, budgets):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b), name
+        rel = grad_rows_beyond_budget(a, r, bud)
+        assert rel <= BF16_GRAD_ROW, f"{name}: {rel} against the plain"
+        rel = grad_rows_beyond_budget(g, a, bud)
+        assert rel <= BF16_GRAD_ROW, f"{name}: {rel} general vs Hopper"
+    dropped = [t.clone() for t in picked[1:]]   # every key is seen
+    for t in dropped:
+        t[:, -64:] = 0
+    assert max(grad_rows_beyond_budget(t, r, bud) for t, r, bud in zip(
+        dropped, want[1:], budgets[1:])) > BF16_GRAD_ROW
 
 
 @pytest.mark.parametrize("dtype,D,inst", [
@@ -861,9 +883,9 @@ def _flash_grads(fn, q, k, v, causal, w):
     (2, 200, 8, 8, 80),      # G 1
     (1, 300, 16, 2, 80),     # G 8
     (1, (100, 333), 8, 1, 80),   # G 8, Sq < Skv
-    # D 192 (bf16: the Hopper forward, then the general backward on its
-    # row log-sum-exps and float32 output)
-    (2, 130, 12, 1, 192),    # G 12, ragged against 112 and 128
+    # D 192 (bf16: the Hopper forward and backward, the backward's dk/dv
+    # tiles 64 keys split between two warpgroups)
+    (2, 130, 12, 1, 192),    # G 12, ragged against 64, 112 and 128
     (1, (70, 520), 12, 1, 192)])  # G 12, Sq < Skv
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -871,8 +893,7 @@ def test_flash_attention_backward_matches_plain_autograd(card, B, S, Hq,
                                                          Hkv, D, causal,
                                                          dtype):
     """dq, dk, dv of the backward kernel (the instance of dtype and head
-    dim, after the forward's: the same instance but at bf16 D 192, where
-    the Hopper forward hands the general backward its outputs) against
+    dim, after the forward's: the same instance) against
     the plain version's autograd on the same inputs: float32 within 1e-5
     of max(1, max |grad|); bfloat16 each row within BF16_GRAD_ROW beyond
     its rounding budget.  One counted launch each way.  ``S`` is Sq =
@@ -912,7 +933,9 @@ def test_flash_attention_backward_matches_plain_autograd(card, B, S, Hq,
     (1, 300, 1000, 4, 2, 64, torch.bfloat16, "general"),
     (2, 150, 700, 8, 2, 80, torch.float32, "general"),    # ragged, f32
     (1, 70, 200, 4, 1, 192, torch.float32, "general"),    # D past 128
-    (1, 70, 200, 4, 1, 192, torch.bfloat16, "sm90")])     # Hopper forward
+    (1, 70, 200, 4, 1, 192, torch.bfloat16, "sm90"),      # Hopper, D 192
+    (1, 130, 520, 12, 1, 192, torch.bfloat16, "sm90"),    # G 12, ragged
+    (1, 130, 520, 12, 1, 192, torch.bfloat16, "general")])
 def test_flash_attention_backward_at_q_offsets(card, B, Sq, Skv, Hq, Hkv,
                                                D, dtype, inst):
     """The backward at each context-parallel shard's q_offset (0, Sq, 2

@@ -152,14 +152,14 @@ def test_flash_dispatch_rule(dtype, head_dim, want):
 
 @pytest.mark.parametrize("dtype,head_dim,want", [
     (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "sm90"),
-    (torch.bfloat16, 80, "sm90"), (torch.bfloat16, 192, "general"),
-    (torch.float32, 128, "general")])
+    (torch.bfloat16, 80, "sm90"), (torch.bfloat16, 192, "sm90"),
+    (torch.float32, 128, "general"), (torch.bfloat16, 16, "general")])
 @pytest.mark.parametrize("forced", [None, "general"])
 def test_flash_backward_dispatch_rule(dtype, head_dim, want, forced):
-    """The backward's instance comes from dtype and head dim alone: the
-    forward's, but at D 192 (Nemotron-4) the general one, since the
-    Hopper backward has no plan there; only the general one can be asked
-    for instead."""
+    """The backward's instance comes from dtype and head dim alone, the
+    forward's (at D 192, Nemotron-4's, the Hopper one with its 64-key
+    dk/dv tiles split between two warpgroups); only the general one can
+    be asked for instead."""
     assert flash_ops.backward_instance(dtype, head_dim) == want
     q = torch.zeros((1, 8, 4, head_dim), dtype=dtype)
     k = torch.zeros((1, 8, 2, head_dim), dtype=dtype)
@@ -167,7 +167,7 @@ def test_flash_backward_dispatch_rule(dtype, head_dim, want, forced):
     assert got == (forced or want)
 
 
-@pytest.mark.parametrize("head_dim", [128, 80])
+@pytest.mark.parametrize("head_dim", [128, 80, 192])
 @pytest.mark.parametrize("which", ["q", "k", "v", "dout"])
 def test_flash_backward_hopper_instance_rejects_misaligned(which,
                                                            head_dim):
