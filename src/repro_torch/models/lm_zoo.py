@@ -25,6 +25,15 @@ Under a mesh, as in the JAX package, the same steps shard themselves:
 expert-parallel moe path; a decode step's one token does not split, so
 it takes the whole-sequence paths.  The tree needs nothing new.
 
+The steps mark their layers with ``obs.trace`` spans, which open
+``repro.<kind>`` ranges while ``torch.profiler`` records: ``train_step``,
+``prefill``, ``decode`` (a step's host enqueue), ``block`` and
+``attention.core`` (``transformer_lm``), ``moe`` and its phases
+(``models.moe``), ``head`` (final norm, unembedding, the loss or the
+logits) and ``optimizer`` (the update); a layer's backward is bracketed
+(``obs.trace.bracket``).  With the profiler and ``REPRO_TRACE`` off they
+add no op and no autograd node.
+
 ``input_specs``/``decode_state_specs`` give a cell's inputs as ``meta``
 tensors (the JAX module's ``ShapeDtypeStruct`` stand-ins), which the dry
 run (``launch.dryrun``) runs the steps on.
@@ -43,6 +52,7 @@ from repro_torch.models.transformer_lm import (check_family, decode_forward,
                                                embed_input, forward_hidden,
                                                init_decode_state, init_lm,
                                                unembed_weight)
+from repro_torch.obs import trace
 from repro_torch.train.optimizer import (OPTIMIZERS, Optimizer, tree_leaves,
                                          tree_unflatten,
                                          warmup_cosine_schedule)
@@ -136,17 +146,20 @@ def make_loss_fn(cfg: ArchConfig):
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         h, aux, _ = forward_hidden(cfg, cp, x, positions)
-        h = rms_norm(h, cp["final_norm"], cfg.norm_eps)
-        w_out = unembed_weight(cfg, cp)
-        if cfg.input_kind == "tokens":
-            labels = batch["tokens"][:, 1:]
-            valid = batch.get("valid")
-            valid = valid[:, 1:] if valid is not None else None
-            loss, cnt = chunked_softmax_xent(h[:, :-1], w_out, labels,
-                                             valid)
-        else:  # masked-frame prediction (HuBERT-style)
-            loss, cnt = chunked_softmax_xent(h, w_out, batch["labels"],
-                                             batch["mask"])
+        with trace.span("head"):
+            br = trace.bracket("head")
+            h = rms_norm(br.input(h), cp["final_norm"], cfg.norm_eps)
+            w_out = unembed_weight(cfg, cp)
+            if cfg.input_kind == "tokens":
+                labels = batch["tokens"][:, 1:]
+                valid = batch.get("valid")
+                valid = valid[:, 1:] if valid is not None else None
+                loss, cnt = chunked_softmax_xent(h[:, :-1], w_out, labels,
+                                                 valid)
+            else:  # masked-frame prediction (HuBERT-style)
+                loss, cnt = chunked_softmax_xent(h, w_out, batch["labels"],
+                                                 batch["mask"])
+            loss = br.output(loss)
         metrics = {"ce_loss": loss, "tokens": cnt}
         total = loss
         if cfg.moe is not None:
@@ -186,17 +199,20 @@ def make_train_step(cfg: ArchConfig,
 
     def train_step(state: Dict, batch: Dict[str, torch.Tensor]):
         params = state["params"]
-        with torch.enable_grad():
-            leaves = [p.detach().requires_grad_(True)
-                      for p in tree_leaves(params)]
-            loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-        with held_totals(params):
-            new_params, new_opt = optimizer.update(
-                tree_unflatten(params, list(grads)), state["opt"], params)
-        return ({"params": new_params, "opt": new_opt},
-                {k: v.detach() for k, v in metrics.items()})
+        with trace.span("train_step"):
+            with torch.enable_grad():
+                leaves = [p.detach().requires_grad_(True)
+                          for p in tree_leaves(params)]
+                loss, metrics = loss_fn(tree_unflatten(params, leaves),
+                                        batch)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+            with trace.span("optimizer"), held_totals(params):
+                new_params, new_opt = optimizer.update(
+                    tree_unflatten(params, list(grads)), state["opt"],
+                    params)
+            return ({"params": new_params, "opt": new_opt},
+                    {k: v.detach() for k, v in metrics.items()})
 
     return train_step
 
@@ -211,22 +227,24 @@ def make_prefill_step(cfg: ArchConfig):
     an encoder returns full-sequence logits (B, S, V) and no state."""
 
     def prefill(params: PyTree, batch: Dict[str, torch.Tensor]):
-        cp = _cast_compute(params)
-        x = embed_input(cfg, cp, batch)
-        B, S = x.shape[:2]
-        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-        h, _, state = forward_hidden(cfg, cp, x, positions,
-                                     collect_state=True)
-        h = rms_norm(h, cp["final_norm"], cfg.norm_eps)
-        w_out = unembed_weight(cfg, cp)
-        if cfg.is_encoder:
-            # encoder "serving" = full-sequence logits (e.g. frame labels)
-            return (h @ w_out).float(), None
-        logits = (h[:, -1] @ w_out).float()
-        state = dict(state or {})
-        state["pos"] = torch.full((B,), S, dtype=torch.int32,
-                                  device=x.device)
-        return logits, state
+        with trace.span("prefill"):
+            cp = _cast_compute(params)
+            x = embed_input(cfg, cp, batch)
+            B, S = x.shape[:2]
+            positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+            h, _, state = forward_hidden(cfg, cp, x, positions,
+                                         collect_state=True)
+            with trace.span("head"):
+                h = rms_norm(h, cp["final_norm"], cfg.norm_eps)
+                w_out = unembed_weight(cfg, cp)
+                if cfg.is_encoder:
+                    # encoder "serving" = full-sequence logits (frame labels)
+                    return (h @ w_out).float(), None
+                logits = (h[:, -1] @ w_out).float()
+            state = dict(state or {})
+            state["pos"] = torch.full((B,), S, dtype=torch.int32,
+                                      device=x.device)
+            return logits, state
 
     return prefill
 
@@ -243,12 +261,14 @@ def make_serve_step(cfg: ArchConfig):
         return encode
 
     def serve(params: PyTree, dstate: Dict, tokens: torch.Tensor):
-        cp = _cast_compute(params)
-        x = cp["embed"][tokens.long()]                  # (B, 1, d)
-        h, new_state = decode_forward(cfg, cp, x, dstate)
-        h = rms_norm(h, cp["final_norm"], cfg.norm_eps)
-        w_out = unembed_weight(cfg, cp)
-        return (h[:, 0] @ w_out).float(), new_state
+        with trace.span("decode"):
+            cp = _cast_compute(params)
+            x = cp["embed"][tokens.long()]                  # (B, 1, d)
+            h, new_state = decode_forward(cfg, cp, x, dstate)
+            with trace.span("head"):
+                h = rms_norm(h, cp["final_norm"], cfg.norm_eps)
+                w_out = unembed_weight(cfg, cp)
+                return (h[:, 0] @ w_out).float(), new_state
 
     return serve
 

@@ -41,6 +41,16 @@ own and holds only its block of the expert weights (``sharding.Held``,
 ``dist.spmd``), so there the tree must hold those blocks and a moe
 layer must take this path.
 
+The mixture runs under the span ``moe`` (``obs.trace``), the dense
+path's phases under ``moe.route`` (router product, softmax, top-k, gate
+normalisation, slots), ``moe.dispatch`` (the buffer and its scatter),
+``moe.experts`` (:func:`_expert_ffn`) and ``moe.combine`` (the dummy
+row, the weights, the gather and the sum over k); under the profiler
+each one's backward is bracketed from its output to its data input, so
+what is left to ``moe`` itself is the balance-loss statistics, the shared
+expert and the gradients of side inputs (the gate weights flowing back
+from the combine).
+
 Ties in top-k go to the lower expert index, as ``lax.top_k`` breaks
 them: :func:`_top_k` takes the first k of a stable descending sort
 (``torch.topk`` does not specify its order among ties).
@@ -67,6 +77,7 @@ from repro_torch.dist.sharding import (Held, P, active_mesh, all_to_all,
                                        axis_for, axis_size_of, constrain,
                                        pmean, shard_map)
 from repro_torch.models.layers import dense_init, mlp_apply
+from repro_torch.obs import trace
 
 
 def moe_capacity(moe: MoEConfig, seq_len: int) -> int:
@@ -162,11 +173,16 @@ def moe_apply(params: dict, x: torch.Tensor, moe: MoEConfig, act: str
     mesh = active_mesh()
     ep_ax = axis_for("expert")
     sp = axis_size_of("seq_act")
-    if (mesh is not None and ep_ax is not None and sp > 1
-            and x.shape[1] % sp == 0
-            and moe.num_experts % axis_size_of("expert") == 0):
-        return _moe_apply_ep(params, x, moe, act)
-    return _moe_apply_dense(params, x, moe, act)
+    with trace.span("moe"):
+        br = trace.bracket("moe")
+        x = br.input(x)
+        if (mesh is not None and ep_ax is not None and sp > 1
+                and x.shape[1] % sp == 0
+                and moe.num_experts % axis_size_of("expert") == 0):
+            y, aux = _moe_apply_ep(params, x, moe, act)
+        else:
+            y, aux = _moe_apply_dense(params, x, moe, act)
+        return br.output(y), aux
 
 
 def _moe_apply_dense(params: dict, x: torch.Tensor, moe: MoEConfig,
@@ -181,28 +197,40 @@ def _moe_apply_dense(params: dict, x: torch.Tensor, moe: MoEConfig,
     # identity on the port's logical mesh)
     x = constrain(x, "batch", None, None)
 
-    logits = (x @ params["router"].to(x.dtype)).float()
-    probs = torch.softmax(logits, dim=-1)                    # (B, S, E)
-    gate, expert_idx = _top_k(probs, k)                      # (B, S, k)
-    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    with trace.span("moe.route"):
+        br = trace.bracket("moe.route")
+        logits = (br.input(x) @ params["router"].to(x.dtype)).float()
+        probs = torch.softmax(logits, dim=-1)                # (B, S, E)
+        gate, expert_idx = _top_k(probs, k)                  # (B, S, k)
+        gate = br.output(gate / gate.sum(-1, keepdim=True).clamp_min(1e-9))
 
-    # ---- per-row dispatch bookkeeping: (B, Tk) slots, token-major ----
-    Tk = S * k
-    e_flat = expert_idx.reshape(B, Tk)
-    slot = _slots(e_flat, E, C)
-    keep = slot < E * C
+        # ---- per-row dispatch bookkeeping: (B, Tk) slots, token-major ----
+        Tk = S * k
+        e_flat = expert_idx.reshape(B, Tk)
+        slot = _slots(e_flat, E, C)
+        keep = slot < E * C
 
     # ---- each token's k rows into the expert buffers (B, E*C+1, d) ----
-    rows = torch.arange(B, device=dev)[:, None]
-    buf = x.new_zeros((B, E * C + 1, d))
-    buf[rows, slot] = x[:, :, None].expand(B, S, k, d).reshape(B, Tk, d)
-    out_buf = _expert_ffn(params, buf[:, :E * C].reshape(B, E, C, d), act)
-    out_buf = torch.cat([out_buf.reshape(B, E * C, d),
-                         x.new_zeros((B, 1, d))], dim=1)     # dummy row
+    with trace.span("moe.dispatch"):
+        br = trace.bracket("moe.dispatch")
+        rows = torch.arange(B, device=dev)[:, None]
+        buf = x.new_zeros((B, E * C + 1, d))
+        buf[rows, slot] = br.input(x)[:, :, None].expand(B, S, k, d).reshape(
+            B, Tk, d)
+        buf = br.output(buf)
+
+    with trace.span("moe.experts"):
+        br = trace.bracket("moe.experts")
+        out_buf = br.output(_expert_ffn(
+            params, br.input(buf)[:, :E * C].reshape(B, E, C, d), act))
 
     # ---- each token's k outputs, weighted, summed in choice order ----
-    w = (gate.reshape(B, Tk) * keep).to(x.dtype)[..., None]
-    y = (out_buf[rows, slot] * w).reshape(B, S, k, d).sum(2)
+    with trace.span("moe.combine"):
+        br = trace.bracket("moe.combine")
+        out_buf = torch.cat([br.input(out_buf).reshape(B, E * C, d),
+                             x.new_zeros((B, 1, d))], dim=1)  # dummy row
+        w = (gate.reshape(B, Tk) * keep).to(x.dtype)[..., None]
+        y = br.output((out_buf[rows, slot] * w).reshape(B, S, k, d).sum(2))
 
     # ---- shared expert (always-on) ----
     if "shared" in params:

@@ -67,6 +67,7 @@ from repro_torch.models.layers import (apply_rope, blocked_attention,
                                        mlp_apply, mlp_param_shapes,
                                        rms_norm)
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.obs import trace
 
 PyTree = Any
 FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
@@ -249,14 +250,19 @@ def attn_full(p: dict, x: torch.Tensor, cfg: ArchConfig,
     """
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
-    if axis_for("seq_act") is not None and S % axis_size_of("seq_act") == 0:
-        dp, sp = axis_size_of("batch"), axis_size_of("seq_act")
-        score_bytes = (B / dp) * cfg.n_heads * (S / sp) * S * 4.0
-        o = _cp_attention_shard_map(
-            q, k, v, causal=cfg.causal,
-            blocked=score_bytes > _CP_SCORE_BYTES_LIMIT)
-    else:
-        o = blocked_attention(q, k, v, causal=cfg.causal)
+    with trace.span("attention.core"):
+        br = trace.bracket("attention.core")
+        q, k, v = br.input(q), br.input(k), br.input(v)
+        if (axis_for("seq_act") is not None
+                and S % axis_size_of("seq_act") == 0):
+            dp, sp = axis_size_of("batch"), axis_size_of("seq_act")
+            score_bytes = (B / dp) * cfg.n_heads * (S / sp) * S * 4.0
+            o = _cp_attention_shard_map(
+                q, k, v, causal=cfg.causal,
+                blocked=score_bytes > _CP_SCORE_BYTES_LIMIT)
+        else:
+            o = blocked_attention(q, k, v, causal=cfg.causal)
+        o = br.output(o)
     out = o.reshape(B, S, -1) @ p["wo"]
     return out, (k, v)
 
@@ -274,7 +280,8 @@ def attn_decode(p: dict, x_t: torch.Tensor, k_cache: torch.Tensor,
     idx = pos[:1].clamp(0, k_cache.shape[1] - 1).long()
     k_cache.index_copy_(1, idx, k_new.to(k_cache.dtype))
     v_cache.index_copy_(1, idx, v_new.to(v_cache.dtype))
-    o = decode_attention(q, k_cache, v_cache, valid_len=pos + 1)
+    with trace.span("attention.core"):
+        o = decode_attention(q, k_cache, v_cache, valid_len=pos + 1)
     out = o.reshape(B, 1, -1) @ p["wo"]
     return out, k_cache, v_cache
 
@@ -328,6 +335,16 @@ def _super_block(cfg: ArchConfig, slp: dict, shared: dict, x: torch.Tensor,
     return x, st, kv
 
 
+def _spanned(block):
+    """``block`` under the span ``block``.  Given to :func:`_remat`, the
+    span lies inside the checkpoint, so the recompute runs under it too;
+    the caller brackets the block's backward (``obs.trace.bracket``)."""
+    def run(*args):
+        with trace.span("block"):
+            return block(*args)
+    return run
+
+
 def _remat(cfg: ArchConfig, block):
     """``block`` under non-reentrant ``torch.utils.checkpoint`` when the
     config asks for block remat and autograd records the call; else
@@ -356,21 +373,26 @@ def forward_hidden(cfg: ArchConfig, params: dict, x: torch.Tensor,
     stack = lambda sts: {key: torch.stack([st[key] for st in sts])
                          for key in ("conv", "h")}
     if cfg.family == "ssm":
-        block = _remat(cfg, _ssm_block)
+        block = _remat(cfg, _spanned(_ssm_block))
         states = []
         for i in range(L):
-            x, st = block(cfg, layer(params["layers"], i), x, collect_state)
+            br = trace.bracket("block")
+            x, st = block(cfg, layer(params["layers"], i), br.input(x),
+                          collect_state)
+            x = br.output(x)
             states.append(st)
         return x, {}, ({"mamba": stack(states)} if collect_state else None)
 
     ks, vs = [], []
     if cfg.family == "hybrid":
-        block = _remat(cfg, _super_block)
+        block = _remat(cfg, _spanned(_super_block))
         states = []
         for i in range(L // cfg.attn_every):
+            br = trace.bracket("block")
             x, st, (k, v) = block(cfg, layer(params["superlayers"], i),
-                                  params["shared"], x, positions,
+                                  params["shared"], br.input(x), positions,
                                   collect_state)
+            x = br.output(x)
             if collect_state:
                 states.append(st)
                 ks.append(k)
@@ -379,10 +401,13 @@ def forward_hidden(cfg: ArchConfig, params: dict, x: torch.Tensor,
                   "v": torch.stack(vs)} if collect_state else None)
         return x, {}, state
 
-    block = _remat(cfg, _block_apply)
+    block = _remat(cfg, _spanned(_block_apply))
     lb = dr = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(L):
-        x, aux, (k, v) = block(cfg, layer(params["layers"], i), x, positions)
+        br = trace.bracket("block")
+        x, aux, (k, v) = block(cfg, layer(params["layers"], i), br.input(x),
+                               positions)
+        x = br.output(x)
         if aux:
             lb = lb + aux["moe_lb_loss"]
             dr = dr + aux["moe_drop_frac"]
@@ -454,12 +479,13 @@ def decode_forward(cfg: ArchConfig, params: dict, x: torch.Tensor,
     if cfg.family == "ssm":
         convs, hs = [], []
         for i in range(cfg.n_layers):
-            lp = layer(params["layers"], i)
-            st = {k: v[i] for k, v in state["mamba"].items()}
-            y, st = M.mamba1_decode_step(
-                lp["mamba1"], rms_norm(x[:, 0], lp["ln"], cfg.norm_eps), st,
-                cfg.ssm)
-            x = x + y[:, None]
+            with trace.span("block"):
+                lp = layer(params["layers"], i)
+                st = {k: v[i] for k, v in state["mamba"].items()}
+                y, st = M.mamba1_decode_step(
+                    lp["mamba1"], rms_norm(x[:, 0], lp["ln"], cfg.norm_eps),
+                    st, cfg.ssm)
+                x = x + y[:, None]
             convs.append(st["conv"])
             hs.append(st["h"])
         new_state["mamba"] = {"conv": torch.stack(convs),
@@ -468,18 +494,20 @@ def decode_forward(cfg: ArchConfig, params: dict, x: torch.Tensor,
         shared = params["shared"]
         convs, hs = [], []
         for i in range(cfg.n_layers // cfg.attn_every):
-            slp = layer(params["superlayers"], i)
-            for j in range(cfg.attn_every - 1):
-                lp = layer(slp, j)
-                st = {k: v[i, j] for k, v in state["mamba"].items()}
-                y, st = M.mamba2_decode_step(
-                    lp["mamba2"], rms_norm(x[:, 0], lp["ln"], cfg.norm_eps),
-                    st, cfg.ssm)
-                x = x + y[:, None]
-                convs.append(st["conv"])
-                hs.append(st["h"])
-            x = _decode_block(cfg, shared, x, state["k"][i], state["v"][i],
-                              pos)
+            with trace.span("block"):
+                slp = layer(params["superlayers"], i)
+                for j in range(cfg.attn_every - 1):
+                    lp = layer(slp, j)
+                    st = {k: v[i, j] for k, v in state["mamba"].items()}
+                    y, st = M.mamba2_decode_step(
+                        lp["mamba2"],
+                        rms_norm(x[:, 0], lp["ln"], cfg.norm_eps), st,
+                        cfg.ssm)
+                    x = x + y[:, None]
+                    convs.append(st["conv"])
+                    hs.append(st["h"])
+                x = _decode_block(cfg, shared, x, state["k"][i],
+                                  state["v"][i], pos)
         lead = state["mamba"]["h"].shape[:2]
         new_state["mamba"] = {
             "conv": torch.stack(convs).reshape(
@@ -487,8 +515,9 @@ def decode_forward(cfg: ArchConfig, params: dict, x: torch.Tensor,
             "h": torch.stack(hs).reshape(lead + state["mamba"]["h"].shape[2:])}
     else:
         for i in range(cfg.n_layers):
-            x = _decode_block(cfg, layer(params["layers"], i), x,
-                              state["k"][i], state["v"][i], pos)
+            with trace.span("block"):
+                x = _decode_block(cfg, layer(params["layers"], i), x,
+                                  state["k"][i], state["v"][i], pos)
     new_state["pos"] = pos + 1
     return x, new_state
 

@@ -4,8 +4,9 @@ Design goals, in order:
 
 1. **True no-op when disabled.** ``span(...)`` returns a shared singleton
    whose ``__enter__``/``__exit__`` do nothing; the only per-call cost is
-   one global-bool check plus the (unavoidable) kwargs dict. Spans are
-   placed at batch/stage granularity (~tens per round), never per element.
+   two global-bool checks plus the (unavoidable) kwargs dict. Spans are
+   placed at batch/stage/layer granularity (~tens per round or step),
+   never per element.
 2. **Thread safety without locks on the hot path.** Each thread records
    into its own ring buffer (created lazily via ``threading.local``); the
    global registry lock is taken only on first use per thread and at
@@ -19,8 +20,14 @@ Design goals, in order:
    right after a fleet-wide barrier, so each per-worker file is already
    offset-corrected (barrier exit == t=0). ``merge_chrome`` concatenates
    worker files onto distinct pids and rebases the fleet minimum to 0.
+5. **One timeline with the device.** While ``torch.profiler`` records
+   (``torch.autograd.profiler._is_profiler_enabled``), a span also opens
+   a profiler range named ``repro.<kind>``: a Kineto ``user_annotation``
+   event on the profiler's clock, beside the kernels the span launches.
+   :func:`bracket` carries the same range into a layer's backward.
 
-Enable via ``REPRO_TRACE=1`` in the environment or ``trace.enable()``.
+Enable the ring buffer via ``REPRO_TRACE=1`` in the environment or
+``trace.enable()``; the profiler ranges follow the profiler alone.
 """
 from __future__ import annotations
 
@@ -30,6 +37,9 @@ import threading
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import torch
+from torch.autograd import profiler as _profiler
+
 __all__ = [
     "enabled",
     "enable",
@@ -37,6 +47,7 @@ __all__ = [
     "reset",
     "now_us",
     "span",
+    "bracket",
     "stage",
     "begin_async",
     "end_async",
@@ -48,6 +59,7 @@ __all__ = [
 
 TRACE_ENV = "REPRO_TRACE"
 DEFAULT_CAPACITY = 65536
+RANGE_PREFIX = "repro."      # the profiler ranges' names: repro.<kind>
 
 _enabled: bool = False
 _capacity: int = DEFAULT_CAPACITY
@@ -151,19 +163,28 @@ _NOOP = _Noop()
 
 
 class _Span:
-    __slots__ = ("kind", "args", "t0")
+    __slots__ = ("kind", "args", "t0", "rec", "rf")
 
     def __init__(self, kind: str, args: Optional[Dict[str, Any]]) -> None:
         self.kind = kind
         self.args = args
 
     def __enter__(self) -> "_Span":
+        self.rec = _enabled
+        self.rf = None
+        if _profiler._is_profiler_enabled:
+            self.rf = _profiler.record_function(RANGE_PREFIX + self.kind)
+            self.rf.__enter__()
         self.t0 = now_us()
         return self
 
     def __exit__(self, *exc: Any) -> None:
-        t1 = now_us()
-        _buffer().add(self.kind, self.t0, max(t1 - self.t0, 0), None, self.args)
+        if self.rec:
+            t1 = now_us()
+            _buffer().add(self.kind, self.t0, max(t1 - self.t0, 0), None,
+                          self.args)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
         return None
 
     def set(self, **kw: Any) -> None:
@@ -175,14 +196,115 @@ class _Span:
 
 
 def span(kind: str, **args: Any):
-    """``with span("sample", hop=2): ...`` — records a complete event.
+    """``with span("sample", hop=2): ...`` — records a complete event in
+    the ring buffer when tracing is enabled, and opens the profiler range
+    ``repro.<kind>`` while ``torch.profiler`` records.
 
     Exception-safe: the span closes (and is recorded) even if the traced
-    block raises. When tracing is disabled this returns a shared no-op.
+    block raises. When both are off this returns the shared no-op after
+    two bool checks: nothing is opened, recorded or kept.
     """
-    if not _enabled:
+    if not _enabled and not _profiler._is_profiler_enabled:
         return _NOOP
     return _Span(kind, args or None)
+
+
+# ---------------------------------------------------------------------------
+# Brackets: a span over a layer's backward
+# ---------------------------------------------------------------------------
+
+
+class _NoBracket:
+    """The shared bracket while the profiler is off or autograd does not
+    record: both ends return the tensor itself."""
+
+    __slots__ = ()
+
+    def input(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def output(self, y: torch.Tensor) -> torch.Tensor:
+        return y
+
+
+_NO_BRACKET = _NoBracket()
+
+
+class _Bracket:
+    """Two identity autograd nodes around a layer: the one on its output
+    opens ``repro.<kind>`` when the gradient reaches the layer, the one
+    on its input closes it when the gradient first leaves through an
+    input, on the thread that runs the backward (autograd's device
+    thread on the card).  Under block remat the recompute runs inside
+    the bracket of the block being differentiated."""
+
+    __slots__ = ("name", "closes", "rf")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.closes = False          # an input node will close the range
+        self.rf = None
+
+    def input(self, x: torch.Tensor) -> torch.Tensor:
+        if not x.requires_grad:
+            return x
+        self.closes = True
+        return _Close.apply(x, self)
+
+    def output(self, y: torch.Tensor) -> torch.Tensor:
+        if not (self.closes and y.requires_grad):
+            return y
+        return _Open.apply(y, self)
+
+    def open(self) -> None:
+        if self.rf is None:
+            self.rf = _profiler.record_function(self.name)
+            self.rf.__enter__()
+
+    def close(self) -> None:
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+            self.rf = None
+
+
+class _Open(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, br):
+        ctx.br = br
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.br.open()
+        return g, None
+
+
+class _Close(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, br):
+        ctx.br = br
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.br.close()
+        return g, None
+
+
+def bracket(kind: str):
+    """A layer's backward under the profiler range ``repro.<kind>``:
+
+        br = bracket("moe")
+        x = br.input(x)
+        ...
+        y = br.output(y)
+
+    Acts only while ``torch.profiler`` records and autograd records the
+    layer: otherwise ``input`` and ``output`` return the tensor itself
+    and the graph gets no node."""
+    if not _profiler._is_profiler_enabled or not torch.is_grad_enabled():
+        return _NO_BRACKET
+    return _Bracket(RANGE_PREFIX + kind)
 
 
 class _Stage:

@@ -18,7 +18,6 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve
 from repro_torch.models import lm_zoo
 from repro_torch.train.checkpoint import CheckpointManager
-from repro_torch.train.elastic import StragglerPolicy
 from repro_torch.train.optimizer import Optimizer
 
 
@@ -40,7 +39,6 @@ class LMTrainer:
         self.device = resolve(device)
         self.optimizer = optimizer or lm_zoo.make_optimizer(cfg)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
-        self.straggler = StragglerPolicy()
 
         self.step = 0
         self.cursor = 0          # data-stream position for exact resume
@@ -76,10 +74,7 @@ class LMTrainer:
         for batch in batches:
             if self.step >= max_steps:
                 break
-            t0 = time.perf_counter()
             self.state, m = self._step_fn(self.state, batch)
-            dt = time.perf_counter() - t0
-            self.straggler.observe(0, dt)
             self.step += 1
             self.cursor += 1
             if self.step % self.tcfg.log_every == 0:
